@@ -7,3 +7,10 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 # inversion anywhere fails fast with the cycle instead of a hang
 os.environ.setdefault("REPRO_LOCK_CHECK", "1")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    # tests of the port's CUDA kernels: they skip without a card
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels have no CPU "
+        "mode); skips without one")
