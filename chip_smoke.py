@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py [--docs 1000000] [--B 200000] [--seed 0]
-                          [--profile]
+                          [--lm-layers 8] [--profile]
 
-Builds the CUDA kernels from `src/repro_torch/kernels/intersect/csrc`,
-holds each against its plain PyTorch version on the card, then runs the
-port's main path at a real size: an HDFS-shaped log corpus (`--docs`
-lines) → `Builder` → `Searcher` on the card → `query_batch` of 256
-queries, top 10 (half multi-term ANDs, half planner trees with
-NOT/phrases) under `impl="bitmap"`, checked against `impl="sorted"`;
-`IoUSketch.query(impl="bitmap")` on sampled words; and
-`combine_cluster_planned` over 16 groups. The kernels' launch counts are
-zeroed just before that run and read just after it. Last, each kernel
-is timed at the shape the main path gave it (median of CUDA-event
-timings, L2 flushed before each) beside the plain version, the host↔
-device copies, and the least time the card needs for the same work.
+Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
+per library, started together) and holds each against its plain PyTorch
+version on the card. Then it drives two paths at a real size, each with
+the launch counts zeroed just before it and read just after:
+
+- the index query path: an HDFS-shaped log corpus (`--docs` lines) →
+  `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
+  10 (half multi-term ANDs, half planner trees with NOT/phrases) under
+  `impl="bitmap"`, checked against `impl="sorted"`;
+  `IoUSketch.query(impl="bitmap")` on sampled words; and
+  `combine_cluster_planned` over 16 groups;
+- LM serving: `qwen3-32b` at full width (d_model 5120, 64 heads over 8
+  KV heads, head size 128, d_ff 25600, vocab 151936) cut to
+  `--lm-layers` of its 64 layers, random bf16 weights from a seeded
+  `torch.Generator`, `decode_loop` over 4 prompts of 2000 random tokens
+  and 32 greedy tokens; then the same prefill + decode with attention
+  swapped for its plain version, teacher-forced on the same tokens, must
+  give the same logits to 3e-2 of their scale.
+
+Last, each kernel is timed at the shapes its path gave it (median of
+CUDA-event timings, L2 flushed before each) beside the plain version,
+one PyTorch library call where there is one, and the least time the card
+needs for the same work.
 
 Every phase prints one JSON line; any failure raises and the script
 exits nonzero. The last lines are the kernels line, the card's name and
@@ -43,6 +54,8 @@ SRC = ROOT / "src"
 # ANDNOT, one LOP3 each, and popc) issue at most a quarter of that.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+BF16_FLOPS_PER_S = 989e12           # dense tensor-core rate
+F32_FLOPS_PER_S = 67e12
 
 # The main path's traffic: QUERIES queries with top TOP_K, half of them
 # planner trees, of which GROUPS groups of PER go to combine_cluster.
@@ -57,6 +70,15 @@ REPLACES = {
     "combine_cluster": "src/repro/kernels/intersect/kernel.py:184",
 }
 SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+
+# LM serving: 4 prompts of 2000 tokens (deliberately not a multiple of
+# the kernel's tiles), 32 greedy tokens, logits held to LM_TOL of their
+# scale between the kernel and the plain attention (see PERF.md)
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "qwen3-32b", 4, 2000, 32
+LM_TOL = 3e-2
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/attention.cu"
+ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:63"
 
 
 def emit(obj) -> None:
@@ -465,13 +487,315 @@ def timing_phase(tx, device, rng, shapes: dict, errs: dict) -> list[dict]:
     return kernels
 
 
+# ------------------------------------------------------------ attention
+def attn_inputs(gen, shape_q, shape_kv, dtype, device):
+    import torch
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in (shape_q, shape_kv, shape_kv))
+
+
+def attn_compare(ta, name: str, q, k, v, **kw) -> float:
+    """Kernel vs plain attention on the card; raises above ATTN_TOL."""
+    import torch
+    got = ta.attention(q, k, v, device=q.device, **kw)
+    want = ta.attention(q, k, v, impl="ref", device=q.device, **kw)
+    torch.cuda.synchronize()
+    dtype = str(q.dtype).removeprefix("torch.")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= ATTN_TOL[dtype]:
+        raise AssertionError(f"{name}: kernel disagrees with the plain "
+                             f"version by {err} (> {ATTN_TOL[dtype]})")
+    return err
+
+
+def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
+    """Small shapes: causal, window, bidirectional, S < T end-aligned,
+    ragged S and T, S = 1 against a cache with empty (-1) slots, GQA
+    g = 1 and 8, head sizes 32/64/128, bfloat16 and float32."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = [  # B, S, T, H, KV, dh, causal, window, decode slots
+        (1, 128, 128, 2, 2, 64, True, None, False),
+        (2, 256, 256, 8, 1, 128, True, None, False),
+        (1, 100, 300, 8, 1, 64, True, None, False),
+        (2, 77, 77, 4, 2, 128, True, 32, False),
+        (1, 130, 130, 2, 2, 64, False, None, False),
+        (1, 5, 3, 2, 1, 32, False, None, False),
+        (3, 1, 77, 8, 1, 128, True, None, True),
+        (2, 1, 200, 16, 2, 64, True, 50, True),
+        (4, 1, 2032, 64, 8, 128, True, None, True),
+    ]
+    errs = dict.fromkeys(ATTN_TOL, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, T, H, KV, dh, causal, window, slots in cases:
+            q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh), dtype,
+                                  device)
+            kw = {"causal": causal, "window": window}
+            if slots:        # one query at pos, slots past it empty
+                pos = T * 2 // 3
+                kpos = torch.arange(T, dtype=torch.int32, device=device)
+                kpos[pos + 1:] = -1
+                kw.update(q_positions=kpos[pos:pos + 1].clone(),
+                          kv_positions=kpos)
+            name = f"attn {dtype} {(B, S, T, H, KV, dh, causal, window)}"
+            key = str(dtype).removeprefix("torch.")
+            errs[key] = max(errs[key], attn_compare(ta, name, q, k, v, **kw))
+    emit({"phase": "attn_edge", "cases": 2 * len(cases),
+          "max_abs_err": errs, "tolerance": ATTN_TOL})
+    return errs
+
+
+def teacher_forced(model, params, prompt, tokens):
+    """Prefill + decode fed `tokens` (B, n): logits (n + 1, B, vocab)."""
+    import torch
+    n = tokens.shape[1]
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  pad_to=prompt.shape[1] + n)
+    steps = [logits]
+    for t in range(n):
+        logits, cache = model.decode_step(params, cache,
+                                          {"tokens": tokens[:, t:t + 1]})
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def lm_phase(args, device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models import build_model, init_params, param_count
+    from repro_torch.models.transformer import TransformerModel
+
+    cfg = get_config(LM_ARCH).with_(n_layers=args.lm_layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_desc(),
+                         torch.Generator(device=device).manual_seed(args.seed),
+                         device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        4, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    decode_loop(model, params, prompt[:, :64], 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_loop(model, params, prompt, LM_TOKENS)
+    launches = ta.LAUNCHES["flash_attention"]
+    shapes = dict(ta.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    want = cfg.n_layers * (1 + LM_TOKENS)
+    if launches != want:
+        raise AssertionError(f"flash_attention launched {launches} times on "
+                             f"the LM path, expected {want}")
+    if out.logits.shape != (LM_BATCH, cfg.vocab) \
+            or out.tokens.shape != (LM_BATCH, LM_TOKENS) \
+            or not torch.isfinite(out.logits).all():
+        raise AssertionError("decode_loop gave malformed or non-finite "
+                             "logits")
+
+    # the same prefill + decode, kernel vs plain attention, teacher-forced
+    t0 = time.perf_counter()
+    kern = teacher_forced(model, params, prompt, out.tokens)
+    plain = teacher_forced(TransformerModel(cfg, attn_impl="ref"), params,
+                           prompt, out.tokens)
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise AssertionError("teacher-forced logits are not finite")
+    scale = float(plain.abs().max())
+    rel = float((kern - plain).abs().max()) / scale
+    per_step = ((kern - plain).abs().amax(dim=(1, 2))
+                / plain.abs().amax(dim=(1, 2))).tolist()
+    same_argmax = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    repeat = float((kern[-1] - out.logits).abs().max())
+    emit({"phase": "lm", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "layers_published": get_config(LM_ARCH).n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+          "head_dim": cfg.dh, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "params": param_count(params), "init_s": init_s,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_TOKENS,
+          "cache_slots": LM_PROMPT + LM_TOKENS,
+          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+          "decode_s_per_token": out.decode_s / LM_TOKENS,
+          "decode_tok_per_s": LM_BATCH * LM_TOKENS / out.decode_s,
+          "peak_device_bytes": peak_bytes,
+          "attention_launches": launches,
+          "attention_shapes": {str(k): v for k, v in shapes.items()},
+          "greedy_tokens": out.tokens.tolist(),
+          "vs_plain_attention": {"max_err_over_max_logit": rel,
+                                 "tolerance": LM_TOL,
+                                 "per_step": per_step,
+                                 "argmax_agreement": same_argmax,
+                                 "max_logit": scale, "wall_s": compare_s},
+          "decode_loop_vs_forced_rerun_max_abs": repeat})
+    if not rel <= LM_TOL:
+        raise AssertionError(f"LM logits through the kernel differ from the "
+                             f"plain attention by {rel} of their scale "
+                             f"(> {LM_TOL})")
+    if args.profile:
+        lm_profile(model, params, prompt)
+    return {"launches": launches, "shapes": shapes}
+
+
+def lm_profile(model, params, prompt, steps: int = 4) -> None:
+    """torch.profiler over `steps` decode steps after a prefill: the
+    card's busy time (the union of its kernels' intervals) against the
+    host's wall time for the same steps, and the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  pad_to=prompt.shape[1] + steps + 1)
+    logits, cache = model.decode_step(                      # warm-up step
+        params, cache, {"tokens": logits.argmax(-1).to(torch.int32)[:, None]})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": tok})
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + end - start, count + 1)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):              # union of intervals
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit({"phase": "lm_profile", "decode_steps": steps,
+          "host_wall_us_per_step": wall_us / steps,
+          "device_busy_us_per_step": busy_us / steps,
+          "device_idle_share": 1 - busy_us / wall_us if spans else None,
+          "device_events": len(spans),
+          "top_kernels_us_per_step": [[name[:90], us / steps, n / steps]
+                                      for name, (us, n) in top]})
+
+
+def attn_bound(qpos, kpos, B, S, T, H, KV, dh, nbytes_el) -> tuple:
+    """Least card time (ms) for one attention call on these positions:
+    4·dh flops per allowed (query, key) pair and head over the bf16 (or
+    float32) rate, against q, k, v, o and positions moved once over HBM
+    bandwidth; the larger, and which it is."""
+    import torch
+    ok = (kpos >= 0)[None, :] & (qpos[:, None] >= kpos[None, :])
+    pairs = int(ok.sum())
+    flops = 4 * B * H * pairs * dh
+    nbytes = nbytes_el * dh * (2 * B * S * H + 2 * B * T * KV) + 4 * (S + T)
+    rate = BF16_FLOPS_PER_S if nbytes_el == 2 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def attn_timing_phase(ta, device, seed: int, shapes: dict,
+                      edge_errs: dict) -> dict:
+    """Time the kernel at the LM path's prefill and decode shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    picked = {}
+    for key in shapes:
+        picked["decode" if key[1] == 1 else "prefill"] = key
+    out_shapes = {}
+    errs = dict(edge_errs)
+    for kind, key in sorted(picked.items(), reverse=True):
+        B, S, T, H, KV, dh, dtype_name = key
+        dtype = getattr(torch, dtype_name)
+        q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh), dtype,
+                              device)
+        kpos = torch.arange(T, dtype=torch.int32, device=device)
+        # prefill: the model's arange positions; decode: the last step of
+        # the main path, one query at T - 1 against a full cache
+        qpos = kpos.clone() if S == T else kpos[T - S:].clone()
+        kw = {"causal": True, "q_positions": qpos, "kv_positions": kpos}
+        err = attn_compare(ta, f"flash_attention {kind} {key}", q, k, v,
+                           **kw)
+        errs[dtype_name] = max(errs[dtype_name], err)
+        out = torch.empty_like(q)
+        kernel_ms = cuda_ms(lambda: ta.launch(q, k, v, out, True, None,
+                                              qpos, kpos), flush)
+        plain_ms = cuda_ms(lambda: ta.attention_ref(q, k, v, **kw), flush)
+        # the library yardstick: one SDPA call, (B, H, S, dh) views
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)) if S == T else \
+            (lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                    enable_gqa=True))
+        sdpa_err = float((sdpa().transpose(1, 2).float()
+                          - out.float()).abs().max())
+        library_ms = cuda_ms(sdpa, flush)
+        bound_ms, bound_by, flops, nbytes = attn_bound(
+            qpos, kpos, B, S, T, H, KV, dh, q.element_size())
+        out_shapes[kind] = {
+            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "dh": dh,
+                      "dtype": dtype_name},
+            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "scaled_dot_product_attention"
+            "(enable_gqa=True)", "library_max_abs_diff": sdpa_err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "max_abs_err": err,
+            "share_of_bound": bound_ms / kernel_ms}
+    main = out_shapes["prefill"]
+    return {"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES,
+            "launches": sum(shapes.values()),
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_dtype": errs, "tolerance": ATTN_TOL,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "at": "prefill",
+            "shapes": out_shapes}
+
+
+def build_phase(libraries) -> None:
+    """One nvcc per kernel library, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        list(pool.map(lambda lib: lib.lib(), libraries))
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "libraries": {lib.name: {
+              "nvcc_s": lib.build_info["seconds"],
+              "library": lib.build_info["path"],
+              "ptxas": [ln.strip() for ln in
+                        lib.build_info["ptxas"].splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling entry" in ln]}
+              for lib in libraries}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--B", type=int, default=200_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-layers", type=int, default=8,
+                    help=f"layers of {LM_ARCH}'s 64 on the LM path")
     ap.add_argument("--profile", action="store_true",
-                    help="also cProfile one bitmap and one sorted batch")
+                    help="also cProfile one bitmap and one sorted batch, "
+                    "and trace four LM decode steps with torch.profiler")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "kernels").is_dir():
@@ -482,8 +806,8 @@ def main() -> int:
                          " is false)")
     sys.path.insert(0, str(SRC))
     import numpy as np
+    from repro_torch.kernels import attention as ta
     from repro_torch.kernels import intersect as tx
-    from repro_torch.kernels.intersect import _build
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -492,20 +816,21 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "numpy": np.__version__})
 
-    t0 = time.perf_counter()
-    _build.lib()
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "nvcc_s": _build.build_info["seconds"],
-          "library": _build.build_info["path"],
-          "ptxas": [ln for ln in _build.build_info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    # full float32 products in every plain version (PyTorch's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_phase([tx.LIBRARY, ta.LIBRARY])
 
     rng = np.random.default_rng(args.seed)
     errs = edge_phase(tx, device, rng)
+    attn_errs = attn_edge_phase(ta, device, args.seed)
     main = main_phase(args, device)
     kernels = timing_phase(tx, device, rng, main["shapes"], errs)
     for k in kernels:
         k["launches"] = main["launches"][k["name"]]
+    lm = lm_phase(args, device)
+    kernels.append(attn_timing_phase(ta, device, args.seed, lm["shapes"],
+                                     attn_errs))
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

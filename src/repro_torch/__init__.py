@@ -1,9 +1,12 @@
 """Airphant on PyTorch + CUDA: the IoU Sketch index's query path, with
-the round-1 candidate combine on an NVIDIA Hopper card.
+the round-1 candidate combine on an NVIDIA Hopper card, and LM serving
+(prefill + KV-cache decode of the dense transformer) with its attention
+in a hand-written flash kernel.
 
-Mirrors `repro` (the JAX package) module for module, over the slice
-ported so far: build → open → `query_batch(impl="bitmap")`. Subpackages
-import lazily — `import repro_torch` touches neither torch nor numpy:
+Mirrors `repro` (the JAX package) module for module, over the slices
+ported so far: build → open → `query_batch(impl="bitmap")`, and
+`configs` / `models` / `launch.serve.decode_loop`. Subpackages import
+lazily — `import repro_torch` touches neither torch nor numpy:
 
     from repro_torch import Builder, BuilderConfig, Searcher, as_transport
     Builder(BuilderConfig(B=20_000)).build(corpus, store, "idx/logs")

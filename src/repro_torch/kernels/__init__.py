@@ -2,9 +2,11 @@
 
   intersect/  — IoU Sketch L-way bitmap AND + popcount and the
                 AND/OR/ANDNOT program evaluator (the query combine)
+  attention/  — forward flash attention with positions and GQA (the
+                LM's prefill and decode attention)
 
-Each package ships the CUDA source (`csrc/`), a ctypes loader that
-builds it with nvcc on first use (`_build.py`), wrappers with launch
-counters (`ops.py`), and the plain PyTorch version (`ref.py`) that CPU
+Each package ships the CUDA source (`csrc/`), built with nvcc on first
+use and loaded with ctypes by the shared helper (`_build.py`), wrappers
+with launch counters, and the plain PyTorch version (`ref.py`) that CPU
 tensors take and the card's results are held against.
 """

@@ -18,9 +18,13 @@ it checks no input and counts nothing.
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from .._build import Library
 from .ref import (combine_batch_ref, combine_cluster_ref,
                   intersect_batch_ref, intersect_ref)
 
@@ -29,6 +33,21 @@ OP_AND, OP_OR, OP_ANDNOT = 0, 1, 2
 
 _MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y (one row each)
 _MAX_INT = 2**31 - 1         # the kernels index words with int
+
+
+def _declare(handle: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    handle.intersect_max_steps.argtypes = []
+    handle.intersect_max_steps.restype = i
+    handle.and_popcount_launch.argtypes = [vp, vp, vp, i, i, i, vp]
+    handle.and_popcount_launch.restype = i
+    handle.combine_program_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    handle.combine_program_launch.restype = i
+
+
+# `csrc/intersect.cu`, built by nvcc on first launch
+LIBRARY = Library("intersect", Path(__file__).resolve().parent / "csrc",
+                  _declare)
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("intersect", "intersect_batch", "combine_batch", "combine_cluster"), 0)
@@ -176,8 +195,6 @@ def _launch(name: str, shapes: tuple, bm: torch.Tensor,
     """Run a CUDA kernel over (rows, L, W) bitmaps on their card:
     `and_popcount`, or `combine_program` when (rows, S, 3) programs are
     given. `shapes` are the caller's input shapes, kept in LAST_SHAPE."""
-    from . import _build
-
     rows, L, W = bm.shape
     if bm.device.type != "cuda" or bm.dtype != torch.int32 \
             or not bm.is_contiguous():
@@ -186,7 +203,7 @@ def _launch(name: str, shapes: tuple, bm: torch.Tensor,
     if rows > _MAX_GRID_Y or W > _MAX_INT - 255:
         raise ValueError(f"{rows} rows of {W} words exceed the kernel's "
                          "grid")
-    lib = _build.lib()
+    lib = LIBRARY.lib()
     if prog is not None:
         S = prog.shape[1]
         if prog.device != bm.device or prog.dtype != torch.int32 \
@@ -213,9 +230,7 @@ def launch(name: str, bm: torch.Tensor, prog: torch.Tensor | None,
 
     Checks no input and counts no launch: `_launch` does both before it
     calls this. Raises if the launch itself fails."""
-    from . import _build
-
-    lib = _build.lib()
+    lib = LIBRARY.lib()
     rows, L, W = bm.shape
     stream = torch.cuda.current_stream().cuda_stream
     if prog is None:

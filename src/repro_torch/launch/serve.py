@@ -1,0 +1,98 @@
+"""Serve launcher (CLI): LM decode with a KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
+
+Mirrors `repro/launch/serve.py --mode decode` on the reduced config of
+`--arch`, with weights drawn from a seeded `torch.Generator`: prefill of
+`--batch` random 32-token prompts, then greedy decoding. `--mode search`
+and `--mode rag` need `SearchService`, which is not ported yet (ROADMAP
+queue 1, items 5 and 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import torch
+
+PROMPT_LEN = 32
+
+
+@dataclass
+class Decoded:
+    tokens: torch.Tensor          # (B, n_tokens) greedy tokens fed back in
+    logits: torch.Tensor          # (B, vocab) float32 after the last token
+    prefill_s: float              # host wall time, the device synchronised
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def decode_loop(model, params, prompt, n_tokens: int) -> Decoded:
+    """Prefill `prompt` (B, S) into a cache of S + n_tokens slots, then
+    feed back the argmax token `n_tokens` times."""
+    device = params["embed"].device
+    prompt = torch.as_tensor(prompt, device=device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  pad_to=prompt.shape[1] + n_tokens)
+    _sync(device)
+    t1 = time.perf_counter()
+    tokens = []
+    for _ in range(n_tokens):
+        tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        tokens.append(tok)
+        logits, cache = model.decode_step(params, cache, {"tokens": tok})
+    _sync(device)
+    t2 = time.perf_counter()
+    out = torch.cat(tokens, dim=1) if tokens else \
+        prompt.new_zeros((prompt.shape[0], 0))
+    return Decoded(out, logits, t1 - t0, t2 - t1)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="search",
+                    choices=["search", "rag", "decode"])
+    ap.add_argument("--arch", default="qwen3-32b")
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.mode != "decode":
+        raise SystemExit(f"--mode {args.mode} needs SearchService, which is "
+                         "not ported yet (ROADMAP queue 1, items 5 and 8)")
+
+    import numpy as np
+
+    from ..configs import get_config
+    from ..kernels.intersect.ops import resolve_device
+    from ..models import build_model, init_params
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=True)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(model.param_desc(), gen, device)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(
+        rng.integers(4, cfg.vocab, (args.batch, PROMPT_LEN))).to(device)
+    out = decode_loop(model, params, prompt, args.tokens)
+    if not torch.isfinite(out.logits).all():
+        raise SystemExit("decode produced non-finite logits")
+    print(f"{cfg.name} (reduced) on {device}: prefill {args.batch}×"
+          f"{PROMPT_LEN} in {out.prefill_s:.3f}s; decoded {args.tokens} "
+          f"tokens × batch {args.batch} in {out.decode_s:.3f}s "
+          f"({args.tokens * args.batch / max(out.decode_s, 1e-9):.1f} tok/s)")
+    print("greedy tokens:", out.tokens.tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Shared model machinery: parameter descriptors and initialisation.
+
+Parameters are described once as a tree (nested dicts) of `Desc` (shape,
+dtype, initializer), as in the JAX package; `init_params` draws real
+tensors from a `torch.Generator` under the same rules. The JAX package's
+logical sharding (`AxisRules`, `NamedSharding`) has no counterpart yet:
+this port runs on one card, and sharding over a DeviceMesh is ROADMAP
+queue 1, item 7.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+
+
+@dataclass(frozen=True)
+class Desc:
+    """One parameter: shape + dtype + init."""
+
+    shape: tuple[int, ...]
+    init: str = "normal"                  # normal | zeros | ones | full
+    dtype: torch.dtype = torch.bfloat16
+    scale: float | None = None            # std for normal, value for full
+
+    def fan_in(self) -> int:
+        return self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+
+
+def stacked(desc: Desc, n: int) -> Desc:
+    """Add a leading layer axis (parameters stacked over layers)."""
+    return replace(desc, shape=(n,) + desc.shape)
+
+
+def tree_map(fn, tree):
+    """Apply `fn` to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order, the order `jax.tree` flattens dicts."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack_tree(tree, n: int):
+    return tree_map(lambda d: stacked(d, n), tree)
+
+
+def _init_leaf(desc: Desc, generator: torch.Generator, device) -> torch.Tensor:
+    if desc.init == "zeros":
+        return torch.zeros(desc.shape, dtype=desc.dtype, device=device)
+    if desc.init == "ones":
+        return torch.ones(desc.shape, dtype=desc.dtype, device=device)
+    if desc.init == "full":
+        return torch.full(desc.shape, desc.scale, dtype=desc.dtype,
+                          device=device)
+    scale = desc.scale if desc.scale is not None else \
+        1.0 / math.sqrt(max(desc.fan_in(), 1))
+    x = torch.randn(desc.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(scale).to(desc.dtype)
+
+
+def init_params(tree, generator: torch.Generator, device="cuda") -> Any:
+    """Tensors for a `Desc` tree on `device`, drawn from `generator` (which
+    must live on that device) leaf by leaf in sorted-key order."""
+    return tree_map(lambda d: _init_leaf(d, generator, device), tree)
+
+
+def param_count(tree) -> int:
+    """Exact count from a `Desc` or tensor tree."""
+    return sum(math.prod(leaf.shape) for leaf in tree_leaves(tree))

@@ -3,13 +3,17 @@
 Marked `cuda`: they skip without a card (the kernels have no CPU mode)
 and run on one with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Only the port, torch and numpy are imported, so they run where JAX is
-not installed. Every comparison is exact (integer bitmaps and counts).
+not installed. The intersect comparisons are exact (integer bitmaps and
+counts); flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
+(the JAX package's tolerances for its Pallas kernel), with TF32 off in
+the plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import attention as ta
 from repro_torch.kernels import intersect as tx
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +115,82 @@ def test_searcher_on_card_matches_cpu(card):
     a, b = results.values()
     assert [(r.refs, r.texts, r.stats) for r in a] == \
         [(r.refs, r.texts, r.stats) for r in b]
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,dh,causal,window,slots", [
+    (1, 128, 128, 2, 2, 64, True, None, False),
+    (2, 100, 300, 8, 1, 128, True, None, False),   # S < T, ragged, g = 8
+    (2, 77, 77, 4, 2, 32, True, 16, False),        # window, ragged
+    (1, 65, 130, 2, 2, 64, False, None, False),    # bidirectional
+    (3, 1, 77, 8, 1, 128, True, None, True),       # decode, kpos = -1 tail
+    (2, 1, 200, 16, 2, 64, True, 50, True),        # decode with a window
+])
+def test_flash_attention_matches_plain_on_card(card, B, S, T, H, KV, dh,
+                                               causal, window, slots, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(B * 7 + S + T + dh)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+               .to(card, dtype) for shape in
+               ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
+    qpos = kpos = None
+    if slots:                   # one query at 60 against a partly empty cache
+        kpos = torch.full((T,), -1, dtype=torch.int32)
+        kpos[:61] = torch.arange(61)
+        qpos = torch.tensor([60], dtype=torch.int32).to(card)
+        kpos = kpos.to(card)
+    ta.reset_launches()
+    got = ta.attention(q, k, v, causal=causal, window=window,
+                       q_positions=qpos, kv_positions=kpos, device=card)
+    want = ta.attention(q, k, v, causal=causal, window=window,
+                        q_positions=qpos, kv_positions=kpos, impl="ref",
+                        device=card)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+
+
+def test_flash_attention_rows_without_keys_are_zero_on_card(card):
+    q, k, v = (torch.randn(1, n, 2, 64, device=card) for n in (2, 6, 6))
+    out = ta.attention(q, k[:, :, :1], v[:, :, :1],
+                       q_positions=torch.tensor([-5, 2], dtype=torch.int32),
+                       kv_positions=torch.tensor([0, 1, 2, -1, -1, -1],
+                                                 dtype=torch.int32),
+                       device=card)
+    assert not out[0, 0].any() and out[0, 1].abs().sum() > 0
+
+
+def test_reduced_qwen3_decode_on_card_matches_plain_attention(card):
+    """Prefill + 3 decode steps of the reduced qwen3-32b, bf16: the model
+    through the kernel against the same model through the plain version,
+    teacher-forced on the same tokens, logits to 3e-2 of their scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import TransformerModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-32b", reduced=True)
+    kernel, plain = TransformerModel(cfg), TransformerModel(cfg, "ref")
+    params = init_params(kernel.param_desc(),
+                         torch.Generator(card).manual_seed(1), card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab, (2, 43))).to(card)
+    ta.reset_launches()
+    runs = []
+    for model in (kernel, plain):
+        logits, cache = model.prefill(params, {"tokens": toks[:, :40]},
+                                      pad_to=43)
+        steps = [logits]
+        for t in range(3):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": toks[:, 40 + t:41 + t]})
+            steps.append(logits)
+        runs.append(torch.stack(steps))
+    assert ta.LAUNCHES["flash_attention"] == 4 * cfg.n_layers
+    scale = max(float(runs[1].abs().max()), 1.0)
+    assert float((runs[0] - runs[1]).abs().max()) <= 3e-2 * scale

@@ -225,16 +225,22 @@ def test_cuda_without_a_card_raises():
             call()
 
 
-
+@pytest.mark.parametrize("package", ["intersect", "attention"])
 def test_kernel_build_needs_nvcc_and_reuses_a_built_library(tmp_path,
-                                                            monkeypatch):
-    from repro_torch.kernels.intersect import _build
+                                                            monkeypatch,
+                                                            package):
+    import importlib
+
+    from repro_torch.kernels import _build
+    library = importlib.import_module(f"repro_torch.kernels.{package}").LIBRARY
     monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build()
-    built = _build.library_path()
-    assert built.parent == tmp_path and built.name.startswith("libintersect-")
+        library.build()
+    built = library.library_path()
+    assert built.parent == tmp_path and built.name.startswith(f"lib{package}-")
+    assert [p.name for p in library.sources()] == [f"{package}.cu"]
     built.write_bytes(b"")          # same sources and flags: no rebuild
-    assert _build.build() == built
+    assert library.build() == built
+    assert library.build_info["seconds"] == 0.0

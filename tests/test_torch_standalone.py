@@ -1,5 +1,6 @@
-"""The port stands alone: it runs with JAX, the JAX package and msgpack
-out of reach, and none of its files (nor `chip_smoke.py`) imports them.
+"""The port stands alone: it runs with JAX, the JAX package, msgpack and
+ml_dtypes out of reach, and none of its files (nor `chip_smoke.py`)
+imports them.
 
 The blocking happens in a subprocess: blocking modules in this process
 would leak into every later test of the same worker."""
@@ -11,11 +12,12 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "repro", "msgpack"):
+BLOCKED = {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
+for name in BLOCKED:
     sys.modules[name] = None          # any import of them now raises
 
 import repro_torch
@@ -35,14 +37,30 @@ bitmap = searcher.query_batch(qs, top_k=3)
 plain = searcher.query_batch(qs, top_k=3, impl="sorted")
 assert [r.refs for r in bitmap] == [r.refs for r in plain]
 assert any(r.refs for r in bitmap)
+
+import torch
+import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+from repro_torch.kernels import attention as ta
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import decode_loop
+from repro_torch.models import build_model, init_params
+cfg = get_config("qwen3-32b", reduced=True)
+model = build_model(cfg)
+params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                     "cpu")
+out = decode_loop(model, params, torch.randint(4, cfg.vocab, (2, 9)), 2)
+assert out.tokens.shape == (2, 2) and torch.isfinite(out.logits).all()
+q = torch.randn(1, 5, 4, 32)
+assert ta.attention(q, q[:, :, :2], q[:, :, :2], device="cpu").shape == q.shape
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
-                and m.split(".")[0] in {"jax", "jaxlib", "repro", "msgpack"})
+                and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("standalone ok", [len(r.refs) for r in bitmap])
 """
 
 
 def test_port_builds_and_queries_with_jax_repro_msgpack_blocked():
+    """Index path, then configs, models, attention and the serve loop."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                           cwd=REPO, capture_output=True, text=True,
@@ -68,6 +86,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_no_port_file_imports_jax_repro_or_msgpack():
+    """Nor ml_dtypes."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
