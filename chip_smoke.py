@@ -6,8 +6,12 @@
 
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
 per library, started together) and holds each against its plain PyTorch
-version on the card. Then it drives two paths at a real size, each with
-the launch counts zeroed just before it and read just after:
+version on the card (`edge`, `attn_edge`, and `wkv_edge`: the wkv kernel
+over S in {1, 37, 128, 2000}, head sizes 32/64/128, bf16 and float32
+r/k/v, with and without an initial state, out and final state within
+1e-4 of their largest |value|). Then it drives three paths at a real
+size, each with the launch counts zeroed just before it and read just
+after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
   `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
@@ -21,7 +25,16 @@ the launch counts zeroed just before it and read just after:
   `torch.Generator`, `decode_loop` over 4 prompts of 2000 random tokens
   and 32 greedy tokens; then the same prefill + decode with attention
   swapped for its plain version, teacher-forced on the same tokens, must
-  give the same logits to 3e-2 of their scale.
+  give the same logits to 3e-2 of their scale;
+- RWKV serving (`rwkv`): `rwkv6-3b` at its published widths and all 32
+  layers (d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536), random
+  bf16 weights from a seeded `torch.Generator`, `decode_loop` over 4
+  prompts of 2000 random tokens and 32 greedy tokens (exactly 32 × 33
+  wkv launches); then the same tokens teacher-forced through the plain
+  wkv must give the same logits: in float32 to 1e-4 of their scale at 4
+  layers and 2e-3 at 32; in bf16, where random weights amplify rounding
+  with depth, printed at 4, 8 and 16 layers and bounded at 32 only by
+  their scale (`RWKV_CHECKS`).
 
 Last, each kernel is timed at the shapes its path gave it (median of
 CUDA-event timings, L2 flushed before each) beside the plain version,
@@ -70,6 +83,26 @@ REPLACES = {
     "combine_cluster": "src/repro/kernels/intersect/kernel.py:184",
 }
 SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+
+# RWKV serving: the same traffic as the LM path, all 32 layers. The model
+# through the kernel is held to the same model through the plain wkv,
+# teacher-forced, at each (dtype, layers, bound) of RWKV_CHECKS: the
+# largest logit difference over the largest |logit| must stay within the
+# bound (None: printed only; layers 0: the configuration's full depth).
+# With random weights a one-ulp bf16 rounding of the wkv output grows
+# 2.4-4x with each doubling of depth, to half the logits' scale at 32
+# layers (PERF.md, section 6). So at full depth bf16 only shows both runs
+# finite and of one scale (RWKV_BF16_TOL); the float32 runs, whose
+# roundings are 2^16 times smaller, hold the kernel to 1e-4 at 4 layers
+# and to 2e-3 at 32.
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BF16_TOL = 1.0
+RWKV_CHECKS = (("bfloat16", 0, RWKV_BF16_TOL), ("bfloat16", 4, None),
+               ("bfloat16", 8, None), ("bfloat16", 16, None),
+               ("float32", 4, 1e-4), ("float32", 0, 2e-3))
+WKV_TOL = 1e-4                    # of the largest |value|, out and state
+WKV_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv/kernel.py:50"
 
 # LM serving: 4 prompts of 2000 tokens (deliberately not a multiple of
 # the kernel's tiles), 32 greedy tokens, logits held to LM_TOL of their
@@ -551,9 +584,9 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
 def teacher_forced(model, params, prompt, tokens):
     """Prefill + decode fed `tokens` (B, n): logits (n + 1, B, vocab)."""
     import torch
+    from repro_torch.launch.serve import prefill
     n = tokens.shape[1]
-    logits, cache = model.prefill(params, {"tokens": prompt},
-                                  pad_to=prompt.shape[1] + n)
+    logits, cache = prefill(model, params, prompt, n)
     steps = [logits]
     for t in range(n):
         logits, cache = model.decode_step(params, cache,
@@ -647,27 +680,10 @@ def lm_phase(args, device) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
-def lm_profile(model, params, prompt, steps: int = 4) -> None:
-    """torch.profiler over `steps` decode steps after a prefill: the
-    card's busy time (the union of its kernels' intervals) against the
-    host's wall time for the same steps, and the kernels that take it."""
+def _device_time(prof):
+    """The card's busy µs (the union of its kernels' intervals), its event
+    count, and µs and count by kernel name, from a torch.profiler run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    logits, cache = model.prefill(params, {"tokens": prompt},
-                                  pad_to=prompt.shape[1] + steps + 1)
-    logits, cache = model.decode_step(                      # warm-up step
-        params, cache, {"tokens": logits.argmax(-1).to(torch.int32)[:, None]})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tok = logits.argmax(-1).to(torch.int32)[:, None]
-            logits, cache = model.decode_step(params, cache,
-                                              {"tokens": tok})
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -681,14 +697,54 @@ def lm_profile(model, params, prompt, steps: int = 4) -> None:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
+    return busy_us, len(spans), by_name
+
+
+def lm_profile(model, params, prompt, steps: int = 4,
+               phase: str = "lm_profile") -> None:
+    """torch.profiler over one prefill and then `steps` decode steps: the
+    card's busy time against the host's wall time for the same work, and
+    the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import prefill
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        return out, wall_us, _device_time(prof)
+
+    (logits, cache), pre_wall, (pre_busy, _, pre_names) = traced(
+        lambda: prefill(model, params, prompt, steps + 1))
+    logits, cache = model.decode_step(                      # warm-up step
+        params, cache, {"tokens": logits.argmax(-1).to(torch.int32)[:, None]})
+
+    def decode():
+        nonlocal logits, cache
+        for _ in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": tok})
+    _, wall_us, (busy_us, events, by_name) = traced(decode)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "lm_profile", "decode_steps": steps,
+    pre_top = sorted(pre_names.items(), key=lambda kv: -kv[1][0])[:8]
+    emit({"phase": phase, "decode_steps": steps,
           "host_wall_us_per_step": wall_us / steps,
           "device_busy_us_per_step": busy_us / steps,
-          "device_idle_share": 1 - busy_us / wall_us if spans else None,
-          "device_events": len(spans),
+          "device_idle_share": 1 - busy_us / wall_us if events else None,
+          "device_events": events,
           "top_kernels_us_per_step": [[name[:90], us / steps, n / steps]
-                                      for name, (us, n) in top]})
+                                      for name, (us, n) in top],
+          "prefill": {"host_wall_us": pre_wall, "device_busy_us": pre_busy,
+                      "device_idle_share": 1 - pre_busy / pre_wall,
+                      "top_kernels_us": [[name[:90], us, n] for name, (us, n)
+                                         in pre_top]}})
 
 
 def attn_bound(qpos, kpos, B, S, T, H, KV, dh, nbytes_el) -> tuple:
@@ -769,6 +825,236 @@ def attn_timing_phase(ta, device, seed: int, shapes: dict,
             "shapes": out_shapes}
 
 
+# ------------------------------------------------------------------ wkv
+def wkv_inputs(gen, B, S, H, dh, dtype, device):
+    """r, k, v (dtype), w in (0.5, 0.999), u and s0 (float32): the JAX
+    package's test distributions."""
+    import torch
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=gen, device=device)
+    r, k, v = (normal((B, S, H, dh), std).to(dtype) for std in (1, 0.3, 1))
+    w = 0.5 + 0.499 * torch.rand((B, S, H, dh), generator=gen, device=device)
+    return r, k, v, w, normal((H, dh), 0.3), normal((B, H, dh, dh), 0.1)
+
+
+def wkv_compare(tr, name: str, r, k, v, w, u, s0) -> tuple[float, float]:
+    """Kernel vs plain wkv on the card: the largest absolute difference
+    and the largest over the plain version's largest |value|, each of out
+    and the final state; raises above WKV_TOL."""
+    import torch
+    got = tr.wkv(r, k, v, w, u, s0, device=r.device)
+    want = tr.wkv(r, k, v, w, u, s0, impl="ref", device=r.device)
+    torch.cuda.synchronize()
+    abs_err = scaled = 0.0
+    for what, g, p in zip(("out", "s_fin"), got, want):
+        if g.shape != p.shape or g.dtype != p.dtype:
+            raise AssertionError(f"{name} {what}: {g.shape}/{g.dtype} vs "
+                                 f"{p.shape}/{p.dtype}")
+        err = float((g - p).abs().max())
+        rel = err / max(float(p.abs().max()), 1e-30)
+        if not rel <= WKV_TOL:
+            raise AssertionError(f"{name} {what}: kernel disagrees with the "
+                                 f"plain version by {rel} of its scale "
+                                 f"(> {WKV_TOL})")
+        abs_err, scaled = max(abs_err, err), max(scaled, rel)
+    return abs_err, scaled
+
+
+def wkv_edge_phase(tr, device, seed: int) -> dict:
+    """S in {1, 37, 128, 2000} × head sizes 32/64/128 × bf16/float32 r/k/v
+    × with and without s0, B = 2, H = 3."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    errs = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    cases = 0
+    for S in (1, 37, 128, 2000):
+        for dh in tr.HEAD_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                r, k, v, w, u, s0 = wkv_inputs(gen, 2, S, 3, dh, dtype,
+                                               device)
+                for init in (None, s0):
+                    a, rel = wkv_compare(
+                        tr, f"wkv {(2, S, 3, dh)} {dtype} s0="
+                        f"{init is not None}", r, k, v, w, u, init)
+                    errs["max_abs_err"] = max(errs["max_abs_err"], a)
+                    errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+                    cases += 1
+    emit({"phase": "wkv_edge", "cases": cases, **errs,
+          "tolerance": WKV_TOL})
+    return errs
+
+
+def rwkv_phase(args, device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv as tr
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models import (RWKVModel, build_model, init_params,
+                                    param_count)
+    from repro_torch.models.common import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_desc(),
+                         torch.Generator(device=device).manual_seed(args.seed),
+                         device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        4, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    decode_loop(model, params, prompt[:, :64], 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    tr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_loop(model, params, prompt, LM_TOKENS)
+    launches = tr.LAUNCHES["wkv"]
+    shapes = dict(tr.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    want = cfg.n_layers * (1 + LM_TOKENS)
+    if launches != want:
+        raise AssertionError(f"wkv launched {launches} times on the RWKV "
+                             f"path, expected {want}")
+    if out.logits.shape != (LM_BATCH, cfg.vocab) \
+            or out.tokens.shape != (LM_BATCH, LM_TOKENS) \
+            or not torch.isfinite(out.logits).all():
+        raise AssertionError("decode_loop gave malformed or non-finite "
+                             "logits")
+
+    def versus_plain(cfg_, params_):
+        """Teacher-forced logits through the kernel and the plain wkv:
+        their largest difference over the largest |logit|, per step too,
+        the share of equal argmaxes, and both logits."""
+        kern = teacher_forced(RWKVModel(cfg_), params_, prompt, out.tokens)
+        plain = teacher_forced(RWKVModel(cfg_, wkv_impl="ref"), params_,
+                               prompt, out.tokens)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+            raise AssertionError("teacher-forced logits are not finite")
+        diff = (kern - plain).abs()
+        return {"max_err_over_max_logit": float(diff.max())
+                / float(plain.abs().max()),
+                "per_step": (diff.amax(dim=(1, 2))
+                             / plain.abs().amax(dim=(1, 2))).tolist(),
+                "argmax_agreement": float((kern.argmax(-1)
+                                           == plain.argmax(-1)).float()
+                                          .mean()),
+                "max_logit": float(plain.abs().max())}, kern
+
+    # the same prefill + decode, kernel vs plain wkv, teacher-forced, in
+    # bf16 and float32 at several depths
+    checks, repeat = [], None
+    for dtype, layers, tol in RWKV_CHECKS:
+        n = min(layers or cfg.n_layers, cfg.n_layers)
+        t0 = time.perf_counter()
+        sliced = params if n == cfg.n_layers else {
+            **params, "layers": tree_map(lambda a: a[:n], params["layers"])}
+        if dtype == "float32":
+            sliced = tree_map(lambda a: a.float(), sliced)
+        res, kern = versus_plain(cfg.with_(n_layers=n), sliced)
+        if dtype == "bfloat16" and n == cfg.n_layers:
+            repeat = float((kern[-1] - out.logits).abs().max())
+        del sliced, kern
+        checks.append({"dtype": dtype, "layers": n, **res, "tolerance": tol,
+                       "wall_s": time.perf_counter() - t0})
+    emit({"phase": "rwkv", "arch": RWKV_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "head_dim": cfg.rwkv_head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "params": param_count(params),
+          "init_s": init_s, "batch": LM_BATCH, "prompt": LM_PROMPT,
+          "new_tokens": LM_TOKENS,
+          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+          "decode_s_per_token": out.decode_s / LM_TOKENS,
+          "decode_tok_per_s": LM_BATCH * LM_TOKENS / out.decode_s,
+          "peak_device_bytes": peak_bytes, "wkv_launches": launches,
+          "wkv_shapes": {str(k): v for k, v in shapes.items()},
+          "greedy_tokens": out.tokens.tolist(),
+          "vs_plain_wkv": checks,
+          "decode_loop_vs_forced_rerun_max_abs": repeat,
+          "wall_s": time.perf_counter() - t_phase})
+    for c in checks:
+        if c["tolerance"] is not None \
+                and not c["max_err_over_max_logit"] <= c["tolerance"]:
+            raise AssertionError(
+                f"RWKV {c['dtype']} logits at {c['layers']} layers through "
+                f"the kernel differ from the plain wkv by "
+                f"{c['max_err_over_max_logit']} of their scale "
+                f"(> {c['tolerance']})")
+    if args.profile:
+        lm_profile(model, params, prompt, phase="rwkv_profile")
+    return {"launches": launches, "shapes": shapes}
+
+
+def wkv_bound(B, S, H, dh, nbytes_el, with_s0) -> tuple:
+    """Least card time (ms) for one wkv call: r, k, v read once at their
+    width, w read and out written in float32, u, s0 (when given) and
+    s_fin in float32, over HBM bandwidth, against 2·dh² FMAs per (b, t,
+    h) over the float32 rate; the larger, and which it is."""
+    elems = B * S * H * dh
+    nbytes = (3 * nbytes_el + 4 + 4) * elems + 4 * H * dh \
+        + 4 * B * H * dh * dh * (2 if with_s0 else 1)
+    flops = 4 * dh * dh * B * S * H
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def wkv_timing_phase(tr, device, seed: int, shapes: dict,
+                     edge_errs: dict) -> dict:
+    """Time the kernel at the RWKV path's prefill and decode shapes."""
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    picked = {}
+    for key in shapes:
+        picked["decode" if key[1] == 1 else "prefill"] = key
+    out_shapes = {}
+    errs = dict(edge_errs)
+    for kind, key in sorted(picked.items(), reverse=True):
+        B, S, H, dh, dtype_name, with_s0 = key
+        r, k, v, w, u, s0 = wkv_inputs(gen, B, S, H, dh,
+                                       getattr(torch, dtype_name), device)
+        s0 = s0 if with_s0 else None
+        err, rel = wkv_compare(tr, f"wkv {kind} {key}", r, k, v, w, u, s0)
+        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+        out = torch.empty(r.shape, dtype=torch.float32, device=device)
+        s_fin = torch.empty((B, H, dh, dh), dtype=torch.float32,
+                            device=device)
+        kernel_ms = cuda_ms(lambda: tr.launch(r, k, v, w, u, s0, out, s_fin),
+                            flush)
+        # the plain version walks S steps from Python: fewer repeats
+        slow = S > 100
+        plain_ms = cuda_ms(lambda: tr.wkv_ref(r, k, v, w, u, s0), flush,
+                           iters=5 if slow else 30, warmup=1 if slow else 5)
+        bound_ms, bound_by, flops, nbytes = wkv_bound(
+            B, S, H, dh, r.element_size(), with_s0)
+        out_shapes[kind] = {
+            "shape": {"B": B, "S": S, "H": H, "dh": dh, "dtype": dtype_name,
+                      "s0": with_s0},
+            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes, "max_abs_err": err,
+            "max_scaled_err": rel, "share_of_bound": bound_ms / kernel_ms}
+    main = out_shapes["prefill"]
+    return {"name": "wkv", "route": "cuda", "source": WKV_SOURCE,
+            "replaces": WKV_REPLACES, "launches": sum(shapes.values()),
+            "max_abs_err": errs["max_abs_err"],
+            "max_scaled_err": errs["max_scaled_err"], "tolerance": WKV_TOL,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "at": "prefill",
+            "shapes": out_shapes}
+
+
 def build_phase(libraries) -> None:
     """One nvcc per kernel library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -795,7 +1081,8 @@ def main() -> int:
                     help=f"layers of {LM_ARCH}'s 64 on the LM path")
     ap.add_argument("--profile", action="store_true",
                     help="also cProfile one bitmap and one sorted batch, "
-                    "and trace four LM decode steps with torch.profiler")
+                    "and trace a prefill and four decode steps of each LM "
+                    "with torch.profiler")
     args = ap.parse_args()
 
     if not (SRC / "repro_torch" / "kernels").is_dir():
@@ -808,6 +1095,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.kernels import attention as ta
     from repro_torch.kernels import intersect as tx
+    from repro_torch.kernels import rwkv as tr
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -819,11 +1107,12 @@ def main() -> int:
     # full float32 products in every plain version (PyTorch's default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_phase([tx.LIBRARY, ta.LIBRARY])
+    build_phase([tx.LIBRARY, ta.LIBRARY, tr.LIBRARY])
 
     rng = np.random.default_rng(args.seed)
     errs = edge_phase(tx, device, rng)
     attn_errs = attn_edge_phase(ta, device, args.seed)
+    wkv_errs = wkv_edge_phase(tr, device, args.seed)
     main = main_phase(args, device)
     kernels = timing_phase(tx, device, rng, main["shapes"], errs)
     for k in kernels:
@@ -831,6 +1120,9 @@ def main() -> int:
     lm = lm_phase(args, device)
     kernels.append(attn_timing_phase(ta, device, args.seed, lm["shapes"],
                                      attn_errs))
+    rwkv = rwkv_phase(args, device)
+    kernels.append(wkv_timing_phase(tr, device, args.seed, rwkv["shapes"],
+                                    wkv_errs))
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Airphant on PyTorch + CUDA: the IoU Sketch index's query path, with
 the round-1 candidate combine on an NVIDIA Hopper card, and LM serving
-(prefill + KV-cache decode of the dense transformer) with its attention
-in a hand-written flash kernel.
+(prefill + KV-cache decode of the dense transformer, prefill +
+recurrent-state decode of RWKV-6) with its attention and its wkv
+recurrence in hand-written kernels.
 
 Mirrors `repro` (the JAX package) module for module, over the slices
 ported so far: build → open → `query_batch(impl="bitmap")`, and

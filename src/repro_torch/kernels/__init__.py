@@ -4,9 +4,14 @@
                 AND/OR/ANDNOT program evaluator (the query combine)
   attention/  — forward flash attention with positions and GQA (the
                 LM's prefill and decode attention)
+  rwkv/       — the RWKV-6 wkv recurrence with an initial and a final
+                state (rwkv6-3b's prefill and decode)
 
 Each package ships the CUDA source (`csrc/`), built with nvcc on first
 use and loaded with ctypes by the shared helper (`_build.py`), wrappers
 with launch counters, and the plain PyTorch version (`ref.py`) that CPU
-tensors take and the card's results are held against.
+tensors take and the card's results are held against. The packages
+import on first use (`from repro_torch.kernels import rwkv`).
 """
+
+__all__ = ["attention", "intersect", "rwkv"]

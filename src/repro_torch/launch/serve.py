@@ -1,11 +1,14 @@
-"""Serve launcher (CLI): LM decode with a KV cache.
+"""Serve launcher (CLI): LM decode with a KV cache or a recurrent state.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+        --arch rwkv6-3b
 
 Mirrors `repro/launch/serve.py --mode decode` on the reduced config of
-`--arch`, with weights drawn from a seeded `torch.Generator`: prefill of
-`--batch` random 32-token prompts, then greedy decoding. `--mode search`
+`--arch` (a dense transformer or RWKV-6), with weights drawn from a
+seeded `torch.Generator`: prefill of `--batch` random 32-token prompts,
+then greedy decoding. `--mode search`
 and `--mode rag` need `SearchService`, which is not ported yet (ROADMAP
 queue 1, items 5 and 8).
 """
@@ -13,6 +16,7 @@ queue 1, items 5 and 8).
 from __future__ import annotations
 
 import argparse
+import inspect
 import time
 from dataclasses import dataclass
 
@@ -34,14 +38,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prefill(model, params, prompt: torch.Tensor, n_tokens: int):
+    """`model.prefill` of `prompt` (B, S), with room for `n_tokens` more:
+    a KV cache of S + n_tokens slots where the model's prefill takes
+    `pad_to`; a recurrent state, whose size does not grow, where not."""
+    kw = ({"pad_to": prompt.shape[1] + n_tokens}
+          if "pad_to" in inspect.signature(model.prefill).parameters else {})
+    return model.prefill(params, {"tokens": prompt}, **kw)
+
+
 def decode_loop(model, params, prompt, n_tokens: int) -> Decoded:
-    """Prefill `prompt` (B, S) into a cache of S + n_tokens slots, then
-    feed back the argmax token `n_tokens` times."""
+    """Prefill `prompt` (B, S) with room for n_tokens more, then feed back
+    the argmax token `n_tokens` times."""
     device = params["embed"].device
     prompt = torch.as_tensor(prompt, device=device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompt},
-                                  pad_to=prompt.shape[1] + n_tokens)
+    logits, cache = prefill(model, params, prompt, n_tokens)
     _sync(device)
     t1 = time.perf_counter()
     tokens = []

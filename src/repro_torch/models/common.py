@@ -22,9 +22,11 @@ class Desc:
     """One parameter: shape + dtype + init."""
 
     shape: tuple[int, ...]
-    init: str = "normal"                  # normal | zeros | ones | full
+    init: str = "normal"           # normal | scaled | zeros | ones | full
     dtype: torch.dtype = torch.bfloat16
-    scale: float | None = None            # std for normal, value for full
+    # std for normal and scaled (normal's default is 1/sqrt(fan_in)),
+    # value for full
+    scale: float | None = None
 
     def fan_in(self) -> int:
         return self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
@@ -61,6 +63,8 @@ def _init_leaf(desc: Desc, generator: torch.Generator, device) -> torch.Tensor:
     if desc.init == "full":
         return torch.full(desc.shape, desc.scale, dtype=desc.dtype,
                           device=device)
+    if desc.init not in ("normal", "scaled"):
+        raise ValueError(f"unknown init {desc.init!r}")
     scale = desc.scale if desc.scale is not None else \
         1.0 / math.sqrt(max(desc.fan_in(), 1))
     x = torch.randn(desc.shape, generator=generator, dtype=torch.float32,

@@ -6,7 +6,8 @@ Only the port, torch and numpy are imported, so they run where JAX is
 not installed. The intersect comparisons are exact (integer bitmaps and
 counts); flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
 (the JAX package's tolerances for its Pallas kernel), with TF32 off in
-the plain version.
+the plain version; the wkv kernel to 1e-4 of the largest |value| of its
+output and of its final state, the JAX package's wkv tolerance.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels import attention as ta
 from repro_torch.kernels import intersect as tx
+from repro_torch.kernels import rwkv as tr
 
 pytestmark = pytest.mark.cuda
 
@@ -192,5 +194,95 @@ def test_reduced_qwen3_decode_on_card_matches_plain_attention(card):
             steps.append(logits)
         runs.append(torch.stack(steps))
     assert ta.LAUNCHES["flash_attention"] == 4 * cfg.n_layers
+    scale = max(float(runs[1].abs().max()), 1.0)
+    assert float((runs[0] - runs[1]).abs().max()) <= 3e-2 * scale
+
+
+WKV_TOL = 1e-4
+
+
+def _wkv_inputs(card, B, S, H, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.normal(0, std, (B, S, H, dh)).astype(
+        np.float32)).to(card, dtype) for std in (1.0, 0.3, 1.0))
+    w = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, H, dh)).astype(
+        np.float32)).to(card)
+    u = torch.from_numpy(rng.normal(0, 0.3, (H, dh)).astype(np.float32)
+                         ).to(card)
+    s0 = torch.from_numpy(rng.normal(0, 0.1, (B, H, dh, dh)).astype(
+        np.float32)).to(card)
+    return r, k, v, w, u, s0
+
+
+def _scaled_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1.0)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 37, 128, 2000])
+def test_wkv_matches_plain_on_card(card, S, dh, dtype, with_s0):
+    """The `wkv_edge` grid of chip_smoke.py: out and s_fin within 1e-4 of
+    their largest |value|."""
+    r, k, v, w, u, s0 = _wkv_inputs(card, 2, S, 3, dh, dtype, S + dh)
+    s0 = s0 if with_s0 else None
+    tr.reset_launches()
+    out, s_fin = tr.wkv(r, k, v, w, u, s0, device=card)
+    want_out, want_s = tr.wkv(r, k, v, w, u, s0, impl="ref", device=card)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES["wkv"] == 1
+    assert out.dtype == s_fin.dtype == torch.float32
+    assert out.shape == (2, S, 3, dh) and s_fin.shape == (2, 3, dh, dh)
+    assert _scaled_err(out, want_out) <= WKV_TOL
+    assert _scaled_err(s_fin, want_s) <= WKV_TOL
+
+
+def test_wkv_wrapper_refuses_what_the_kernel_does_not_take(card):
+    r, k, v, w, u, s0 = _wkv_inputs(card, 1, 8, 2, 64, torch.bfloat16, 0)
+    tr.reset_launches()
+    with pytest.raises(TypeError, match="w must be float32"):
+        tr.wkv_cuda(r, k, v, w.bfloat16(), u)
+    with pytest.raises(TypeError, match="w must be float32"):
+        tr.wkv(r, k, v, w.bfloat16(), u, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.wkv_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                    w, u)
+    with pytest.raises(ValueError, match="s0"):
+        tr.wkv_cuda(r, k, v, w, u, s0[:, :, :32].contiguous())
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        tr.wkv_cuda(r, k.float(), v, w, u)
+    r, k, v, w, u, _ = _wkv_inputs(card, 1, 8, 2, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="head size 16 not built"):
+        tr.wkv_cuda(r, k, v, w, u)
+    assert tr.LAUNCHES["wkv"] == 0              # refusals never launch
+
+
+def test_reduced_rwkv_decode_on_card_matches_plain_wkv(card):
+    """Prefill + 3 decode steps of the reduced rwkv6-3b, bf16: the model
+    through the kernel against the same model through the plain wkv,
+    teacher-forced on the same tokens, logits to 3e-2 of their scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RWKVModel, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("rwkv6-3b", reduced=True)
+    kernel, plain = RWKVModel(cfg), RWKVModel(cfg, "ref")
+    params = init_params(kernel.param_desc(),
+                         torch.Generator(card).manual_seed(1), card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab, (2, 43))).to(card)
+    tr.reset_launches()
+    runs = []
+    for model in (kernel, plain):
+        logits, cache = model.prefill(params, {"tokens": toks[:, :40]})
+        steps = [logits]
+        for t in range(3):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": toks[:, 40 + t:41 + t]})
+            steps.append(logits)
+        runs.append(torch.stack(steps))
+    assert tr.LAUNCHES["wkv"] == 4 * cfg.n_layers
     scale = max(float(runs[1].abs().max()), 1.0)
     assert float((runs[0] - runs[1]).abs().max()) <= 3e-2 * scale

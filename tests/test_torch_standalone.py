@@ -52,6 +52,17 @@ out = decode_loop(model, params, torch.randint(4, cfg.vocab, (2, 9)), 2)
 assert out.tokens.shape == (2, 2) and torch.isfinite(out.logits).all()
 q = torch.randn(1, 5, 4, 32)
 assert ta.attention(q, q[:, :, :2], q[:, :, :2], device="cpu").shape == q.shape
+
+from repro_torch.kernels import rwkv as tr
+cfg = get_config("rwkv6-3b", reduced=True)
+model = build_model(cfg)
+params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                     "cpu")
+out = decode_loop(model, params, torch.randint(4, cfg.vocab, (2, 9)), 2)
+assert out.tokens.shape == (2, 2) and torch.isfinite(out.logits).all()
+x = torch.rand(1, 5, 2, 32)
+o, s = tr.wkv(x, x, x, x, x[0, 0], device="cpu")
+assert o.shape == x.shape and s.shape == (1, 2, 32, 32)
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -60,7 +71,8 @@ print("standalone ok", [len(r.refs) for r in bitmap])
 
 
 def test_port_builds_and_queries_with_jax_repro_msgpack_blocked():
-    """Index path, then configs, models, attention and the serve loop."""
+    """Index path, then configs, models, attention, the serve loop, and
+    RWKV's model and wkv."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                           cwd=REPO, capture_output=True, text=True,
