@@ -2,16 +2,18 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py [--docs 1000000] [--B 200000] [--seed 0]
-                          [--lm-layers 8] [--profile]
+                          [--lm-layers 8] [--jamba-layers 8] [--profile]
 
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
 per library, started together) and holds each against its plain PyTorch
-version on the card (`edge`, `attn_edge`, and `wkv_edge`: the wkv kernel
+version on the card (`edge`, `attn_edge`; `wkv_edge`: the wkv kernel
 over S in {1, 37, 128, 2000}, head sizes 32/64/128, bf16 and float32
 r/k/v, with and without an initial state, out and final state within
-1e-4 of their largest |value|). Then it drives three paths at a real
-size, each with the launch counts zeroed just before it and read just
-after:
+1e-4 of their largest |value|; `scan_edge`: the selective scan over S in
+{1, 37, 128, 2000}, N in {4, 8, 16}, D in {96, 8192}, with and without
+an initial state, y and final state within 1e-5 of their largest
+|value|). Then it drives four paths at a real size, each with the launch
+counts zeroed just before it and read just after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
   `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
@@ -34,7 +36,17 @@ after:
   wkv must give the same logits: in float32 to 1e-4 of their scale at 4
   layers and 2e-3 at 32; in bf16, where random weights amplify rounding
   with depth, printed at 4, 8 and 16 layers and bounded at 32 only by
-  their scale (`RWKV_CHECKS`).
+  their scale (`RWKV_CHECKS`);
+- Jamba serving (`jamba`): `jamba-v0.1-52b` at its published widths
+  (d_model 4096, 32 heads over 8 KV heads of 128, d_ff 14336, 16 experts
+  top-2 on every second layer, Mamba d_inner 8192, d_state 16, d_conv 4,
+  dt_rank 256, vocab 65536) cut to `--jamba-layers` of its 32 layers (a
+  multiple of its period of 8), random bf16 weights from a seeded
+  `torch.Generator`, `decode_loop` with the traffic of the LM path
+  (exactly 33 scan launches per Mamba layer and 33 attention launches per
+  attention layer); then the same tokens teacher-forced through the
+  plain scan: in bf16 printed and bounded only by the logits' scale, in
+  float32 (2 prompts of 512 tokens, 8 forced steps) within 1e-4 of it.
 
 Last, each kernel is timed at the shapes its path gave it (median of
 CUDA-event timings, L2 flushed before each) beside the plain version,
@@ -103,6 +115,28 @@ RWKV_CHECKS = (("bfloat16", 0, RWKV_BF16_TOL), ("bfloat16", 4, None),
 WKV_TOL = 1e-4                    # of the largest |value|, out and state
 WKV_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv/kernel.py:50"
+
+# Jamba serving: the traffic of the LM path through `--jamba-layers` of
+# jamba-v0.1-52b's 32 layers. The model through the scan kernel is held
+# to the same model through the plain scan, teacher-forced. The two
+# differ only in the order of the scan's 16-term sums of y; in bf16 such
+# a difference flips a rounding here and there, which random weights
+# grow with depth (PERF.md, section 6) and which may also flip a top-2
+# routing or a capacity decision of the MoE, so bf16 is printed and
+# bounded only by the logits' scale; float32, whose roundings are 2^16
+# times finer, on 2 prompts of 512 tokens and 8 forced steps, within
+# JAMBA_F32_TOL. The scan kernel alone against the plain version: y and
+# the final state within SCAN_TOL of their scale, the order of the sums
+# of y being the only difference (the state's update rounds as the plain
+# version does). The path's attention kernel is held to the plain
+# attention at each shape the path launched, within ATTN_TOL.
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_BF16_TOL = 1.0
+JAMBA_F32_TOL = 1e-4
+JAMBA_F32_BATCH, JAMBA_F32_PROMPT, JAMBA_F32_TOKENS = 2, 512, 8
+SCAN_TOL = 1e-5
+SCAN_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/ssm/kernel.py:46"
 
 # LM serving: 4 prompts of 2000 tokens (deliberately not a multiple of
 # the kernel's tiles), 32 greedy tokens, logits held to LM_TOL of their
@@ -1055,6 +1089,296 @@ def wkv_timing_phase(tr, device, seed: int, shapes: dict,
             "shapes": out_shapes}
 
 
+# ----------------------------------------------------------- selective scan
+def scan_inputs(gen, B, S, D, N, device):
+    """a in (0.4, 0.99), b, c and h0 normal (float32): the JAX package's
+    test distributions."""
+    import torch
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=gen, device=device)
+    a = 0.4 + 0.59 * torch.rand((B, S, D, N), generator=gen, device=device)
+    return (a, normal((B, S, D, N), 0.3), normal((B, S, N), 1.0),
+            normal((B, D, N), 0.1))
+
+
+def scan_compare(ts, name: str, a, b, c, h0) -> tuple[float, float, bool]:
+    """Kernel vs plain scan on the card: the largest absolute difference
+    and the largest over the plain version's largest |value|, each of y
+    and the final state, and whether the final states are bit-exact;
+    raises above SCAN_TOL."""
+    import torch
+    got = ts.selective_scan(a, b, c, h0, device=a.device)
+    want = ts.selective_scan(a, b, c, h0, impl="ref", device=a.device)
+    torch.cuda.synchronize()
+    abs_err = scaled = 0.0
+    for what, g, p in zip(("y", "h_fin"), got, want):
+        if g.shape != p.shape or g.dtype != p.dtype:
+            raise AssertionError(f"{name} {what}: {g.shape}/{g.dtype} vs "
+                                 f"{p.shape}/{p.dtype}")
+        err = float((g - p).abs().max())
+        rel = err / max(float(p.abs().max()), 1e-30)
+        if not rel <= SCAN_TOL:
+            raise AssertionError(f"{name} {what}: kernel disagrees with the "
+                                 f"plain version by {rel} of its scale "
+                                 f"(> {SCAN_TOL})")
+        abs_err, scaled = max(abs_err, err), max(scaled, rel)
+    return abs_err, scaled, bool(torch.equal(got[1], want[1]))
+
+
+def scan_edge_phase(ts, device, seed: int) -> dict:
+    """S in {1, 37, 128, 2000} × N in {4, 8, 16} × D in {96, 8192} × with
+    and without h0, B = 2."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    errs = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    cases = exact = 0
+    for S in (1, 37, 128, 2000):
+        for N in (4, 8, 16):
+            for D in (96, 8192):
+                a, b, c, h0 = scan_inputs(gen, 2, S, D, N, device)
+                for init in (None, h0):
+                    err, rel, same = scan_compare(
+                        ts, f"selective_scan {(2, S, D, N)} h0="
+                        f"{init is not None}", a, b, c, init)
+                    errs["max_abs_err"] = max(errs["max_abs_err"], err)
+                    errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+                    cases += 1
+                    exact += same
+                del a, b, c, h0
+    emit({"phase": "scan_edge", "cases": cases, **errs,
+          "h_fin_bit_exact_cases": exact, "tolerance": SCAN_TOL})
+    return errs
+
+
+def _to_float32_in_place(tree) -> None:
+    """Each leaf of a parameter tree cast to float32 in place, the old
+    leaf dropped as it goes, so that both copies never coexist."""
+    import torch
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            _to_float32_in_place(tree[key])
+        else:
+            tree[key] = tree[key].float()
+            torch.cuda.empty_cache()
+
+
+def jamba_phase(args, device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import ssm as ts
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models import (HybridModel, build_model, init_params,
+                                    param_count)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    published = get_config(JAMBA_ARCH)
+    if args.jamba_layers % published.attn_every or args.jamba_layers < 1:
+        raise SystemExit(f"--jamba-layers must be a multiple of "
+                         f"{published.attn_every}")
+    cfg = published.with_(n_layers=args.jamba_layers)
+    model = build_model(cfg)
+    n_attn = cfg.n_layers // cfg.attn_every
+    n_mamba = cfg.n_layers - n_attn
+    t0 = time.perf_counter()
+    params = init_params(model.param_desc(),
+                         torch.Generator(device=device).manual_seed(args.seed),
+                         device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        4, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    decode_loop(model, params, prompt[:, :64], 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ts.reset_launches()
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_loop(model, params, prompt, LM_TOKENS)
+    scan_launches = ts.LAUNCHES["selective_scan"]
+    attn_launches = ta.LAUNCHES["flash_attention"]
+    scan_shapes = dict(ts.LAUNCH_SHAPES)
+    attn_shapes = dict(ta.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    for what, got, want in (("selective_scan", scan_launches,
+                             n_mamba * (1 + LM_TOKENS)),
+                            ("flash_attention", attn_launches,
+                             n_attn * (1 + LM_TOKENS))):
+        if got != want:
+            raise AssertionError(f"{what} launched {got} times on the Jamba "
+                                 f"path, expected {want}")
+    if out.logits.shape != (LM_BATCH, cfg.vocab) \
+            or out.tokens.shape != (LM_BATCH, LM_TOKENS) \
+            or not torch.isfinite(out.logits).all():
+        raise AssertionError("decode_loop gave malformed or non-finite "
+                             "logits")
+
+    # this path's attention (a GQA group of 4) against the plain attention
+    # at each shape it launched: prefill at the model's positions; decode
+    # at the first step (pos = prompt length, the slots past it empty) and
+    # the last (a full cache)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 6)
+    attn_errs = dict.fromkeys(ATTN_TOL, 0.0)
+    for key in attn_shapes:
+        B, S, T, H, KV, dh, dtype_name = key
+        q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh),
+                              getattr(torch, dtype_name), device)
+        for pos in ((S - 1,) if S > 1 else (LM_PROMPT, T - 1)):
+            kpos = torch.arange(T, dtype=torch.int32, device=device)
+            kpos[pos + 1:] = -1
+            err = attn_compare(ta, f"flash_attention jamba {key} pos={pos}",
+                               q, k, v, causal=True, window=cfg.swa,
+                               q_positions=kpos[pos + 1 - S:pos + 1].clone(),
+                               kv_positions=kpos)
+            attn_errs[dtype_name] = max(attn_errs[dtype_name], err)
+        del q, k, v
+
+    def versus_plain(params_, prompt_, tokens_):
+        """Teacher-forced logits through the kernel and the plain scan:
+        their largest difference over the largest |logit|, per step too,
+        the share of equal argmaxes, and the kernel's logits."""
+        kern = teacher_forced(model, params_, prompt_, tokens_)
+        plain = teacher_forced(HybridModel(cfg, scan_impl="ref"), params_,
+                               prompt_, tokens_)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+            raise AssertionError("teacher-forced logits are not finite")
+        diff = (kern - plain).abs()
+        return {"max_err_over_max_logit": float(diff.max())
+                / float(plain.abs().max()),
+                "per_step": (diff.amax(dim=(1, 2))
+                             / plain.abs().amax(dim=(1, 2))).tolist(),
+                "argmax_agreement": float((kern.argmax(-1)
+                                           == plain.argmax(-1)).float()
+                                          .mean()),
+                "max_logit": float(plain.abs().max())}, kern
+
+    checks = []
+    t0 = time.perf_counter()
+    res, kern = versus_plain(params, prompt, out.tokens)
+    repeat = float((kern[-1] - out.logits).abs().max())
+    del kern
+    checks.append({"dtype": "bfloat16", "layers": cfg.n_layers,
+                   "batch": LM_BATCH, "prompt": LM_PROMPT,
+                   "forced_steps": LM_TOKENS, **res,
+                   "tolerance": JAMBA_BF16_TOL,
+                   "wall_s": time.perf_counter() - t0})
+    if args.profile:
+        lm_profile(model, params, prompt, phase="jamba_profile")
+
+    # float32: the bf16 and float32 weights together do not fit one card
+    t0 = time.perf_counter()
+    _to_float32_in_place(params)
+    f32_prompt = prompt[:JAMBA_F32_BATCH, :JAMBA_F32_PROMPT]
+    res, kern = versus_plain(params, f32_prompt,
+                             out.tokens[:JAMBA_F32_BATCH, :JAMBA_F32_TOKENS])
+    del kern, params
+    torch.cuda.empty_cache()
+    checks.append({"dtype": "float32", "layers": cfg.n_layers,
+                   "batch": JAMBA_F32_BATCH, "prompt": JAMBA_F32_PROMPT,
+                   "forced_steps": JAMBA_F32_TOKENS, **res,
+                   "tolerance": JAMBA_F32_TOL,
+                   "wall_s": time.perf_counter() - t0})
+    emit({"phase": "jamba", "arch": JAMBA_ARCH, "layers": cfg.n_layers,
+          "layers_published": published.n_layers, "mamba_layers": n_mamba,
+          "attention_layers": n_attn,
+          "moe_layers": cfg.n_layers // cfg.moe.every,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+          "head_dim": cfg.dh, "d_ff": cfg.d_ff,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "d_inner": cfg.mamba.d_inner(cfg.d_model),
+          "d_state": cfg.mamba.d_state, "vocab": cfg.vocab,
+          "params": n_params, "init_s": init_s, "batch": LM_BATCH,
+          "prompt": LM_PROMPT, "new_tokens": LM_TOKENS,
+          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+          "decode_s_per_token": out.decode_s / LM_TOKENS,
+          "decode_tok_per_s": LM_BATCH * LM_TOKENS / out.decode_s,
+          "peak_device_bytes": peak_bytes, "scan_launches": scan_launches,
+          "scan_shapes": {str(k): v for k, v in scan_shapes.items()},
+          "attention_launches": attn_launches,
+          "attention_shapes": {str(k): v for k, v in attn_shapes.items()},
+          "attention_vs_plain_max_abs_err": attn_errs,
+          "greedy_tokens": out.tokens.tolist(), "vs_plain_scan": checks,
+          "decode_loop_vs_forced_rerun_max_abs": repeat,
+          "wall_s": time.perf_counter() - t_phase})
+    for c in checks:
+        if not c["max_err_over_max_logit"] <= c["tolerance"]:
+            raise AssertionError(
+                f"Jamba {c['dtype']} logits through the scan kernel differ "
+                f"from the plain scan by {c['max_err_over_max_logit']} of "
+                f"their scale (> {c['tolerance']})")
+    return {"launches": scan_launches, "shapes": scan_shapes,
+            "attn_launches": attn_launches, "attn_errs": attn_errs}
+
+
+def scan_bound(B, S, D, N, with_h0) -> tuple:
+    """Least card time (ms) for one scan: a and b read once, c read once,
+    y written once, h0 (when given) read and h_fin written once, all
+    float32, over HBM bandwidth, against 4 flops per (b, t, d, n) (a
+    multiply and an add of the update, a multiply and an add of y's sum)
+    over the float32 rate; the larger, and which it is."""
+    nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D
+                  + B * D * N * (2 if with_h0 else 1))
+    flops = 4 * B * S * D * N
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def scan_timing_phase(ts, device, seed: int, shapes: dict,
+                      edge_errs: dict) -> dict:
+    """Time the kernel at the Jamba path's prefill and decode shapes."""
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    picked = {}
+    for key in shapes:
+        picked["decode" if key[1] == 1 else "prefill"] = key
+    out_shapes = {}
+    errs = dict(edge_errs)
+    for kind, key in sorted(picked.items(), reverse=True):
+        B, S, D, N, with_h0 = key
+        a, b, c, h0 = scan_inputs(gen, B, S, D, N, device)
+        h0 = h0 if with_h0 else None
+        err, rel, same = scan_compare(ts, f"selective_scan {kind} {key}",
+                                      a, b, c, h0)
+        errs["max_abs_err"] = max(errs["max_abs_err"], err)
+        errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+        y = torch.empty((B, S, D), dtype=torch.float32, device=device)
+        h_fin = torch.empty((B, D, N), dtype=torch.float32, device=device)
+        kernel_ms = cuda_ms(lambda: ts.launch(a, b, c, h0, y, h_fin), flush)
+        # the plain version walks S steps from Python: fewer repeats
+        slow = S > 100
+        plain_ms = cuda_ms(lambda: ts.selective_scan_ref(a, b, c, h0), flush,
+                           iters=5 if slow else 30, warmup=1 if slow else 5)
+        bound_ms, bound_by, flops, nbytes = scan_bound(B, S, D, N, with_h0)
+        out_shapes[kind] = {
+            "shape": {"B": B, "S": S, "D": D, "N": N, "h0": with_h0},
+            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes, "max_abs_err": err,
+            "max_scaled_err": rel, "h_fin_bit_exact": same,
+            "share_of_bound": bound_ms / kernel_ms}
+        del a, b, c, h0, y, h_fin
+    main = out_shapes["prefill"]
+    return {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+            "replaces": SCAN_REPLACES, "launches": sum(shapes.values()),
+            "max_abs_err": errs["max_abs_err"],
+            "max_scaled_err": errs["max_scaled_err"], "tolerance": SCAN_TOL,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "at": "prefill",
+            "shapes": out_shapes}
+
+
 def build_phase(libraries) -> None:
     """One nvcc per kernel library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1079,6 +1403,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-layers", type=int, default=8,
                     help=f"layers of {LM_ARCH}'s 64 on the LM path")
+    ap.add_argument("--jamba-layers", type=int, default=8,
+                    help=f"layers of {JAMBA_ARCH}'s 32 on the Jamba path "
+                    "(a multiple of 8; its float32 check holds 4 bytes a "
+                    "parameter, which one 80 GB card affords for 8)")
     ap.add_argument("--profile", action="store_true",
                     help="also cProfile one bitmap and one sorted batch, "
                     "and trace a prefill and four decode steps of each LM "
@@ -1096,6 +1424,7 @@ def main() -> int:
     from repro_torch.kernels import attention as ta
     from repro_torch.kernels import intersect as tx
     from repro_torch.kernels import rwkv as tr
+    from repro_torch.kernels import ssm as ts
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1107,22 +1436,35 @@ def main() -> int:
     # full float32 products in every plain version (PyTorch's default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_phase([tx.LIBRARY, ta.LIBRARY, tr.LIBRARY])
+    build_phase([tx.LIBRARY, ta.LIBRARY, tr.LIBRARY, ts.LIBRARY])
 
     rng = np.random.default_rng(args.seed)
     errs = edge_phase(tx, device, rng)
     attn_errs = attn_edge_phase(ta, device, args.seed)
     wkv_errs = wkv_edge_phase(tr, device, args.seed)
+    scan_errs = scan_edge_phase(ts, device, args.seed)
     main = main_phase(args, device)
     kernels = timing_phase(tx, device, rng, main["shapes"], errs)
     for k in kernels:
         k["launches"] = main["launches"][k["name"]]
     lm = lm_phase(args, device)
-    kernels.append(attn_timing_phase(ta, device, args.seed, lm["shapes"],
-                                     attn_errs))
+    attn = attn_timing_phase(ta, device, args.seed, lm["shapes"], attn_errs)
+    kernels.append(attn)
     rwkv = rwkv_phase(args, device)
     kernels.append(wkv_timing_phase(tr, device, args.seed, rwkv["shapes"],
                                     wkv_errs))
+    jamba = jamba_phase(args, device)
+    kernels.append(scan_timing_phase(ts, device, args.seed, jamba["shapes"],
+                                     scan_errs))
+    # the attention kernel runs on two paths: its launches and its errors
+    # against the plain version are summed over both
+    attn["launches_by_path"] = {"lm": attn["launches"],
+                                "jamba": jamba["attn_launches"]}
+    attn["launches"] += jamba["attn_launches"]
+    for dtype, err in jamba["attn_errs"].items():
+        attn["max_abs_err_by_dtype"][dtype] = max(
+            attn["max_abs_err_by_dtype"][dtype], err)
+    attn["max_abs_err"] = max(attn["max_abs_err_by_dtype"].values())
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

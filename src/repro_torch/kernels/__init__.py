@@ -6,6 +6,8 @@
                 LM's prefill and decode attention)
   rwkv/       — the RWKV-6 wkv recurrence with an initial and a final
                 state (rwkv6-3b's prefill and decode)
+  ssm/        — the Mamba selective (diagonal) scan with an initial and
+                a final state (jamba-v0.1-52b's Mamba layers)
 
 Each package ships the CUDA source (`csrc/`), built with nvcc on first
 use and loaded with ctypes by the shared helper (`_build.py`), wrappers
@@ -14,4 +16,4 @@ tensors take and the card's results are held against. The packages
 import on first use (`from repro_torch.kernels import rwkv`).
 """
 
-__all__ = ["attention", "intersect", "rwkv"]
+__all__ = ["attention", "intersect", "rwkv", "ssm"]

@@ -4,13 +4,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
         --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+        --arch jamba-v0.1-52b
 
 Mirrors `repro/launch/serve.py --mode decode` on the reduced config of
-`--arch` (a dense transformer or RWKV-6), with weights drawn from a
-seeded `torch.Generator`: prefill of `--batch` random 32-token prompts,
-then greedy decoding. `--mode search`
-and `--mode rag` need `SearchService`, which is not ported yet (ROADMAP
-queue 1, items 5 and 8).
+`--arch` (a dense or MoE transformer, RWKV-6 or the Jamba hybrid), with
+weights drawn from a seeded `torch.Generator`: prefill of `--batch`
+random 32-token prompts, then greedy decoding. `--mode search` and
+`--mode rag` need `SearchService`, which is not ported yet (ROADMAP queue
+1, items 5 and 8).
 """
 
 from __future__ import annotations

@@ -3,18 +3,23 @@
 from __future__ import annotations
 
 from ..configs import ModelConfig
+from .hybrid import HybridModel
 from .rwkv_model import RWKVModel
 from .transformer import TransformerModel
 
 
-def build_model(cfg: ModelConfig) -> TransformerModel | RWKVModel:
-    """The model for `cfg`. The dense transformer and RWKV-6 are ported;
-    MoE, VLM, encoder-decoder and hybrid (Mamba) models raise."""
-    if cfg.kind == "dense":
+def build_model(cfg: ModelConfig
+                ) -> TransformerModel | RWKVModel | HybridModel:
+    """The model for `cfg`. The dense and MoE transformers (without a
+    sliding window), RWKV-6 and the Jamba hybrid are ported; VLM and
+    encoder-decoder models raise."""
+    if cfg.kind in ("dense", "moe"):
         return TransformerModel(cfg)
     if cfg.kind == "rwkv":
         return RWKVModel(cfg)
-    if cfg.kind in ("moe", "vlm", "encdec", "hybrid"):
+    if cfg.kind == "hybrid":
+        return HybridModel(cfg)
+    if cfg.kind in ("vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: model kind {cfg.kind!r} is not ported yet (ROADMAP "
             "queue 1, item 7)")

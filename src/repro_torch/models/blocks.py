@@ -1,12 +1,14 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention projections
-and the SwiGLU FFN.
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention projections,
+the SwiGLU FFN and the top-k MoE FFN.
 
 Each keeps the JAX package's dtype steps (`repro/models/blocks.py`): norms
 and RoPE compute in float32 and cast back, matrix products run in the
-parameters' dtype. Attention itself is not written here: the model calls
-`kernels.attention.ops.attention` with explicit positions, which runs the
-hand-written flash kernel on a card. M-RoPE (VLM) and the MoE FFN wait
-for their own slices (ROADMAP queue 1, item 7).
+parameters' dtype, the MoE router in float32. Attention itself is not
+written here: the model calls `kernels.attention.ops.attention` with
+explicit positions, which runs the hand-written flash kernel on a card.
+The MoE FFN is plain PyTorch (top-k, gathers, batched products over the
+experts, `index_add_`), as JAX computes it outside any Pallas kernel.
+M-RoPE (VLM) waits for its own slice (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -99,3 +101,86 @@ def ffn_desc(cfg: ModelConfig) -> dict:
 
 def swiglu_ffn(x: torch.Tensor, p: dict) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------- moe
+def moe_desc(cfg: ModelConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "router": Desc((D, E), dtype=torch.float32),
+        "w_in": Desc((E, D, Fd)),
+        "w_gate": Desc((E, D, Fd)),
+        "w_out": Desc((E, Fd, D)),
+    }
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.moe_impl == "grouped":
+        return moe_ffn_grouped(x, p, cfg)
+    return moe_ffn_global(x, p, cfg)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """float32 router → `keep` (…, E): each token's renormalised top-k
+    router probabilities on its chosen experts, zeros elsewhere."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
+    top_vals = top_vals / top_vals.sum(-1, keepdim=True)
+    # one nonzero term per (token, expert): JAX's one-hot sum, exactly
+    return torch.zeros_like(probs).scatter_(-1, top_idx, top_vals)
+
+
+def _experts(xg: torch.Tensor, p: dict, gate: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its gathered tokens xg (…, E, C, D),
+    weighted by `gate` (…, E, C); a slot whose gate is 0 contributes 0."""
+    h = F.silu(torch.einsum("...ecd,edf->...ecf", xg, p["w_gate"])) \
+        * torch.einsum("...ecd,edf->...ecf", xg, p["w_in"])
+    y = torch.einsum("...ecf,efd->...ecd", h, p["w_out"])
+    return y * (gate * (gate > 0.0))[..., None].to(y.dtype)
+
+
+def moe_ffn_global(x: torch.Tensor, p: dict, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """Token-choice top-k MoE with per-expert capacity over the whole
+    token pool (GShard-style dropping, highest router probability first):
+    gather → batched product over the experts → scatter-add, as JAX's
+    `moe_ffn_global`. Each expert takes its C highest-`keep` tokens; with
+    fewer than C routed to it, `topk` fills the rest from tokens of
+    `keep` 0, whose order among themselves may differ from `lax.top_k`'s
+    — they carry gate 0 and add 0, so the result does not depend on it.
+    A token gets at most top_k contributions onto zeros, and a sum of two
+    terms does not depend on their order, so `index_add_` (atomics on a
+    card) gives JAX's `.at[].add` bit for bit."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    N = B * S
+    E, K = moe.n_experts, moe.top_k
+    xf = x.reshape(N, D)
+    keep = _route(xf, p["router"], K)                      # (N, E)
+    C = max(int(moe.capacity_factor * K * N / E), 1)
+    C = min(C, N)
+    gate_t, tok_idx = torch.topk(keep.T, C, dim=-1)        # (E, C)
+    xg = xf[tok_idx.reshape(-1)].reshape(E, C, D)
+    y = _experts(xg, p, gate_t)
+    out = torch.zeros((N, D), dtype=y.dtype, device=x.device)
+    out.index_add_(0, tok_idx.reshape(-1), y.reshape(E * C, D))
+    return out.reshape(B, S, D)
+
+
+def moe_ffn_grouped(x: torch.Tensor, p: dict, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """The same MoE with capacity per batch row, as JAX's
+    `moe_ffn_grouped`: routing, top-C, gather and scatter-add stay within
+    each row."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    E, K = moe.n_experts, moe.top_k
+    keep = _route(x, p["router"], K)                       # (B, S, E)
+    C = max(min(int(moe.capacity_factor * K * S / E), S), 1)
+    gate_t, tok_idx = torch.topk(keep.transpose(1, 2), C, dim=-1)  # (B,E,C)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    xg = x[rows, tok_idx]                                  # (B, E, C, D)
+    y = _experts(xg, p, gate_t)
+    out = torch.zeros((B * S, D), dtype=y.dtype, device=x.device)
+    out.index_add_(0, (rows * S + tok_idx).reshape(-1), y.reshape(-1, D))
+    return out.reshape(B, S, D)

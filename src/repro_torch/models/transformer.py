@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM: the dense architectures.
+"""Decoder-only transformer LM: the dense and MoE architectures.
 
 Mirrors `repro/models/transformer.py` (prefill, decode step, cache
 layout) over a tree of tensors. Parameters keep the JAX package's layout:
@@ -12,9 +12,10 @@ The KV cache is {"k", "v": (L, B, T, KV, dh) bf16, "kpos": (T,) int32
 absolute position per slot, -1 for empty, "pos": () int32 on the host,
 the next position}. Unlike the JAX model, `decode_step` writes the new
 token's K/V into the cache's tensors in place rather than copying the
-whole cache each step. Not ported yet (ROADMAP queue 1, item 7): MoE,
-the int8 KV cache, VLM inputs with M-RoPE, sliding-window rolling
-caches, and the training loss.
+whole cache each step. A layer takes the MoE FFN where the JAX model
+does (`moe.every == 1`). Not ported yet (ROADMAP queue 1, item 7): the
+int8 KV cache, VLM inputs with M-RoPE, sliding-window rolling caches
+(so `mixtral-8x22b` raises), and the training loss.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ _LATER = "not ported yet (ROADMAP queue 1, item 7)"
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the JAX transformer this port lacks."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN is {_LATER}")
     if cfg.kv_quant:
         raise NotImplementedError(f"{cfg.name}: the int8 KV cache is {_LATER}")
     if cfg.kind == "vlm" or cfg.rope == "mrope":
@@ -41,17 +40,21 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.swa:
         raise NotImplementedError(f"{cfg.name}: sliding-window attention and "
                                   f"its rolling cache are {_LATER}")
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: kind {cfg.kind!r} is {_LATER}")
 
 
 def _layer_desc(cfg: ModelConfig) -> dict:
-    return {
+    d = {
         "attn": blocks.attention_desc(cfg),
         "ln1": Desc((cfg.d_model,), init="ones"),
         "ln2": Desc((cfg.d_model,), init="ones"),
-        "ffn": blocks.ffn_desc(cfg),
     }
+    if cfg.moe is not None and cfg.moe.every == 1:
+        d["moe"] = blocks.moe_desc(cfg)
+    else:
+        d["ffn"] = blocks.ffn_desc(cfg)
+    return d
 
 
 class TransformerModel:
@@ -97,6 +100,8 @@ class TransformerModel:
                          impl=self.attn_impl, device=q.device)
         x = x + blocks.attn_out(attn, lp["attn"])
         h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if "moe" in lp:
+            return x + blocks.moe_ffn(h, lp["moe"], cfg)
         return x + blocks.swiglu_ffn(h, lp["ffn"])
 
     def _logits(self, params, x):

@@ -7,7 +7,9 @@ not installed. The intersect comparisons are exact (integer bitmaps and
 counts); flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
 (the JAX package's tolerances for its Pallas kernel), with TF32 off in
 the plain version; the wkv kernel to 1e-4 of the largest |value| of its
-output and of its final state, the JAX package's wkv tolerance.
+output and of its final state, the JAX package's wkv tolerance; the
+selective scan to 1e-5 of the largest |value| of y and of its final
+state, since only the order of y's sums differs from the plain version.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import attention as ta
 from repro_torch.kernels import intersect as tx
 from repro_torch.kernels import rwkv as tr
+from repro_torch.kernels import ssm as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +289,85 @@ def test_reduced_rwkv_decode_on_card_matches_plain_wkv(card):
     assert tr.LAUNCHES["wkv"] == 4 * cfg.n_layers
     scale = max(float(runs[1].abs().max()), 1.0)
     assert float((runs[0] - runs[1]).abs().max()) <= 3e-2 * scale
+
+
+SCAN_TOL = 1e-5
+
+
+def _scan_inputs(card, B, S, D, N, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(card) for x in (
+        rng.uniform(0.4, 0.99, (B, S, D, N)), rng.normal(0, 0.3, (B, S, D, N)),
+        rng.normal(0, 1, (B, S, N)), rng.normal(0, 0.1, (B, D, N))))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("D", [96, 8192])
+@pytest.mark.parametrize("N", [3, 4, 16])
+@pytest.mark.parametrize("S", [1, 37, 2000])
+def test_selective_scan_matches_plain_on_card(card, S, N, D, with_h0):
+    """Part of the `scan_edge` grid of chip_smoke.py, with N = 3 (a group
+    of lanes with a dead one): y and h_fin within 1e-5 of their largest
+    |value|."""
+    a, b, c, h0 = _scan_inputs(card, 2, S, D, N, S + N + D)
+    h0 = h0 if with_h0 else None
+    ts.reset_launches()
+    y, h_fin = ts.selective_scan(a, b, c, h0, device=card)
+    want_y, want_h = ts.selective_scan(a, b, c, h0, impl="ref", device=card)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["selective_scan"] == 1
+    assert y.dtype == h_fin.dtype == torch.float32
+    assert y.shape == (2, S, D) and h_fin.shape == (2, D, N)
+    assert _scaled_err(y, want_y) <= SCAN_TOL
+    assert _scaled_err(h_fin, want_h) <= SCAN_TOL
+
+
+def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a, b, c, h0 = _scan_inputs(card, 1, 8, 64, 16, 0)
+    ts.reset_launches()
+    with pytest.raises(TypeError, match="a must be float32"):
+        ts.selective_scan_cuda(a.double(), b, c)
+    with pytest.raises(TypeError, match="b must be float32"):
+        ts.selective_scan(a, b.bfloat16(), c, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.selective_scan_cuda(a.transpose(1, 2).contiguous().transpose(1, 2),
+                               b, c)
+    with pytest.raises(ValueError, match="h0 must be"):
+        ts.selective_scan_cuda(a, b, c, h0[:, :32].contiguous())
+    a, b, c, _ = _scan_inputs(card, 1, 8, 4, 33, 0)
+    with pytest.raises(ValueError, match="N = 33 exceeds"):
+        ts.selective_scan_cuda(a, b, c)
+    assert ts.LAUNCHES["selective_scan"] == 0   # refusals never launch
+
+
+def test_reduced_jamba_on_card_matches_plain_scan(card):
+    """Prefill + 3 decode steps of the reduced jamba-v0.1-52b in float32:
+    the model through the scan kernel against the same model through the
+    plain scan, teacher-forced on the same tokens, logits to 1e-4 of their
+    scale; the kernel runs once per Mamba layer and step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import HybridModel, init_params
+    from repro_torch.models.common import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-v0.1-52b", reduced=True)
+    kernel, plain = HybridModel(cfg), HybridModel(cfg, scan_impl="ref")
+    params = tree_map(lambda x: x.float(), init_params(
+        kernel.param_desc(), torch.Generator(card).manual_seed(1), card))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab, (2, 43))).to(card)
+    ts.reset_launches()
+    runs = []
+    for model in (kernel, plain):
+        logits, cache = model.prefill(params, {"tokens": toks[:, :40]},
+                                      pad_to=43)
+        steps = [logits]
+        for t in range(3):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": toks[:, 40 + t:41 + t]})
+            steps.append(logits)
+        runs.append(torch.stack(steps))
+    n_mamba = cfg.n_layers - cfg.n_layers // cfg.attn_every
+    assert ts.LAUNCHES["selective_scan"] == 4 * n_mamba
+    scale = max(float(runs[1].abs().max()), 1.0)
+    assert float((runs[0] - runs[1]).abs().max()) <= 1e-4 * scale
