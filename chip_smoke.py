@@ -581,7 +581,9 @@ def attn_compare(ta, name: str, q, k, v, **kw) -> float:
 def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
     """Small shapes: causal, window, bidirectional, S < T end-aligned,
     ragged S and T, S = 1 against a cache with empty (-1) slots, GQA
-    g = 1 and 8, head sizes 32/64/128, bfloat16 and float32."""
+    g = 1, 4 and 8, head sizes 32/64/128, bfloat16 and float32. In
+    bfloat16 both device kernels run (`ta.plan`); the 2032-slot decode
+    cases leave the splits past the query's slot wholly empty."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     cases = [  # B, S, T, H, KV, dh, causal, window, decode slots
@@ -594,6 +596,8 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
         (3, 1, 77, 8, 1, 128, True, None, True),
         (2, 1, 200, 16, 2, 64, True, 50, True),
         (4, 1, 2032, 64, 8, 128, True, None, True),
+        (1, 300, 300, 32, 8, 128, True, None, False),
+        (2, 1, 2032, 32, 8, 128, True, None, True),
     ]
     errs = dict.fromkeys(ATTN_TOL, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -838,9 +842,12 @@ def attn_timing_phase(ta, device, seed: int, shapes: dict,
         library_ms = cuda_ms(sdpa, flush)
         bound_ms, bound_by, flops, nbytes = attn_bound(
             qpos, kpos, B, S, T, H, KV, dh, q.element_size())
+        kernel, n_split, _ = (ta.plan(B, S, T, H, KV) if dtype_name ==
+                              "bfloat16" else ("float32", 1, T))
         out_shapes[kind] = {
             "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "dh": dh,
                       "dtype": dtype_name},
+            "kernel": kernel, "n_split": n_split,
             "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "scaled_dot_product_attention"
             "(enable_gqa=True)", "library_max_abs_diff": sdpa_err,

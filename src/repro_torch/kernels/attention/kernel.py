@@ -7,13 +7,24 @@ returns (B, S, H, dh) in q's dtype. Optional int32 `q_positions` (S,) and
 `kv_positions` (T,) replace the end-aligned default; a negative key
 position is an empty slot. `LAUNCHES["flash_attention"]` counts launches
 and `LAUNCH_SHAPES` counts them by (B, S, T, H, KV, dh, dtype). `launch`
-is the bare call beneath, for timing: it checks nothing and counts
-nothing. The library is built by nvcc on first launch, never at import.
+is the bare call beneath, for timing: it checks nothing, counts nothing
+and allocates nothing once its stream's workspace exists. The library is
+built by nvcc on first launch, never at import.
+
+In bfloat16 the shape alone picks one of two kernels (`plan`): up to
+`DECODE_ROWS` rows (query position, head of a KV group) per (batch, KV
+head) go to the split-KV decode kernel, over `n_split` ranges of keys;
+more go to the TMA + wgmma prefill kernel. float32 has one kernel. The
+decode kernel's partial results go to a float32 workspace and its
+per-(batch, KV head) tickets to an int32 array that each launch leaves
+at zero; both are held per (device, stream) and grown as shapes need, so
+launches on one stream share them in order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from collections import Counter
 from pathlib import Path
 
@@ -26,14 +37,26 @@ _MAX_INT = 2**31 - 1          # the kernel indexes rows with int
 
 
 def _declare(handle: ctypes.CDLL) -> None:
+    """flash_attention_launch(q, k, v, o, q_pos, kv_pos, B, S, T, H, KV,
+    dh, causal, window, bf16, split_keys, workspace, tickets, stream)."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 10 + [vp] * 3
     handle.flash_attention_launch.restype = i
 
 
 LIBRARY = Library("attention", Path(__file__).resolve().parent / "csrc",
                   _declare)
 HEAD_DIMS = (32, 64, 128)     # the head sizes the kernel is built for
+
+# The decode kernel's limits (attention.cu: D_ROWS, D_BN, D_MAX_SPLITS)
+# and the card it fills: SMS is an H100's count of SMs.
+DECODE_ROWS = 64              # rows per (batch, KV head)
+DECODE_TILE = 64              # keys per tile: no more splits than tiles
+DECODE_MAX_SPLITS = 64
+# 2.5 blocks per SM where T allows: 11 splits of 185 keys (352 blocks) at
+# the LM path's decode shape measured faster than 9 (288) or 16 (512), and
+# a split count under two waves (8, 256 blocks) is not taken (PERF.md)
+SMS, DECODE_WAVES = 132, 2.5
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
 LAUNCH_SHAPES: Counter = Counter()
@@ -83,6 +106,38 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
         raise ValueError(f"window must be in [1, 2**31), not {window}")
 
 
+def plan(B: int, S: int, T: int, H: int, KV: int) -> tuple[str, int, int]:
+    """The bf16 kernel for this shape: ("decode", n_split, keys per split)
+    or ("prefill", 1, T).
+
+    Decode takes S·H/KV <= DECODE_ROWS rows per (b, kvh) and cuts the T
+    keys into n_split equal ranges: enough for DECODE_WAVES blocks per SM,
+    no more than T has tiles, none empty."""
+    if S * (H // KV) > DECODE_ROWS:
+        return "prefill", 1, T
+    want = math.ceil(DECODE_WAVES * SMS / (B * KV))
+    n = max(1, min(want, math.ceil(T / DECODE_TILE), DECODE_MAX_SPLITS))
+    keys = math.ceil(T / n)
+    return "decode", math.ceil(T / keys), keys
+
+
+# (device index, stream) -> (float32 workspace, int32 tickets)
+_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int,
+               tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's scratch for this stream, grown if too small."""
+    key = (device.index, stream)
+    ws, tk = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = ws, tk
+    return ws, tk
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_positions: torch.Tensor | None = None,
@@ -109,13 +164,23 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = LIBRARY.lib()
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    split_keys, ws, tickets = 0, None, None
+    if q.dtype == torch.bfloat16:
+        kind, n_split, keys = plan(B, S, T, H, KV)
+        if kind == "decode":
+            split_keys = keys
+            ws, tickets = _workspace(q.device, stream,
+                                     B * KV * n_split * S * (H // KV)
+                                     * (dh + 2), B * KV)
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(),
         None if kv_positions is None else kv_positions.data_ptr(),
         B, S, T, H, KV, dh, int(causal), window or 0,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
+        int(q.dtype == torch.bfloat16), split_keys,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed with "
                            f"cudaError {rc}")

@@ -137,3 +137,91 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         ta.flash_attention(q, q, q)
     assert ta.LAUNCHES["flash_attention"] == 0
+
+
+# ---- the decode kernel's split-KV merge rule and the kernel choice -------
+# `attention_split_ref` computes attention the way the decode kernel does:
+# per range of keys a (m, l, acc) triple, merged by the rescale-and-add
+# rule. It must equal the full attention, splits with no valid key and
+# rows with no key at all included.
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,KV,dh", [
+    (2, 1, 256, 16, 2, 64),     # decode, g = 8
+    (2, 1, 300, 8, 2, 128),     # decode, g = 4, ragged last split
+    (1, 5, 77, 4, 2, 32),       # a small prefill the decode kernel takes
+])
+def test_split_kv_merge_matches_attention_ref_and_jax(B, S, T, H, KV, dh,
+                                                      dtype):
+    q, k, v = _inputs(np.random.default_rng(5), B, S, T, H, KV, dh)
+    tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
+    kind, n_split, keys = ta.plan(B, S, T, H, KV)
+    assert kind == "decode"
+    want_jax = np.asarray(jax_attention(
+        *(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+        causal=True, impl="ref"), np.float32)
+    want_ref = ta.attention_ref(tq, tk, tv).float().numpy()
+    for split_keys in sorted({keys, 16, 64, T}):
+        got = ta.attention_split_ref(tq, tk, tv, split_keys=split_keys)
+        assert got.dtype == getattr(torch, dtype)
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, want_ref, atol=TOL[dtype])
+        np.testing.assert_allclose(got, want_jax, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("split_keys", [16, 50, 77])
+def test_split_kv_merge_with_empty_splits_matches_blockwise_attention(
+        split_keys, window):
+    """A 200-slot cache filled up to position 60 (as after prefill with
+    pad_to): whole splits hold no valid key. Query 0 sits at -5 and may
+    attend to no key: it comes out as zeros (blockwise_attention averages
+    such a row instead, so only the other queries are compared to it)."""
+    B, S, T, H, KV, dh = 2, 2, 200, 8, 2, 64
+    q, k, v = _inputs(np.random.default_rng(6), B, S, T, H, KV, dh)
+    kpos = np.full(T, -1, np.int32)
+    kpos[:61] = np.arange(61)
+    qpos = np.array([-5, 60], np.int32)
+    want = np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos),
+        causal=True, window=window, chunk=32, rules=NULL_RULES))
+    kw = dict(causal=True, window=window, q_positions=torch.from_numpy(qpos),
+              kv_positions=torch.from_numpy(kpos))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ta.attention_split_ref(tq, tk, tv, split_keys=split_keys, **kw)
+    assert not got[:, 0].any()
+    np.testing.assert_allclose(got[:, 1].numpy(), want[:, 1], atol=3e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               ta.attention_ref(tq, tk, tv, **kw).numpy(),
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,H,KV", [
+    (4, 2032, 64, 8),           # qwen3-32b decode on the LM path
+    (4, 2032, 32, 8),           # jamba-v0.1-52b decode
+    (1, 2032, 64, 8), (3, 77, 8, 1), (2, 200, 16, 2), (64, 4096, 64, 8),
+    (1, 100_000, 8, 1),
+])
+def test_decode_plan_covers_every_key_with_no_empty_split(B, T, H, KV):
+    kind, n_split, keys = ta.plan(B, 1, T, H, KV)
+    assert kind == "decode"
+    assert 1 <= n_split <= ta.kernel.DECODE_MAX_SPLITS
+    assert (n_split - 1) * keys < T <= n_split * keys
+    most = min(-(-T // ta.kernel.DECODE_TILE), ta.kernel.DECODE_MAX_SPLITS)
+    assert n_split <= most                  # no more splits than tiles
+    # two waves of blocks on the card's 132 SMs where the keys allow
+    assert B * KV * n_split >= 2 * ta.kernel.SMS or n_split == most
+
+
+def test_main_path_decode_fills_two_waves_and_prefill_goes_to_prefill():
+    for H in (64, 32):          # qwen3-32b and jamba-v0.1-52b
+        kind, n_split, _ = ta.plan(4, 1, 2032, H, 8)
+        assert kind == "decode" and 4 * 8 * n_split >= 264
+        assert ta.plan(4, 2000, 2000, H, 8)[0] == "prefill"
+    assert ta.plan(1, 300, 300, 32, 8)[0] == "prefill"
+    # the decode kernel takes up to 64 rows (query position, head) per
+    # (batch, KV head), so small prefills go to it too
+    assert ta.plan(1, 5, 3, 2, 1)[0] == "decode"
+    assert ta.plan(1, 8, 8, 8, 1)[0] == "decode"
+    assert ta.plan(1, 9, 9, 8, 1) == ("prefill", 1, 9)

@@ -133,6 +133,18 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 65, 130, 2, 2, 64, False, None, False),    # bidirectional
     (3, 1, 77, 8, 1, 128, True, None, True),       # decode, kpos = -1 tail
     (2, 1, 200, 16, 2, 64, True, 50, True),        # decode with a window
+    # bf16 runs the split-KV decode kernel for S·H/KV <= 64, else the
+    # TMA + wgmma prefill kernel (`ta.plan`)
+    (4, 1, 2032, 64, 8, 128, True, None, True),    # qwen3 decode: 8 of 9
+                                                   # splits hold no key
+    (1, 300, 300, 32, 8, 128, True, None, False),  # jamba: g = 4, prefill
+    (4, 1, 2032, 32, 8, 128, True, None, True),    # jamba decode
+    (2, 1, 40, 8, 1, 32, True, None, True),        # T under one split
+    (2, 150, 333, 4, 1, 32, True, None, False),    # T not a multiple of
+                                                   # the 128-key TMA box
+    (1, 3, 100, 8, 1, 64, True, None, False),      # decode kernel, 24 rows
+    (2, 4, 130, 16, 2, 128, True, 40, False),      # 32 rows, a window
+    (1, 8, 77, 16, 2, 32, False, None, False),     # 64 rows, bidirectional
 ])
 def test_flash_attention_matches_plain_on_card(card, B, S, T, H, KV, dh,
                                                causal, window, slots, dtype):
@@ -143,9 +155,10 @@ def test_flash_attention_matches_plain_on_card(card, B, S, T, H, KV, dh,
                ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
     qpos = kpos = None
     if slots:                   # one query at 60 against a partly empty cache
+        pos = min(60, T - 1)
         kpos = torch.full((T,), -1, dtype=torch.int32)
-        kpos[:61] = torch.arange(61)
-        qpos = torch.tensor([60], dtype=torch.int32).to(card)
+        kpos[:pos + 1] = torch.arange(pos + 1)
+        qpos = torch.tensor([pos], dtype=torch.int32).to(card)
         kpos = kpos.to(card)
     ta.reset_launches()
     got = ta.attention(q, k, v, causal=causal, window=window,
