@@ -6,14 +6,16 @@
 
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
 per library, started together) and holds each against its plain PyTorch
-version on the card (`edge`, `attn_edge`; `wkv_edge`: the wkv kernel
+version on the card (`edge`, `attn_edge`; `wkv_edge`: the wkv kernels
 over S in {1, 37, 128, 2000}, head sizes 32/64/128, bf16 and float32
-r/k/v, with and without an initial state, out and final state within
-1e-4 of their largest |value|; `scan_edge`: the selective scan over S in
-{1, 37, 128, 2000}, N in {4, 8, 16}, D in {96, 8192}, with and without
-an initial state, y and final state within 1e-5 of their largest
-|value|). Then it drives four paths at a real size, each with the launch
-counts zeroed just before it and read just after:
+r/k/v, then the model's decays (with keys held at w = 0 and w = 1) at S
+in {1, T-1, T, T+1, 2T+1} for the prefill kernel's chunk T, and a B·H
+that overfills one wave, with and without an initial state, out and
+final state within 1e-4 of their largest |value|; `scan_edge`: the
+selective scan over S in {1, 37, 128, 2000}, N in {4, 8, 16}, D in {96,
+8192}, with and without an initial state, y and final state within 1e-5
+of their largest |value|). Then it drives four paths at a real size,
+each with the launch counts zeroed just before it and read just after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
   `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
@@ -49,8 +51,9 @@ counts zeroed just before it and read just after:
   float32 (2 prompts of 512 tokens, 8 forced steps) within 1e-4 of it.
 
 Last, each kernel is timed at the shapes its path gave it (median of
-CUDA-event timings, L2 flushed before each) beside the plain version,
-one PyTorch library call where there is one, and the least time the card
+CUDA-event timings, L2 flushed before each; the wkv kernels also by the
+profiler's device time, the kernel alone) beside the plain version, one
+PyTorch library call where there is one, and the least time the card
 needs for the same work.
 
 Every phase prints one JSON line; any failure raises and the script
@@ -464,6 +467,31 @@ def cuda_ms(fn, flush, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, flush, match: str, iters: int = 20) -> float:
+    """Median device time (ms) of the kernel whose name holds `match`,
+    from torch.profiler over `iters` runs of `fn`, L2 flushed before each:
+    the kernel alone, without the card's own launch latency that CUDA
+    events around a kernel of a few µs also count. The profiler may miss a
+    run or two at the edges of its window; fewer than half raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = [1e-3 * (e.time_range.end - e.time_range.start)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and match in e.name]
+    if len(times) < iters // 2:
+        raise AssertionError(f"profiler saw {len(times)} {match!r} kernels "
+                             f"of {iters}")
+    return statistics.median(times)
+
+
 def bound(host, prog=None) -> tuple[float, str]:
     """Least card time (ms) for the work on these inputs: each input read
     once and each output written once over HBM bandwidth, against the
@@ -867,15 +895,22 @@ def attn_timing_phase(ta, device, seed: int, shapes: dict,
 
 
 # ------------------------------------------------------------------ wkv
-def wkv_inputs(gen, B, S, H, dh, dtype, device):
-    """r, k, v (dtype), w in (0.5, 0.999), u and s0 (float32): the JAX
-    package's test distributions."""
+def wkv_inputs(gen, B, S, H, dh, dtype, device, decay="uniform"):
+    """r, k, v (dtype), w, u and s0 (float32): the JAX package's test
+    distributions. `decay` "uniform" draws w in (0.5, 0.999); "model"
+    draws the model's kind of decay, exp(-exp(N(0, 1))), with key 0 held
+    at exactly 1 and key 1 at exactly 0 on every step."""
     import torch
 
     def normal(shape, std):
         return std * torch.randn(shape, generator=gen, device=device)
     r, k, v = (normal((B, S, H, dh), std).to(dtype) for std in (1, 0.3, 1))
-    w = 0.5 + 0.499 * torch.rand((B, S, H, dh), generator=gen, device=device)
+    if decay == "uniform":
+        w = 0.5 + 0.499 * torch.rand((B, S, H, dh), generator=gen,
+                                     device=device)
+    else:
+        w = torch.exp(-torch.exp(normal((B, S, H, dh), 1.0)))
+        w[..., 0], w[..., 1] = 1.0, 0.0
     return r, k, v, w, normal((H, dh), 0.3), normal((B, H, dh, dh), 0.1)
 
 
@@ -902,27 +937,47 @@ def wkv_compare(tr, name: str, r, k, v, w, u, s0) -> tuple[float, float]:
     return abs_err, scaled
 
 
+def wkv_edge_cases(tr) -> list[tuple]:
+    """(B, S, H, dh, dtype name, decay) of the `wkv_edge` phase: the grid
+    S in {1, 37, 128, 2000} × head sizes × bf16/float32 r/k/v at uniform
+    decays; then the model's decays (with keys held at w = 0 and w = 1) at
+    S = 1 and on either side of the prefill kernel's chunk T (T - 1, T,
+    T + 1, 2T + 1); then B·H = 270 (6 × 45: at dh 64, 270 prefill blocks,
+    two to an SM, and 540 decode blocks), whose blocks leave the last wave
+    of the card part empty, at S = 37 and 1. Each case runs with and
+    without s0."""
+    T = tr.kernel.CHUNK
+    cases = [(2, S, 3, dh, dtype, "uniform") for S in (1, 37, 128, 2000)
+             for dh in tr.HEAD_DIMS for dtype in ("float32", "bfloat16")]
+    cases += [(2, S, 3, dh, dtype, "model")
+              for S in (1, T - 1, T, T + 1, 2 * T + 1)
+              for dh in tr.HEAD_DIMS for dtype in ("float32", "bfloat16")]
+    cases += [(6, S, 45, 64, "bfloat16", "model") for S in (37, 1)]
+    return cases
+
+
 def wkv_edge_phase(tr, device, seed: int) -> dict:
-    """S in {1, 37, 128, 2000} × head sizes 32/64/128 × bf16/float32 r/k/v
-    × with and without s0, B = 2, H = 3."""
+    """Every case of `wkv_edge_cases`, kernel against plain, out and final
+    state within WKV_TOL of their scale."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     errs = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
     cases = 0
-    for S in (1, 37, 128, 2000):
-        for dh in tr.HEAD_DIMS:
-            for dtype in (torch.float32, torch.bfloat16):
-                r, k, v, w, u, s0 = wkv_inputs(gen, 2, S, 3, dh, dtype,
-                                               device)
-                for init in (None, s0):
-                    a, rel = wkv_compare(
-                        tr, f"wkv {(2, S, 3, dh)} {dtype} s0="
-                        f"{init is not None}", r, k, v, w, u, init)
-                    errs["max_abs_err"] = max(errs["max_abs_err"], a)
-                    errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
-                    cases += 1
-    emit({"phase": "wkv_edge", "cases": cases, **errs,
-          "tolerance": WKV_TOL})
+    kernels = set()
+    for B, S, H, dh, dtype_name, decay in wkv_edge_cases(tr):
+        dtype = getattr(torch, dtype_name)
+        kernels.add(tr.plan(B, S, H, dh, dtype).kernel)
+        r, k, v, w, u, s0 = wkv_inputs(gen, B, S, H, dh, dtype, device,
+                                       decay)
+        for init in (None, s0):
+            a, rel = wkv_compare(
+                tr, f"wkv {(B, S, H, dh)} {dtype_name} {decay} s0="
+                f"{init is not None}", r, k, v, w, u, init)
+            errs["max_abs_err"] = max(errs["max_abs_err"], a)
+            errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+            cases += 1
+    emit({"phase": "wkv_edge", "cases": cases, "kernels": sorted(kernels),
+          **errs, "tolerance": WKV_TOL})
     return errs
 
 
@@ -1070,8 +1125,12 @@ def wkv_timing_phase(tr, device, seed: int, shapes: dict,
         out = torch.empty(r.shape, dtype=torch.float32, device=device)
         s_fin = torch.empty((B, H, dh, dh), dtype=torch.float32,
                             device=device)
-        kernel_ms = cuda_ms(lambda: tr.launch(r, k, v, w, u, s0, out, s_fin),
-                            flush)
+
+        def kernel():
+            tr.launch(r, k, v, w, u, s0, out, s_fin)
+        kernel_ms = cuda_ms(kernel, flush)
+        run = tr.plan(B, S, H, dh, r.dtype)
+        kernel_device_ms = device_ms(kernel, flush, f"wkv_{run.kernel}")
         # the plain version walks S steps from Python: fewer repeats
         slow = S > 100
         plain_ms = cuda_ms(lambda: tr.wkv_ref(r, k, v, w, u, s0), flush,
@@ -1081,10 +1140,13 @@ def wkv_timing_phase(tr, device, seed: int, shapes: dict,
         out_shapes[kind] = {
             "shape": {"B": B, "S": S, "H": H, "dh": dh, "dtype": dtype_name,
                       "s0": with_s0},
-            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel": f"wkv_{run.kernel}", "plan": run._asdict(),
+            "launches": shapes[key], "ms": kernel_ms,
+            "device_ms": kernel_device_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes, "max_abs_err": err,
-            "max_scaled_err": rel, "share_of_bound": bound_ms / kernel_ms}
+            "max_scaled_err": rel, "share_of_bound": bound_ms / kernel_ms,
+            "device_share_of_bound": bound_ms / kernel_device_ms}
     main = out_shapes["prefill"]
     return {"name": "wkv", "route": "cuda", "source": WKV_SOURCE,
             "replaces": WKV_REPLACES, "launches": sum(shapes.values()),

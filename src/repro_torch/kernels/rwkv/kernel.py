@@ -1,38 +1,102 @@
-"""The hand-written CUDA wkv kernel (`csrc/wkv.cu`): ctypes binding,
-argument checks and a launch counter.
+"""The hand-written CUDA wkv kernels (`csrc/wkv.cu`): ctypes binding,
+argument checks, the plan of a launch and a launch counter.
 
 `wkv_cuda` takes CUDA tensors in the model's layout — r, k, v (B, S, H,
 dh), one dtype (bfloat16 or float32), w (B, S, H, dh) and u (H, dh)
 float32, optional s0 (B, H, dh, dh) float32 — and returns (out (B, S, H,
 dh) float32, s_fin (B, H, dh, dh) float32). It refuses a bfloat16 w: a
-decay of 0.999 rounds to 0.99609 there. `LAUNCHES["wkv"]` counts launches
-and `LAUNCH_SHAPES` counts them by (B, S, H, dh, dtype, s0 given).
-`launch` is the bare call beneath, for timing: it checks nothing and
-counts nothing. The library is built by nvcc on first launch, never at
-import.
+decay of 0.999 rounds to 0.99609 there. One call is one launch, of one
+of the two kernels that `plan` names from the shape:
+
+- `wkv_prefill` (S > 1): the chunked form on tensor cores. A block per
+  64 value columns of a (b, h) (32 at dh = 32): 4 producer warps prepare
+  each chunk of 16 steps (the decays' products and the chunk's 16 × 16
+  step matrix, every entry an exact product of decays, split into TF32
+  hi and lo parts) in shared memory while 4
+  consumer warps (2 at dh = 32) run the previous chunk's three products
+  as TF32 mma, each holding its 16 columns of the state in registers
+  across the chunks.
+- `wkv_decode` (S = 1): a block per 32 value columns of a (b, h), one
+  thread per key and 4 columns, out summed over the keys in the block.
+
+`plan` decides every launch (grid, threads, shared memory) and the
+library refuses a plan it was not built for. `LAUNCHES["wkv"]` counts
+launches and `LAUNCH_SHAPES` counts them by (B, S, H, dh, dtype, s0
+given). `launch` is the bare call beneath, for timing: it checks nothing
+and counts nothing. The library is built by nvcc on first launch, never
+at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from .._build import Library
 
-_MAX_INT = 2**31 - 1          # the kernel's grid is B·H blocks
+_MAX_INT = 2**31 - 1          # the most blocks a 1D grid takes
 
 
 def _declare(handle: ctypes.CDLL) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    handle.wkv_launch.argtypes = [vp] * 8 + [i] * 5 + [vp]
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    handle.wkv_launch.argtypes = [vp] * 8 + [i] * 5 + [ll, i, ll, vp]
     handle.wkv_launch.restype = i
 
 
 LIBRARY = Library("rwkv", Path(__file__).resolve().parent / "csrc", _declare)
 HEAD_DIMS = (32, 64, 128)     # the head sizes the kernel is built for
+
+# The tiling `csrc/wkv.cu` is built for (its P_T, P_NP, D_JT, PrefillCfg
+# and PrefillSmem).
+CHUNK = 16                    # prefill: steps per chunk
+PRODUCER_WARPS = 4            # prefill: warps that prepare the chunks
+RAW_STAGES = 3                # prefill: stages of raw input
+DECODE_COLS = 32              # decode: value columns per block
+
+
+class Plan(NamedTuple):
+    """One launch of `wkv_launch`."""
+    kernel: str               # "prefill" (S > 1) or "decode" (S = 1)
+    cols: int                 # value columns per block
+    chunk: int                # steps per chunk (1 for decode)
+    blocks: int               # 1D grid, the column tile fastest
+    threads: int              # per block
+    smem_bytes: int           # shared memory per block
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, S: int, H: int, dh: int,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The kernel and tiling for r, k, v of `dtype` at (B, S, H, dh); the
+    library launches exactly this or refuses it."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head size {dh} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if S == 1:
+        # a thread per (key, 4 columns); out is summed over the warps
+        threads = dh * DECODE_COLS // 4
+        return Plan("decode", DECODE_COLS, 1, B * H * (dh // DECODE_COLS),
+                    threads, threads // 32 * (DECODE_COLS // 4) * 16)
+    es = 2 if dtype == torch.bfloat16 else 4
+    cols = 64 if dh >= 64 else 32
+    consumers = cols // 16                  # warps of 16 value columns
+    # RAW_STAGES stages of raw r, k, w, v; two prepared chunks: r~ and k~ as
+    # TF32 hi/lo in rows of 2 dh + 16 floats, A as hi/lo in rows of 2
+    # (CHUNK + 4), the chunk's decay; the producers' level vectors (4
+    # levels × 8 rows each side, rows of dh + 4)
+    stage = CHUNK * (2 * dh * es + 4 * dh + cols * es)
+    prepared = (2 * CHUNK * (2 * dh + 16) * 4 + CHUNK * 2 * (CHUNK + 4) * 4
+                + dh * 4)
+    levels = 2 * 32 * (dh + 4) * 4
+    return Plan("prefill", cols, CHUNK, B * H * (dh // cols),
+                32 * (consumers + PRODUCER_WARPS),
+                RAW_STAGES * stage + 2 * prepared + levels)
+
 
 LAUNCHES: dict[str, int] = {"wkv": 0}
 LAUNCH_SHAPES: Counter = Counter()
@@ -53,7 +117,7 @@ def _check(r, k, v, w, u, s0) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"head size {dh} not built; the kernel takes "
                          f"{HEAD_DIMS}")
-    if B * H > _MAX_INT:
+    if plan(B, S, H, dh, r.dtype).blocks > _MAX_INT:
         raise ValueError(f"B·H = {B * H} exceeds the kernel's grid")
     if r.dtype not in (torch.bfloat16, torch.float32) \
             or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -99,14 +163,16 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor | None,
            out: torch.Tensor, s_fin: torch.Tensor) -> None:
-    """Bare launch on the current stream into preallocated `out` and
-    `s_fin`. Raises if the launch itself fails."""
+    """Bare launch of `plan`'s kernel on the current stream into
+    preallocated `out` and `s_fin`. Raises if the launch itself fails."""
     lib = LIBRARY.lib()
     B, S, H, dh = r.shape
+    p = plan(B, S, H, dh, r.dtype)
     rc = lib.wkv_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), out.data_ptr(),
         s_fin.data_ptr(), B, S, H, dh, int(r.dtype == torch.bfloat16),
+        p.blocks, p.threads, p.smem_bytes,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"wkv: CUDA kernel launch failed with cudaError "

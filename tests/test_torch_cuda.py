@@ -217,12 +217,19 @@ def test_reduced_qwen3_decode_on_card_matches_plain_attention(card):
 WKV_TOL = 1e-4
 
 
-def _wkv_inputs(card, B, S, H, dh, dtype, seed):
+def _wkv_inputs(card, B, S, H, dh, dtype, seed, decay="uniform"):
+    """`decay` "uniform" draws w in (0.5, 0.999); "model" the model's kind
+    of decay, exp(-exp(N(0, 1))), with key 0 held at exactly 1 and key 1
+    at exactly 0."""
     rng = np.random.default_rng(seed)
     r, k, v = (torch.from_numpy(rng.normal(0, std, (B, S, H, dh)).astype(
         np.float32)).to(card, dtype) for std in (1.0, 0.3, 1.0))
-    w = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, H, dh)).astype(
-        np.float32)).to(card)
+    if decay == "uniform":
+        w = rng.uniform(0.5, 0.999, (B, S, H, dh))
+    else:
+        w = np.exp(-np.exp(rng.normal(0, 1, (B, S, H, dh))))
+        w[..., 0], w[..., 1] = 1.0, 0.0
+    w = torch.from_numpy(w.astype(np.float32)).to(card)
     u = torch.from_numpy(rng.normal(0, 0.3, (H, dh)).astype(np.float32)
                          ).to(card)
     s0 = torch.from_numpy(rng.normal(0, 0.1, (B, H, dh, dh)).astype(
@@ -235,14 +242,8 @@ def _scaled_err(got, want) -> float:
                                                  1.0)
 
 
-@pytest.mark.parametrize("with_s0", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("S", [1, 37, 128, 2000])
-def test_wkv_matches_plain_on_card(card, S, dh, dtype, with_s0):
-    """The `wkv_edge` grid of chip_smoke.py: out and s_fin within 1e-4 of
-    their largest |value|."""
-    r, k, v, w, u, s0 = _wkv_inputs(card, 2, S, 3, dh, dtype, S + dh)
+def _wkv_case(card, B, S, H, dh, dtype, with_s0, decay, seed):
+    r, k, v, w, u, s0 = _wkv_inputs(card, B, S, H, dh, dtype, seed, decay)
     s0 = s0 if with_s0 else None
     tr.reset_launches()
     out, s_fin = tr.wkv(r, k, v, w, u, s0, device=card)
@@ -250,9 +251,40 @@ def test_wkv_matches_plain_on_card(card, S, dh, dtype, with_s0):
     torch.cuda.synchronize()
     assert tr.LAUNCHES["wkv"] == 1
     assert out.dtype == s_fin.dtype == torch.float32
-    assert out.shape == (2, S, 3, dh) and s_fin.shape == (2, 3, dh, dh)
+    assert out.shape == (B, S, H, dh) and s_fin.shape == (B, H, dh, dh)
     assert _scaled_err(out, want_out) <= WKV_TOL
     assert _scaled_err(s_fin, want_s) <= WKV_TOL
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 37, 128, 2000])
+def test_wkv_matches_plain_on_card(card, S, dh, dtype, with_s0):
+    """The `wkv_edge` grid of chip_smoke.py: out and s_fin within 1e-4 of
+    their largest |value|."""
+    _wkv_case(card, 2, S, 3, dh, dtype, with_s0, "uniform", S + dh)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 33])
+def test_wkv_matches_plain_on_card_at_model_decays(card, S, dh, dtype,
+                                                   with_s0):
+    """The model's decays with keys held at w = 0 and w = 1, at S = 1 and
+    on either side of the prefill kernel's chunk of 16 steps (15, 16, 17,
+    33), as in chip_smoke.py's `wkv_edge`."""
+    assert tr.kernel.CHUNK == 16
+    _wkv_case(card, 2, S, 3, dh, dtype, with_s0, "model", 7 * S + dh)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("S", [37, 1])
+def test_wkv_matches_plain_when_blocks_overfill_a_wave(card, S, with_s0):
+    """B·H = 270: at dh 64, 270 prefill blocks (two fit on an SM) or 540
+    decode blocks on 132 SMs, so the last wave runs part empty."""
+    _wkv_case(card, 6, S, 45, 64, torch.bfloat16, with_s0, "model", S)
 
 
 def test_wkv_wrapper_refuses_what_the_kernel_does_not_take(card):

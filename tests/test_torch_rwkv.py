@@ -66,6 +66,16 @@ def _wkv_inputs(seed, B_, S_, H, dh, w_hi=0.999):
         rng.normal(0, 0.1, (B_, H, dh, dh))))
 
 
+def _model_decays(inputs, seed):
+    """The same inputs with the model's kind of decay, exp(-exp(N(0, 1))),
+    key 0 held at exactly 1 and key 1 at exactly 0 on every step."""
+    r, k, v, w, u, s0 = inputs
+    w = np.exp(-np.exp(np.random.default_rng(seed).normal(0, 1, w.shape))
+               ).astype(np.float32)
+    w[..., 0], w[..., 1] = 1.0, 0.0
+    return r, k, v, w, u, s0
+
+
 def _t(*arrays):
     return tuple(torch.from_numpy(a) for a in arrays)
 
@@ -90,6 +100,48 @@ def test_wkv_matches_jax_wkv_ref(B_, S_, H, dh, with_s0):
         np.testing.assert_allclose(s_fin.numpy(), np.asarray(want_s),
                                    rtol=1e-4, atol=1e-4)
     assert tr.LAUNCHES["wkv"] == 0                  # CPU: the plain version
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("S_,dh", [(1, 64), (1, 128), (15, 32), (16, 64),
+                                   (17, 128), (33, 64)])
+def test_wkv_matches_jax_at_model_decays(S_, dh, with_s0):
+    """The model's decays, with keys held at w = 0 and w = 1, at S = 1 and
+    on either side of the prefill kernel's chunk (15, 16, 17, 33): the
+    cases `chip_smoke.py`'s `wkv_edge` holds the kernels to on the card."""
+    assert tr.kernel.CHUNK == 16
+    r, k, v, w, u, s0 = _model_decays(
+        _wkv_inputs(S_ + dh, 2, S_, 3, dh), S_ * dh)
+    s0 = s0 if with_s0 else None
+    want_out, want_s = jax_wkv_ref(*map(jnp.asarray, (r, k, v, w, u)),
+                                   None if s0 is None else jnp.asarray(s0))
+    out, s_fin = tr.wkv(r, k, v, w, u, s0, device="cpu")
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(s_fin.numpy(), np.asarray(want_s), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("BH", [1, 160, 2**20])
+@pytest.mark.parametrize("S_", [1, 2, 37, 2000])
+@pytest.mark.parametrize("dh", tr.HEAD_DIMS)
+def test_plan_fits_the_card(dh, S_, BH):
+    """`plan` (which decides every launch; the library refuses any other)
+    gives a launch the card takes: a 1D grid in range, at most 1024
+    threads and 232,448 bytes of shared memory a block, column tiles that
+    divide dh, and the decode kernel exactly at S = 1."""
+    for B_, H in ((1, BH), (BH, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            p = tr.plan(B_, S_, H, dh, dtype)
+            assert p.kernel == ("decode" if S_ == 1 else "prefill")
+            assert p.blocks == B_ * H * (dh // p.cols)
+            assert 1 <= p.blocks <= 2**31 - 1
+            assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
+            assert 0 < p.smem_bytes <= 232_448      # a block's most
+            assert dh % p.cols == 0
+            assert p.chunk == (1 if S_ == 1 else tr.kernel.CHUNK)
+    with pytest.raises(ValueError, match="head size 16 not built"):
+        tr.plan(1, S_, BH, 16)
 
 
 @pytest.mark.parametrize("B_,S_,H,dh", [(1, 128, 2, 32), (2, 256, 3, 64),
