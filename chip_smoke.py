@@ -12,10 +12,14 @@ r/k/v, then the model's decays (with keys held at w = 0 and w = 1) at S
 in {1, T-1, T, T+1, 2T+1} for the prefill kernel's chunk T, and a B·H
 that overfills one wave, with and without an initial state, out and
 final state within 1e-4 of their largest |value|; `scan_edge`: the
-selective scan over S in {1, 37, 128, 2000}, N in {4, 8, 16}, D in {96,
-8192}, with and without an initial state, y and final state within 1e-5
-of their largest |value|). Then it drives four paths at a real size,
-each with the launch counts zeroed just before it and read just after:
+unfused selective scan over S in {1, 37, 128, 2000}, N in {4, 8, 16}, D
+in {96, 8192}, with and without an initial state, then the fused scan
+over the same grid with and without the D skip, in bf16 and float32,
+B_ and C_ strided views, dt drawn as the model draws it with keys pushed
+into and below the range of denormal exp(dt·A); y and final state within
+1e-5 of their largest |value|). Then it drives four paths at a real
+size, each with the launch counts zeroed just before it and read just
+after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
   `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
@@ -45,16 +49,19 @@ each with the launch counts zeroed just before it and read just after:
   dt_rank 256, vocab 65536) cut to `--jamba-layers` of its 32 layers (a
   multiple of its period of 8), random bf16 weights from a seeded
   `torch.Generator`, `decode_loop` with the traffic of the LM path
-  (exactly 33 scan launches per Mamba layer and 33 attention launches per
-  attention layer); then the same tokens teacher-forced through the
-  plain scan: in bf16 printed and bounded only by the logits' scale, in
-  float32 (2 prompts of 512 tokens, 8 forced steps) within 1e-4 of it.
+  (exactly 33 fused scan launches per Mamba layer, no unfused one, and
+  33 attention launches per attention layer); then the same tokens
+  teacher-forced through the plain fused scan: in bf16 printed and
+  bounded only by the logits' scale, in float32 (2 prompts of 512
+  tokens, 8 forced steps) within 1e-4 of it.
 
 Last, each kernel is timed at the shapes its path gave it (median of
 CUDA-event timings, L2 flushed before each; the wkv kernels also by the
 profiler's device time, the kernel alone) beside the plain version, one
 PyTorch library call where there is one, and the least time the card
-needs for the same work.
+needs for the same work; both scan kernels, the fused one at the Jamba
+path's shapes and the unfused one at the same (B, S, D, N), also by the
+profiler's device time.
 
 Every phase prints one JSON line; any failure raises and the script
 exits nonzero. The last lines are the kernels line, the card's name and
@@ -84,6 +91,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 BF16_FLOPS_PER_S = 989e12           # dense tensor-core rate
 F32_FLOPS_PER_S = 67e12
+# special-function units (MUFU: one ex2 a lane): 16 an SM a clock, 132
+# SMs at the 1.98 GHz boost clock (Hopper architecture white paper)
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 # The main path's traffic: QUERIES queries with top TOP_K, half of them
 # planner trees, of which GROUPS groups of PER go to combine_cluster.
@@ -128,11 +138,12 @@ WKV_REPLACES = "src/repro/kernels/rwkv/kernel.py:50"
 # routing or a capacity decision of the MoE, so bf16 is printed and
 # bounded only by the logits' scale; float32, whose roundings are 2^16
 # times finer, on 2 prompts of 512 tokens and 8 forced steps, within
-# JAMBA_F32_TOL. The scan kernel alone against the plain version: y and
+# JAMBA_F32_TOL. Each scan kernel alone against its plain version: y and
 # the final state within SCAN_TOL of their scale, the order of the sums
-# of y being the only difference (the state's update rounds as the plain
-# version does). The path's attention kernel is held to the plain
-# attention at each shape the path launched, within ATTN_TOL.
+# of y being the only difference (the state's update, and in the fused
+# kernel exp(dt·A) and dt·B_·x, round as the plain version does). The
+# path's attention kernel is held to the plain attention at each shape
+# the path launched, within ATTN_TOL.
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_BF16_TOL = 1.0
 JAMBA_F32_TOL = 1e-4
@@ -471,25 +482,27 @@ def device_ms(fn, flush, match: str, iters: int = 20) -> float:
     """Median device time (ms) of the kernel whose name holds `match`,
     from torch.profiler over `iters` runs of `fn`, L2 flushed before each:
     the kernel alone, without the card's own launch latency that CUDA
-    events around a kernel of a few µs also count. The profiler may miss a
-    run or two at the edges of its window; fewer than half raises."""
+    events around a kernel of a few µs also count. The profiler may miss
+    runs of its window, at times most of them: a window that shows fewer
+    than half is taken again, and a third such window raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = [1e-3 * (e.time_range.end - e.time_range.start)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and match in e.name]
-    if len(times) < iters // 2:
-        raise AssertionError(f"profiler saw {len(times)} {match!r} kernels "
-                             f"of {iters}")
-    return statistics.median(times)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [1e-3 * (e.time_range.end - e.time_range.start)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and match in e.name]
+        if len(times) >= iters // 2:
+            return statistics.median(times)
+    raise AssertionError(f"profiler saw {len(times)} {match!r} kernels of "
+                         f"{iters}, three times")
 
 
 def bound(host, prog=None) -> tuple[float, str]:
@@ -1171,20 +1184,49 @@ def scan_inputs(gen, B, S, D, N, device):
             normal((B, D, N), 0.1))
 
 
-def scan_compare(ts, name: str, a, b, c, h0) -> tuple[float, float, bool]:
-    """Kernel vs plain scan on the card: the largest absolute difference
-    and the largest over the plain version's largest |value|, each of y
-    and the final state, and whether the final states are bit-exact;
-    raises above SCAN_TOL."""
+def scan_fused_inputs(gen, B, S, D, N, dtype, device, edge=False):
+    """The fused scan's inputs as the model draws them: dt = softplus(N(0,
+    1)) float32, A = -exp(A_log) with A_log ~ 0.5·N(0, 1) (its init), x
+    ~ N(0, 1) in `dtype`, and B_ and C_ strided slices of one (B, S, 5 +
+    2N) projection in `dtype`, as the model slices its x projection; D
+    about 1 and h0 ~ 0.1·N(0, 1) float32. With `edge`, three keys reach
+    exp's denormal range: d = 1 has dt·A = -95 (a denormal) and x = 0, so
+    its state decays through denormals to 0; d = 2 has dt·A = -110 (a =
+    0); d = 3 sweeps dt·A from -80 across both edges over n."""
     import torch
-    got = ts.selective_scan(a, b, c, h0, device=a.device)
-    want = ts.selective_scan(a, b, c, h0, impl="ref", device=a.device)
+    import torch.nn.functional as F
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=device)
+    dt = F.softplus(normal((B, S, D)))
+    A = -torch.exp(0.5 * normal((D, N)))
+    x = normal((B, S, D))
+    if edge:
+        A[1:4] = -1.0
+        A[3] = -(1.0 + torch.arange(N, device=device) / 8.0)
+        dt[..., 1], dt[..., 2], dt[..., 3] = 95.0, 110.0, 80.0
+        x[..., 1] = 0.0
+        x[..., 2:4] /= dt[..., 2:4]
+    proj = normal((B, S, 5 + 2 * N)).to(dtype)
+    return (dt, A, proj[..., 5:5 + N], proj[..., 5 + N:], x.to(dtype),
+            1.0 + 0.1 * normal((D,)), 0.1 * normal((B, D, N)))
+
+
+def scan_check(name: str, got, want) -> tuple[float, float, bool, bool]:
+    """A scan kernel's (y, h_fin) against its plain version's on the card:
+    the largest absolute difference and the largest over the plain
+    version's largest |value|, each of y and the final state, and whether
+    the final states and whether the y are bit-exact; raises above
+    SCAN_TOL."""
+    import torch
     torch.cuda.synchronize()
     abs_err = scaled = 0.0
     for what, g, p in zip(("y", "h_fin"), got, want):
         if g.shape != p.shape or g.dtype != p.dtype:
             raise AssertionError(f"{name} {what}: {g.shape}/{g.dtype} vs "
                                  f"{p.shape}/{p.dtype}")
+        if not (torch.isfinite(g).all() and torch.isfinite(p).all()):
+            raise AssertionError(f"{name} {what}: not finite")
         err = float((g - p).abs().max())
         rel = err / max(float(p.abs().max()), 1e-30)
         if not rel <= SCAN_TOL:
@@ -1192,32 +1234,82 @@ def scan_compare(ts, name: str, a, b, c, h0) -> tuple[float, float, bool]:
                                  f"plain version by {rel} of its scale "
                                  f"(> {SCAN_TOL})")
         abs_err, scaled = max(abs_err, err), max(scaled, rel)
-    return abs_err, scaled, bool(torch.equal(got[1], want[1]))
+    return (abs_err, scaled, bool(torch.equal(got[1], want[1])),
+            bool(torch.equal(got[0], want[0])))
+
+
+def scan_compare(ts, name: str, a, b, c, h0) -> tuple:
+    """The unfused kernel against the plain scan (`scan_check`)."""
+    return scan_check(name, ts.selective_scan(a, b, c, h0, device=a.device),
+                      ts.selective_scan(a, b, c, h0, impl="ref",
+                                        device=a.device))
+
+
+def scan_fused_compare(ts, name: str, *args) -> tuple:
+    """The fused kernel against its plain version (`scan_check`); args
+    are (dt, A, B_, C_, x, D, h0)."""
+    dev = args[0].device
+    return scan_check(name, ts.selective_scan_fused(*args, device=dev),
+                      ts.selective_scan_fused(*args, impl="ref", device=dev))
 
 
 def scan_edge_phase(ts, device, seed: int) -> dict:
-    """S in {1, 37, 128, 2000} × N in {4, 8, 16} × D in {96, 8192} × with
-    and without h0, B = 2."""
+    """The unfused scan: S in {1, 37, 128, 2000} × N in {4, 8, 16} × D in
+    {96, 8192} × with and without h0, B = 2. The fused scan: the same grid
+    × with and without the D skip × bf16 and float32 x, B_ and C_, on
+    `scan_fused_inputs` with its edge keys."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     errs = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
-    cases = exact = 0
+    cases = exact = y_exact = 0
     for S in (1, 37, 128, 2000):
         for N in (4, 8, 16):
             for D in (96, 8192):
                 a, b, c, h0 = scan_inputs(gen, 2, S, D, N, device)
                 for init in (None, h0):
-                    err, rel, same = scan_compare(
+                    err, rel, same, y_same = scan_compare(
                         ts, f"selective_scan {(2, S, D, N)} h0="
                         f"{init is not None}", a, b, c, init)
                     errs["max_abs_err"] = max(errs["max_abs_err"], err)
                     errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
                     cases += 1
                     exact += same
+                    y_exact += y_same
                 del a, b, c, h0
+    fused = {"max_abs_err": 0.0, "max_scaled_err": 0.0}
+    f_cases, f_exact, f_y_exact = 0, {}, 0
+    for S in (1, 37, 128, 2000):
+        for N in (4, 8, 16):
+            for D in (96, 8192):
+                for dtype in (torch.bfloat16, torch.float32):
+                    dt, A, B_, C_, x, Dv, h0 = scan_fused_inputs(
+                        gen, 2, S, D, N, dtype, device, edge=True)
+                    for init in (None, h0):
+                        for skip in (None, Dv):
+                            err, rel, same, y_same = scan_fused_compare(
+                                ts, f"selective_scan_fused {(2, S, D, N)} "
+                                f"{dtype} h0={init is not None} "
+                                f"D={skip is not None}",
+                                dt, A, B_, C_, x, skip, init)
+                            fused["max_abs_err"] = max(fused["max_abs_err"],
+                                                       err)
+                            fused["max_scaled_err"] = max(
+                                fused["max_scaled_err"], rel)
+                            f_cases += 1
+                            key = str(dtype).removeprefix("torch.")
+                            f_exact[key] = f_exact.get(key, 0) + same
+                            f_y_exact += y_same
+                    del dt, A, B_, C_, x, Dv, h0
     emit({"phase": "scan_edge", "cases": cases, **errs,
-          "h_fin_bit_exact_cases": exact, "tolerance": SCAN_TOL})
-    return errs
+          "h_fin_bit_exact_cases": exact, "y_bit_exact_cases": y_exact,
+          "tolerance": SCAN_TOL,
+          "fused": {"cases": f_cases, **fused,
+                    "h_fin_bit_exact_cases": sum(f_exact.values()),
+                    "h_fin_bit_exact_by_dtype": f_exact,
+                    "y_bit_exact_cases": f_y_exact}})
+    return {"max_abs_err": max(errs["max_abs_err"], fused["max_abs_err"]),
+            "max_scaled_err": max(errs["max_scaled_err"],
+                                  fused["max_scaled_err"])}
 
 
 def _to_float32_in_place(tree) -> None:
@@ -1269,15 +1361,17 @@ def jamba_phase(args, device) -> dict:
     ta.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     out = decode_loop(model, params, prompt, LM_TOKENS)
-    scan_launches = ts.LAUNCHES["selective_scan"]
+    scan_launches = ts.LAUNCHES["selective_scan_fused"]
+    unfused_launches = ts.LAUNCHES["selective_scan"]
     attn_launches = ta.LAUNCHES["flash_attention"]
-    scan_shapes = dict(ts.LAUNCH_SHAPES)
+    scan_shapes = dict(ts.LAUNCH_SHAPES["selective_scan_fused"])
     attn_shapes = dict(ta.LAUNCH_SHAPES)
     peak_bytes = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------
 
-    for what, got, want in (("selective_scan", scan_launches,
+    for what, got, want in (("selective_scan_fused", scan_launches,
                              n_mamba * (1 + LM_TOKENS)),
+                            ("selective_scan", unfused_launches, 0),
                             ("flash_attention", attn_launches,
                              n_attn * (1 + LM_TOKENS))):
         if got != want:
@@ -1310,7 +1404,8 @@ def jamba_phase(args, device) -> dict:
         del q, k, v
 
     def versus_plain(params_, prompt_, tokens_):
-        """Teacher-forced logits through the kernel and the plain scan:
+        """Teacher-forced logits through the fused kernel and its plain
+        version (`scan_impl="ref"`):
         their largest difference over the largest |logit|, per step too,
         the share of equal argmaxes, and the kernel's logits."""
         kern = teacher_forced(model, params_, prompt_, tokens_)
@@ -1370,6 +1465,7 @@ def jamba_phase(args, device) -> dict:
           "decode_s_per_token": out.decode_s / LM_TOKENS,
           "decode_tok_per_s": LM_BATCH * LM_TOKENS / out.decode_s,
           "peak_device_bytes": peak_bytes, "scan_launches": scan_launches,
+          "unfused_scan_launches": unfused_launches,
           "scan_shapes": {str(k): v for k, v in scan_shapes.items()},
           "attention_launches": attn_launches,
           "attention_shapes": {str(k): v for k, v in attn_shapes.items()},
@@ -1401,9 +1497,35 @@ def scan_bound(B, S, D, N, with_h0) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def scan_fused_bound(B, S, D, N, nbytes_el, with_h0, with_D) -> dict:
+    """Least card time (ms) for one fused scan, the largest of three
+    terms: bytes (dt and y float32, x at its width, read or written once
+    per (b, t, d); the B_ and C_ values once per (b, t); A, D, h0 and
+    h_fin once) over HBM bandwidth; float32 operations (dt·A, the two
+    products of b, the update's two, y's product and sum: 7 per (b, t, d,
+    n), and the D skip's 2 per (b, t, d)) over the float32 rate; one ex2
+    per (b, t, d, n) over the special-function units' rate. `bound_by` is
+    "bytes" or "operations", `term` names the term."""
+    elems = B * S * D * N
+    nbytes = (8 + nbytes_el) * B * S * D + 2 * nbytes_el * B * S * N \
+        + 4 * D * N + (4 * D if with_D else 0) \
+        + 4 * B * D * N * (2 if with_h0 else 1)
+    flops = 7 * elems + (2 * B * S * D if with_D else 0)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "float32": flops / F32_FLOPS_PER_S,
+             "sfu": elems / SFU_OPS_PER_S}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": 1e3 * terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "term": term, "terms_ms": {k: 1e3 * v for k, v in terms.items()},
+            "flops": flops, "exp": elems, "bytes": nbytes}
+
+
 def scan_timing_phase(ts, device, seed: int, shapes: dict,
                       edge_errs: dict) -> dict:
-    """Time the kernel at the Jamba path's prefill and decode shapes."""
+    """Time the fused kernel at the Jamba path's prefill and decode shapes
+    and the unfused kernel at the same (B, S, D, N, h0): CUDA events, the
+    profiler's device time, the plain versions."""
     import torch
 
     flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
@@ -1411,41 +1533,85 @@ def scan_timing_phase(ts, device, seed: int, shapes: dict,
     picked = {}
     for key in shapes:
         picked["decode" if key[1] == 1 else "prefill"] = key
-    out_shapes = {}
+    fused_shapes, unfused_shapes = {}, {}
     errs = dict(edge_errs)
-    for kind, key in sorted(picked.items(), reverse=True):
-        B, S, D, N, with_h0 = key
-        a, b, c, h0 = scan_inputs(gen, B, S, D, N, device)
-        h0 = h0 if with_h0 else None
-        err, rel, same = scan_compare(ts, f"selective_scan {kind} {key}",
-                                      a, b, c, h0)
+
+    def record(err, rel):
         errs["max_abs_err"] = max(errs["max_abs_err"], err)
         errs["max_scaled_err"] = max(errs["max_scaled_err"], rel)
+
+    for kind, key in sorted(picked.items(), reverse=True):
+        B, S, D, N, dtype_name, with_h0, with_D = key
+        # the plain versions walk S steps from Python: fewer repeats
+        slow = S > 100
+        reps = {"iters": 5, "warmup": 1} if slow else {}
+
+        args = list(scan_fused_inputs(gen, B, S, D, N,
+                                      getattr(torch, dtype_name), device))
+        args[5] = args[5] if with_D else None
+        args[6] = args[6] if with_h0 else None
+        err, rel, same, y_same = scan_fused_compare(
+            ts, f"selective_scan_fused {kind} {key}", *args)
+        record(err, rel)
         y = torch.empty((B, S, D), dtype=torch.float32, device=device)
         h_fin = torch.empty((B, D, N), dtype=torch.float32, device=device)
-        kernel_ms = cuda_ms(lambda: ts.launch(a, b, c, h0, y, h_fin), flush)
-        # the plain version walks S steps from Python: fewer repeats
-        slow = S > 100
-        plain_ms = cuda_ms(lambda: ts.selective_scan_ref(a, b, c, h0), flush,
-                           iters=5 if slow else 30, warmup=1 if slow else 5)
+
+        def fused():
+            ts.launch_fused(*args, y, h_fin)
+        kernel_ms = cuda_ms(fused, flush)
+        bound = scan_fused_bound(B, S, D, N, args[4].element_size(),
+                                 with_h0, with_D)
+        fused_shapes[kind] = {
+            "shape": {"B": B, "S": S, "D": D, "N": N, "dtype": dtype_name,
+                      "h0": with_h0, "D_skip": with_D},
+            "kernel": "scan_fused", "launches": shapes[key],
+            "ms": kernel_ms, "device_ms": device_ms(fused, flush,
+                                                    "scan_fused"),
+            "plain_ms": cuda_ms(lambda: ts.selective_scan_fused_ref(*args),
+                                flush, **reps),
+            "library_ms": None, **bound, "max_abs_err": err,
+            "max_scaled_err": rel, "h_fin_bit_exact": same,
+            "y_bit_exact": y_same,
+            "share_of_bound": bound["bound_ms"] / kernel_ms}
+        del args, y, h_fin
+
+        a, b, c, h0 = scan_inputs(gen, B, S, D, N, device)
+        h0 = h0 if with_h0 else None
+        err, rel, same, y_same = scan_compare(
+            ts, f"selective_scan {kind} {(B, S, D, N, with_h0)}", a, b, c, h0)
+        record(err, rel)
+        y = torch.empty((B, S, D), dtype=torch.float32, device=device)
+        h_fin = torch.empty((B, D, N), dtype=torch.float32, device=device)
+
+        def unfused():
+            ts.launch(a, b, c, h0, y, h_fin)
+        kernel_ms = cuda_ms(unfused, flush)
         bound_ms, bound_by, flops, nbytes = scan_bound(B, S, D, N, with_h0)
-        out_shapes[kind] = {
+        unfused_shapes[kind] = {
             "shape": {"B": B, "S": S, "D": D, "N": N, "h0": with_h0},
-            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel": "scan_fwd", "launches": 0, "ms": kernel_ms,
+            "device_ms": device_ms(unfused, flush, "scan_fwd"),
+            "plain_ms": cuda_ms(lambda: ts.selective_scan_ref(a, b, c, h0),
+                                flush, **reps),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes, "max_abs_err": err,
             "max_scaled_err": rel, "h_fin_bit_exact": same,
-            "share_of_bound": bound_ms / kernel_ms}
+            "y_bit_exact": y_same, "share_of_bound": bound_ms / kernel_ms}
         del a, b, c, h0, y, h_fin
-    main = out_shapes["prefill"]
+    main = fused_shapes["prefill"]
     return {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
             "replaces": SCAN_REPLACES, "launches": sum(shapes.values()),
+            "kernel": "scan_fused",
             "max_abs_err": errs["max_abs_err"],
             "max_scaled_err": errs["max_scaled_err"], "tolerance": SCAN_TOL,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "at": "prefill",
-            "shapes": out_shapes}
+            "shapes": fused_shapes,
+            "routes": {"scan_fused": {"launches": sum(shapes.values()),
+                                      "shapes": fused_shapes},
+                       "scan_fwd": {"launches": 0,
+                                    "shapes": unfused_shapes}}}
 
 
 def build_phase(libraries) -> None:

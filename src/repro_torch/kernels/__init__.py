@@ -7,7 +7,8 @@
   rwkv/       — the RWKV-6 wkv recurrence with an initial and a final
                 state (rwkv6-3b's prefill and decode)
   ssm/        — the Mamba selective (diagonal) scan with an initial and
-                a final state (jamba-v0.1-52b's Mamba layers)
+                a final state: from a and b, and fused from the layer's
+                own dt, A, B_, C_ and x (jamba-v0.1-52b's Mamba layers)
 
 Each package ships the CUDA source (`csrc/`), built with nvcc on first
 use and loaded with ctypes by the shared helper (`_build.py`), wrappers

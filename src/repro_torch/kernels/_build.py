@@ -37,11 +37,15 @@ def _nvcc(name: str) -> str:
 
 class Library:
     """One kernel package's library: `csrc` holds its `.cu` sources and
-    `declare(handle)` sets the C functions' argtypes and restypes."""
+    `declare(handle)` sets the C functions' argtypes and restypes;
+    `defines` are extra nvcc flags (`-DNAME=value`) for a build with
+    other tuning constants."""
 
     def __init__(self, name: str, csrc: Path,
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 defines: tuple[str, ...] = ()):
         self.name, self.csrc, self._declare = name, Path(csrc), declare
+        self.flags = NVCC_FLAGS + tuple(defines)
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         # what the last build in this process did: nvcc seconds (0.0 when
@@ -53,7 +57,7 @@ class Library:
 
     def library_path(self) -> Path:
         """Where the library for the current sources and flags lives."""
-        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(" ".join(self.flags).encode())
         for src in self.sources():
             digest.update(src.read_bytes())
         return _BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:12]}.so"
@@ -67,7 +71,7 @@ class Library:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(self.name), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.run([_nvcc(self.name), *self.flags, "-o", str(tmp),
                                *map(str, self.sources())],
                               capture_output=True, text=True)
         if proc.returncode != 0:

@@ -1,13 +1,25 @@
-"""The hand-written CUDA selective-scan kernel (`csrc/selective_scan.cu`):
-ctypes binding, argument checks and a launch counter.
+"""The hand-written CUDA selective-scan kernels (`csrc/selective_scan.cu`):
+ctypes binding, argument checks and launch counters.
 
 `selective_scan_cuda` takes float32 CUDA tensors in the model's layout —
 a, b (B, S, D, N), c (B, S, N), optional h0 (B, D, N) — and returns (y
 (B, S, D) float32, h_fin (B, D, N) float32). N may be 1 to 32 (Mamba's
-d_state is 16). `LAUNCHES["selective_scan"]` counts launches and
-`LAUNCH_SHAPES` counts them by (B, S, D, N, h0 given). `launch` is the
-bare call beneath, for timing: it checks nothing and counts nothing. The
-library is built by nvcc on first launch, never at import.
+d_state is 16).
+
+`selective_scan_fused_cuda` takes the Mamba layer's own inputs — dt (B,
+S, D) float32, A (D, N) float32, B_ and C_ (B, S, N), x (B, S, D), with
+x, B_ and C_ all bfloat16 or all float32, optional D (D,) and h0 (B, D,
+N) float32 — builds a = exp(dt·A) and b = dt·B_·x in registers and
+returns (y + D·x (B, S, D) float32, h_fin (B, D, N) float32). B_ and C_
+may be strided views, such as the model's slices of its x projection:
+each is read as rows of N at one row stride.
+
+`LAUNCHES[name]` counts each kernel's launches and `LAUNCH_SHAPES[name]`
+counts them by shape: (B, S, D, N, h0 given) for "selective_scan", (B,
+S, D, N, dtype of x, h0 given, D given) for "selective_scan_fused".
+`launch` and `launch_fused` are the bare calls beneath, for timing: they
+check nothing and count nothing. The library is built by nvcc on first
+launch, never at import.
 """
 
 from __future__ import annotations
@@ -22,23 +34,28 @@ from .._build import Library
 
 MAX_N = 32                    # a state row is one group of lanes in a warp
 _MAX_INT = 2**31 - 1          # the kernel's grid and its int indices
+FUSED_DTYPES = (torch.bfloat16, torch.float32)   # of x, B_ and C_
 
 
 def _declare(handle: ctypes.CDLL) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     handle.selective_scan_launch.argtypes = [vp] * 6 + [i] * 4 + [vp]
     handle.selective_scan_launch.restype = i
+    handle.selective_scan_fused_launch.argtypes = \
+        [vp] * 9 + [i] * 4 + [ll, ll, i, vp]
+    handle.selective_scan_fused_launch.restype = i
 
 
 LIBRARY = Library("ssm", Path(__file__).resolve().parent / "csrc", _declare)
 
-LAUNCHES: dict[str, int] = {"selective_scan": 0}
-LAUNCH_SHAPES: Counter = Counter()
+LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0}
+LAUNCH_SHAPES: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 
 def reset_launches() -> None:
-    LAUNCHES["selective_scan"] = 0
-    LAUNCH_SHAPES.clear()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        LAUNCH_SHAPES[name].clear()
 
 
 def check_inputs(a, b, c, h0) -> None:
@@ -61,6 +78,45 @@ def check_inputs(a, b, c, h0) -> None:
                             "scan's inputs and state are float32")
 
 
+def check_fused_inputs(dt, A, B_, C_, x, D, h0) -> None:
+    """The fused scan's shapes and dtypes, on any device: raise on what
+    the kernel does not take (the plain version is held to the same
+    rules)."""
+    if dt.dim() != 3 or x.shape != dt.shape:
+        raise ValueError(f"dt and x must both be (B, S, D); got "
+                         f"{tuple(dt.shape)}, {tuple(x.shape)}")
+    Bsz, S, Di = dt.shape
+    if A.dim() != 2 or A.shape[0] != Di:
+        raise ValueError(f"A must be ({Di}, N); got {tuple(A.shape)}")
+    N = A.shape[1]
+    if min(Bsz, S, Di, N) < 1:
+        raise ValueError("B, S, D and N must be at least 1")
+    for name, t, want in (("B_", B_, (Bsz, S, N)), ("C_", C_, (Bsz, S, N)),
+                          ("D", D, (Di,)), ("h0", h0, (Bsz, Di, N))):
+        if t is not None and t.shape != want:
+            raise ValueError(f"{name} must be {want}; got {tuple(t.shape)}")
+    for name, t in (("dt", dt), ("A", A), ("D", D), ("h0", h0)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+    if x.dtype not in FUSED_DTYPES or B_.dtype != x.dtype \
+            or C_.dtype != x.dtype:
+        raise TypeError(f"x, B_ and C_ must be all bfloat16 or all float32; "
+                        f"got {x.dtype}, {B_.dtype}, {C_.dtype}")
+
+
+def row_stride(t: torch.Tensor) -> int | None:
+    """The stride between the rows (b, t) of a (B, S, N) tensor read as
+    B·S rows of N unit-stride values, or None when it is not one stride."""
+    Bsz, S, N = t.shape
+    if N > 1 and t.stride(2) != 1:
+        return None
+    if S == 1:
+        return t.stride(0)
+    if Bsz == 1 or t.stride(0) == S * t.stride(1):
+        return t.stride(1)
+    return None
+
+
 def _check(a, b, c, h0) -> None:
     check_inputs(a, b, c, h0)
     B, S, D, N = a.shape
@@ -76,6 +132,28 @@ def _check(a, b, c, h0) -> None:
                              "tensor on a's CUDA device")
 
 
+def _check_fused(dt, A, B_, C_, x, D, h0) -> None:
+    check_fused_inputs(dt, A, B_, C_, x, D, h0)
+    Bsz, S, Di = dt.shape
+    N = A.shape[1]
+    if N > MAX_N:
+        raise ValueError(f"N = {N} exceeds the kernel's {MAX_N}")
+    if max(S, Bsz * Di) > _MAX_INT:         # int sizes and grid
+        raise ValueError(f"shape {(Bsz, S, Di, N)} exceeds the kernel's grid")
+    for name, t in (("dt", dt), ("A", A), ("B_", B_), ("C_", C_), ("x", x),
+                    ("D", D), ("h0", h0)):
+        if t is not None and (t.device.type != "cuda"
+                              or t.device != dt.device):
+            raise ValueError(f"{name} must be on dt's CUDA device")
+    for name, t in (("dt", dt), ("A", A), ("x", x), ("D", D), ("h0", h0)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("B_", B_), ("C_", C_)):
+        if row_stride(t) is None:
+            raise ValueError(f"{name} must be rows (b, t) of N unit-stride "
+                             "values at one row stride")
+
+
 def selective_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         h0: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,8 +166,33 @@ def selective_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     with torch.cuda.device(a.device):
         launch(a, b, c, h0, y, h_fin)
     LAUNCHES["selective_scan"] += 1
-    LAUNCH_SHAPES[(B, S, D, N, h0 is not None)] += 1
+    LAUNCH_SHAPES["selective_scan"][(B, S, D, N, h0 is not None)] += 1
     return y, h_fin
+
+
+def selective_scan_fused_cuda(dt: torch.Tensor, A: torch.Tensor,
+                              B_: torch.Tensor, C_: torch.Tensor,
+                              x: torch.Tensor, D: torch.Tensor | None = None,
+                              h0: torch.Tensor | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused scan on the card. Raises on what the kernel does not take
+    and when the launch fails; there is no other path."""
+    _check_fused(dt, A, B_, C_, x, D, h0)
+    Bsz, S, Di = dt.shape
+    N = A.shape[1]
+    y = torch.empty((Bsz, S, Di), dtype=torch.float32, device=dt.device)
+    h_fin = torch.empty((Bsz, Di, N), dtype=torch.float32, device=dt.device)
+    with torch.cuda.device(dt.device):
+        launch_fused(dt, A, B_, C_, x, D, h0, y, h_fin)
+    LAUNCHES["selective_scan_fused"] += 1
+    LAUNCH_SHAPES["selective_scan_fused"][
+        (Bsz, S, Di, N, str(x.dtype).removeprefix("torch."), h0 is not None,
+         D is not None)] += 1
+    return y, h_fin
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -100,10 +203,28 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     lib = LIBRARY.lib()
     B, S, D, N = a.shape
     rc = lib.selective_scan_launch(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(h0), y.data_ptr(),
         h_fin.data_ptr(), B, S, D, N,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"selective_scan: CUDA kernel launch failed with "
                            f"cudaError {rc}")
+
+
+def launch_fused(dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+                 C_: torch.Tensor, x: torch.Tensor, D: torch.Tensor | None,
+                 h0: torch.Tensor | None, y: torch.Tensor,
+                 h_fin: torch.Tensor) -> None:
+    """Bare launch of the fused scan on the current stream into
+    preallocated `y` and `h_fin`. Raises if the launch itself fails."""
+    lib = LIBRARY.lib()
+    Bsz, S, Di = dt.shape
+    rc = lib.selective_scan_fused_launch(
+        dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+        x.data_ptr(), _ptr(D), _ptr(h0), y.data_ptr(), h_fin.data_ptr(),
+        Bsz, S, Di, A.shape[1], row_stride(B_), row_stride(C_),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"selective_scan_fused: CUDA kernel launch failed "
+                           f"with cudaError {rc}")

@@ -11,7 +11,7 @@ loop over that leading axis.
 
 Attention goes through `kernels.attention.ops.attention` with explicit
 positions, and the Mamba layers' scans through `kernels.ssm.ops.
-selective_scan`: on a card the hand-written kernels (or, with
+selective_scan_fused`: on a card the hand-written kernels (or, with
 `attn_impl="ref"` / `scan_impl="ref"`, their plain PyTorch versions, for
 comparison), on the CPU the plain versions.
 

@@ -6,12 +6,14 @@ Mirrors `repro/models/mamba.py` over a tree of tensors, without its
 
     h_t = exp(dt_t · A) ⊙ h_{t-1} + (dt_t · B_t) x_t,    y_t = h_t · C_t
 
-goes through `kernels.ssm.ops.selective_scan`, at prefill over the whole
-prompt and at decode as one step from the cached state: on a card the
-hand-written scan kernel (or, with `scan_impl="ref"`, its plain PyTorch
-version, for comparison), on the CPU the plain version. The scan returns
-y and the final state directly, so the JAX model's `chunked_diag_scan`
-and its (B, S, d_inner, d_state) tensor of every state are not built.
+goes through `kernels.ssm.ops.selective_scan_fused`, at prefill over the
+whole prompt and at decode as one step from the cached state: on a card
+the hand-written fused scan kernel (or, with `scan_impl="ref"`, its plain
+PyTorch version, for comparison), on the CPU the plain version. The
+kernel takes dt, A, B_, C_ and x and builds exp(dt · A) and dt · B_ · x
+itself, so neither the (B, S, d_inner, d_state) a and b that JAX's
+`_ssm_inputs` returns nor the JAX model's `chunked_diag_scan` tensor of
+every state is built; it returns y with the D skip and the final state.
 Each step keeps the JAX package's dtypes: products in the parameters'
 dtype, dt in that dtype and then float32, the scan in float32, y cast
 back to the activations' dtype before the gate.
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.ssm.ops import selective_scan
+from ..kernels.ssm.ops import selective_scan_fused
 from .common import Desc
 
 
@@ -75,12 +77,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(x_act: torch.Tensor, p: dict, cfg: ModelConfig):
-    """Selective (input-dependent) SSM coefficients: a (B, S, di, ds)
-    transition, b (B, S, di, ds) input, c (B, S, ds), all float32.
-
-    a and b are the largest tensors of the layer (4.2 GB each at 4 × 2000
-    tokens of Jamba); each is built with one temporary, the rest in
-    place, which rounds as the JAX expressions do."""
+    """The selective (input-dependent) SSM coefficients' factors, from
+    which the scan builds a = exp(dt · A) and b = dt · B_ · x_act: dt (B,
+    S, di) float32, A (di, ds) float32, and B_ and C_ (B, S, ds) in the
+    activations' dtype, strided views of the x projection."""
     ds = cfg.mamba.d_state
     dt_rank = p["dt_w"].shape[0]
     proj = x_act @ p["x_proj"]
@@ -88,10 +88,7 @@ def _ssm_inputs(x_act: torch.Tensor, p: dict, cfg: ModelConfig):
                       proj[..., dt_rank + ds:])
     dt = _softplus(dt_raw @ p["dt_w"] + p["dt_b"]).float()   # (B, S, di)
     A = -torch.exp(p["A_log"])                                # (di, ds)
-    a = torch.mul(dt[..., None], A).exp_()
-    b = torch.mul(dt[..., None], B_[:, :, None, :].float()).mul_(
-        x_act[..., None].float())
-    return a, b, C_.float()
+    return dt, A, B_, C_
 
 
 def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -111,10 +108,10 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     xz = x @ p["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]
     x_act = F.silu(_causal_dw_conv(x_in, p["conv_w"], p["conv_b"]))
-    a, b, c = _ssm_inputs(x_act, p, cfg)
-    y, h_fin = selective_scan(a, b, c, h0, impl=scan_impl, device=x.device)
-    del a, b
-    y = (y + p["D"] * x_act.float()).to(x.dtype)
+    dt, A, B_, C_ = _ssm_inputs(x_act, p, cfg)
+    y, h_fin = selective_scan_fused(dt, A, B_, C_, x_act, p["D"], h0,
+                                    impl=scan_impl, device=x.device)
+    y = y.to(x.dtype)
     out = (y * F.silu(z)) @ p["out_proj"]
     tail = x_in[:, max(S - (m.d_conv - 1), 0):]
     if tail.shape[1] < m.d_conv - 1:
@@ -126,7 +123,7 @@ def mamba_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
                       state: dict, scan_impl: str = "cuda"
                       ) -> tuple[torch.Tensor, dict]:
     """One-token step. x: (B, 1, D); state: {conv: (B, dc-1, di), h: (B,
-    di, ds) float32}. The step goes through the scan as S = 1 from
+    di, ds) float32}. The step goes through the fused scan as S = 1 from
     h0 = state["h"]. Returns (out (B, 1, D), new state); the given state
     is left as it was."""
     di = cfg.mamba.d_inner(cfg.d_model)
@@ -135,9 +132,9 @@ def mamba_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
     hist = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)  # (B,dc,di)
     x_conv = torch.einsum("bci,ci->bi", hist, p["conv_w"]) + p["conv_b"]
     x_act = F.silu(x_conv)[:, None, :]                        # (B, 1, di)
-    a, b, c = _ssm_inputs(x_act, p, cfg)
-    y, h = selective_scan(a, b, c, state["h"], impl=scan_impl,
-                          device=x.device)
-    y = (y[:, 0] + p["D"] * x_act[:, 0].float()).to(x.dtype)
+    dt, A, B_, C_ = _ssm_inputs(x_act, p, cfg)
+    y, h = selective_scan_fused(dt, A, B_, C_, x_act, p["D"], state["h"],
+                                impl=scan_impl, device=x.device)
+    y = y[:, 0].to(x.dtype)
     out = (y * F.silu(z[:, 0])) @ p["out_proj"]
     return out[:, None, :], {"conv": hist[:, 1:], "h": h}

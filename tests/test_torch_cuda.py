@@ -8,8 +8,9 @@ counts); flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
 (the JAX package's tolerances for its Pallas kernel), with TF32 off in
 the plain version; the wkv kernel to 1e-4 of the largest |value| of its
 output and of its final state, the JAX package's wkv tolerance; the
-selective scan to 1e-5 of the largest |value| of y and of its final
-state, since only the order of y's sums differs from the plain version.
+selective scans, unfused and fused, to 1e-5 of the largest |value| of y
+and of its final state, since only the order of y's sums differs from the
+plain version.
 """
 
 import numpy as np
@@ -385,11 +386,108 @@ def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
     assert ts.LAUNCHES["selective_scan"] == 0   # refusals never launch
 
 
+def _fused_inputs(card, B, S, D, N, dtype, seed):
+    """The fused scan's inputs as the model draws them (dt = softplus of a
+    normal, A = -exp(0.5 N(0, 1))), B_ and C_ strided slices of one
+    projection in `dtype`; keys 1-3 reach exp's denormal range: dt·A =
+    -95 with x = 0 (the state decays through denormals), -110 (a = 0), and
+    from -80 across both edges over n."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(0, 1, (B, S, D))))
+    A = -np.exp(rng.normal(0, 0.5, (D, N)))
+    x = rng.normal(0, 1, (B, S, D))
+    if D > 3:
+        A[1:4] = -1.0
+        A[3] = -(1.0 + np.arange(N) / 8.0)
+        dt[..., 1], dt[..., 2], dt[..., 3] = 95.0, 110.0, 80.0
+        x[..., 1] = 0.0
+        x[..., 2:4] /= dt[..., 2:4]
+    proj = rng.normal(0, 1, (B, S, 5 + 2 * N))
+
+    def to(a, dt_=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(card, dt_)
+    proj = to(proj, dtype)
+    return (to(dt), to(A), proj[..., 5:5 + N], proj[..., 5 + N:],
+            to(x, dtype), to(rng.normal(1, 0.1, D)),
+            to(rng.normal(0, 0.1, (B, D, N))))
+
+
+def _fused_case(card, args):
+    ts.reset_launches()
+    y, h_fin = ts.selective_scan_fused(*args, device=card)
+    want_y, want_h = ts.selective_scan_fused(*args, impl="ref", device=card)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 1}
+    assert y.dtype == h_fin.dtype == torch.float32
+    assert y.shape == want_y.shape and h_fin.shape == want_h.shape
+    assert torch.isfinite(y).all() and torch.isfinite(h_fin).all()
+    assert _scaled_err(y, want_y) <= SCAN_TOL
+    assert _scaled_err(h_fin, want_h) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [96, 8192])
+@pytest.mark.parametrize("N", [3, 4, 16])
+@pytest.mark.parametrize("S", [1, 37, 2000])
+def test_selective_scan_fused_matches_plain_on_card(card, S, N, D, dtype,
+                                                    with_h0):
+    """The fused kernel against its plain version: strided B_ and C_, dt
+    into exp's denormal range, the D skip; y and h_fin within 1e-5 of
+    their largest |value|."""
+    args = list(_fused_inputs(card, 2, S, D, N, dtype, S + N + D))
+    args[6] = args[6] if with_h0 else None
+    _fused_case(card, args)
+
+
+@pytest.mark.parametrize("N", [1, 2, 5, 8, 32])
+def test_selective_scan_fused_other_state_sizes_on_card(card, N):
+    """N from 1 to 32 (32: two lanes share a d), ragged D, without D."""
+    args = list(_fused_inputs(card, 3, 37, 200, N, torch.bfloat16, N))
+    args[5] = None
+    _fused_case(card, args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_fused_contiguous_rows_without_D_on_card(card, dtype):
+    dt, A, B_, C_, x, _, h0 = _fused_inputs(card, 2, 37, 96, 16, dtype, 9)
+    _fused_case(card, (dt, A, B_.contiguous(), C_.contiguous(), x, None, h0))
+
+
+def test_selective_scan_fused_wrapper_refuses_what_the_kernel_does_not_take(
+        card):
+    dt, A, B_, C_, x, D, h0 = _fused_inputs(card, 2, 8, 64, 16,
+                                            torch.bfloat16, 0)
+    ts.reset_launches()
+    with pytest.raises(TypeError, match="dt must be float32"):
+        ts.selective_scan_fused_cuda(dt.double(), A, B_, C_, x)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        ts.selective_scan_fused(dt, A, B_.float(), C_, x, device=card)
+    with pytest.raises(ValueError, match="dt must be contiguous"):
+        ts.selective_scan_fused_cuda(
+            dt.transpose(1, 2).contiguous().transpose(1, 2), A, B_, C_, x)
+    with pytest.raises(ValueError, match="B_ must be rows"):
+        ts.selective_scan_fused_cuda(dt, A, B_.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), C_, x)
+    with pytest.raises(ValueError, match="h0 must be"):
+        ts.selective_scan_fused_cuda(dt, A, B_, C_, x, D,
+                                     h0[:, :32].contiguous())
+    with pytest.raises(ValueError, match="on dt's CUDA device"):
+        ts.selective_scan_fused_cuda(dt, A.cpu(), B_, C_, x)
+    dt, A, B_, C_, x, _, _ = _fused_inputs(card, 1, 8, 4, 33, torch.float32,
+                                           0)
+    with pytest.raises(ValueError, match="N = 33 exceeds"):
+        ts.selective_scan_fused_cuda(dt, A, B_, C_, x)
+    assert ts.LAUNCHES == {"selective_scan": 0,     # refusals never launch
+                           "selective_scan_fused": 0}
+
+
 def test_reduced_jamba_on_card_matches_plain_scan(card):
     """Prefill + 3 decode steps of the reduced jamba-v0.1-52b in float32:
-    the model through the scan kernel against the same model through the
-    plain scan, teacher-forced on the same tokens, logits to 1e-4 of their
-    scale; the kernel runs once per Mamba layer and step."""
+    the model through the fused scan kernel against the same model through
+    its plain version, teacher-forced on the same tokens, logits to 1e-4 of
+    their scale; the fused kernel runs once per Mamba layer and step, the
+    unfused one never."""
     from repro_torch.configs import get_config
     from repro_torch.models import HybridModel, init_params
     from repro_torch.models.common import tree_map
@@ -413,6 +511,7 @@ def test_reduced_jamba_on_card_matches_plain_scan(card):
             steps.append(logits)
         runs.append(torch.stack(steps))
     n_mamba = cfg.n_layers - cfg.n_layers // cfg.attn_every
-    assert ts.LAUNCHES["selective_scan"] == 4 * n_mamba
+    assert ts.LAUNCHES == {"selective_scan": 0,
+                           "selective_scan_fused": 4 * n_mamba}
     scale = max(float(runs[1].abs().max()), 1.0)
     assert float((runs[0] - runs[1]).abs().max()) <= 1e-4 * scale
