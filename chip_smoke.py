@@ -6,7 +6,10 @@
 
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
 per library, started together) and holds each against its plain PyTorch
-version on the card (`edge`, `attn_edge`; `wkv_edge`: the wkv kernels
+version on the card (`edge`: the four bitmap intersect kernels on ragged
+shapes, then the key route's `combine_postings` and `bits_to_keys` on
+`kernels.intersect.cases`, bit for bit and against NumPy's sets;
+`attn_edge`; `wkv_edge`: the wkv kernels
 over S in {1, 37, 128, 2000}, head sizes 32/64/128, bf16 and float32
 r/k/v, then the model's decays (with keys held at w = 0 and w = 1) at S
 in {1, T-1, T, T+1, 2T+1} for the prefill kernel's chunk T, and a B·H
@@ -26,7 +29,12 @@ after:
   10 (half multi-term ANDs, half planner trees with NOT/phrases) under
   `impl="bitmap"`, checked against `impl="sorted"`;
   `IoUSketch.query(impl="bitmap")` on sampled words; and
-  `combine_cluster_planned` over 16 groups;
+  `combine_cluster_planned` over 16 groups. All four go through the key
+  route (posting ranks in, candidate keys out): exactly one launch per
+  combine call (32 for the sketch's words) and none of the bitmap
+  kernels. Then one batch traced by torch.profiler and one by cProfile
+  (`index_profile`: the card's busy time and idle share, its kernels,
+  the host's top functions);
 - LM serving: `qwen3-32b` at full width (d_model 5120, 64 heads over 8
   KV heads, head size 128, d_ff 25600, vocab 151936) cut to
   `--lm-layers` of its 64 layers, random bf16 weights from a seeded
@@ -56,7 +64,10 @@ after:
   tokens, 8 forced steps) within 1e-4 of it.
 
 Last, each kernel is timed at the shapes its path gave it (median of
-CUDA-event timings, L2 flushed before each; the wkv kernels also by the
+CUDA-event timings, L2 flushed before each; the key route's kernels on
+the main path's own inputs, with the host's plan, the H2D and D2H
+copies and the universe's sort timed beside them, and the bitmap kernel
+each route replaced at the same (rows, L, W); the wkv kernels also by the
 profiler's device time, the kernel alone) beside the plain version, one
 PyTorch library call where there is one, and the least time the card
 needs for the same work; both scan kernels, the fused one at the Jamba
@@ -108,6 +119,16 @@ REPLACES = {
     "combine_cluster": "src/repro/kernels/intersect/kernel.py:184",
 }
 SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+# The index path's key route, by the bitmap entry point it took over from
+# (the route counted in LAUNCHES) and that entry's bitmap kernel
+KEY_ROUTES = {"intersect": "intersect_keys",
+              "intersect_batch": "intersect_batch_keys",
+              "combine_batch": "combine_batch_keys",
+              "combine_cluster": "combine_cluster_keys"}
+BITMAP_KERNEL = {"intersect": "and_popcount",
+                 "intersect_batch": "and_popcount",
+                 "combine_batch": "combine_program",
+                 "combine_cluster": "combine_program"}
 
 # RWKV serving: the same traffic as the LM path, all 32 layers. The model
 # through the kernel is held to the same model through the plain wkv,
@@ -253,8 +274,73 @@ def edge_phase(tx, device, rng) -> dict[str, int]:
         if not (tx.to_numpy(got[0][q]) == expect[q]).all():
             raise AssertionError("combine_batch: ANDNOT/identity program "
                                  "differs from NumPy")
-    emit({"phase": "edge", "cases": cases + 1, "bit_exact": True})
+    fused = fused_edge(tx, device)
+    errs.update(dict.fromkeys(KEY_ROUTES.values(), 0))
+    emit({"phase": "edge", "cases": cases + 1, "bit_exact": True,
+          "fused_cases": fused, "fused_bit_exact": True})
     return errs
+
+
+def fused_check(tx, name: str, rows, progs, n_docs, device) -> None:
+    """The key route on the card against its plain version, bit for bit:
+    the entry point's keys and counts, and kernel by kernel on the same
+    plan (result words, tile counts, keys and their ranks); then the
+    keys against NumPy sets and, for programs, the lengths recovered on
+    the card against the planner's host rule (`cases.numpy_sets`,
+    `cases.host_lengths`). Raises on any difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.intersect import ops as txo
+    from repro_torch.kernels.intersect.cases import host_lengths, numpy_sets
+
+    def route(**kw):
+        if progs is None:
+            return tx.intersect_keys(rows, n_docs=n_docs, **kw)
+        return tx.combine_keys(rows, progs, **kw)
+    got, want = route(device=device), route(impl="ref", device=device)
+    plan = txo.plan_keys(rows, progs, n_docs, device)
+    kern = txo.keys_kernels(plan, ranks=True)
+    plain = txo.keys_plain(plan, ranks=True)
+    torch.cuda.synchronize()
+    for what, a, b in (("keys", got[0], want[0]),
+                       ("counts", got[1], want[1]),
+                       ("result words", kern[0], plain[0]),
+                       ("tile counts", kern[1], plain[1]),
+                       ("bits_to_keys keys", kern[2], plain[2]),
+                       ("bits_to_keys ranks", kern[3], plain[3])):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: {what} of the kernels differ "
+                                 "from the plain version")
+    found = tx.keys_per_row(*got)
+    for q, (keys, expect) in enumerate(zip(found, numpy_sets(rows, progs))):
+        if not np.array_equal(keys, expect):
+            raise AssertionError(f"{name}: row {q}'s keys differ from "
+                                 "NumPy's sets")
+    if progs is None:
+        return
+    # document lengths recovered on the card: the last leaf holding a
+    # key gives its length (lengths differ between leaves here)
+    rng = np.random.default_rng(len(name))
+    lengths = [[rng.integers(1, 2**40, len(a), dtype=np.uint64)
+                for a in row] for row in rows]
+    keys, counts, key_len = tx.combine_keys(rows, progs, device=device,
+                                            lengths=lengths)
+    for q, got_len in enumerate(tx.keys_per_row(key_len, counts)):
+        if not np.array_equal(got_len, host_lengths(found[q], rows[q],
+                                                    lengths[q])):
+            raise AssertionError(f"{name}: row {q}'s lengths differ from "
+                                 "the planner's host rule")
+
+
+def fused_edge(tx, device) -> int:
+    """The key route's kernels on `kernels.intersect.cases`: an empty
+    leaf, universes of 1, 31, 32, 33 and one tile ± 1 keys, one tile
+    filled, most tiles empty, ANDNOT and identity-padded programs, keys
+    just below 2**63. Returns the number of cases."""
+    from repro_torch.kernels.intersect.cases import EDGE_CASES, edge_case
+    for name in EDGE_CASES:
+        fused_check(tx, name, *edge_case(name), device)
+    return len(EDGE_CASES)
 
 
 # ----------------------------------------------------------- main path
@@ -369,6 +455,7 @@ def main_phase(args, device) -> dict:
         return word_fingerprint(w) in s_plan.common
 
     # ---- the main path: counts zeroed before, read after -------------
+    captured, release = capture_key_calls(tx)
     tx.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -388,11 +475,20 @@ def main_phase(args, device) -> dict:
     launches = dict(tx.LAUNCHES)
     shapes = dict(tx.LAST_SHAPE)
     peak_bytes = torch.cuda.max_memory_allocated()
+    release()
     # -------------------------------------------------------------------
 
-    idle = [k for k, v in launches.items() if not v]
-    if idle:
-        raise AssertionError(f"main path never launched {idle}")
+    # every route through the key kernels, as often as the path calls it;
+    # the bitmap kernels not at all
+    expect = {"intersect_keys": len(sample), "intersect_batch_keys": 1,
+              "combine_batch_keys": 1, "combine_cluster_keys": 1}
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"main path launched the key route "
+                             f"{ {k: launches[k] for k in expect} }, "
+                             f"expected {expect}")
+    bitmap = {k: launches[k] for k in KEY_ROUTES if launches[k]}
+    if bitmap:
+        raise AssertionError(f"main path launched bitmap kernels {bitmap}")
 
     t0 = time.perf_counter()
     res_sorted = s_sorted.query_batch(queries, top_k=TOP_K, impl="sorted")
@@ -421,6 +517,7 @@ def main_phase(args, device) -> dict:
                     raise AssertionError(f"combine_cluster_planned group "
                                          f"{g} query {q} differs")
 
+    index_profile(searcher, queries, TOP_K)
     if args.profile:
         for impl in ("bitmap", "sorted"):
             host_profile(searcher(), queries, TOP_K, impl)
@@ -436,13 +533,65 @@ def main_phase(args, device) -> dict:
                       "candidates": int(counts.sum())},
           "launches": launches, "shapes": shapes,
           "peak_device_bytes": peak_bytes})
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "shapes": shapes, "captured": captured}
+
+
+def capture_key_calls(tx):
+    """Wrap the key route's entry points so that each route keeps the
+    inputs of its latest call, to time its kernels on the main path's
+    own data. Returns (captured, release); `release()` unwraps."""
+    captured: dict[str, tuple] = {}
+    intersect_keys, combine_keys = tx.intersect_keys, tx.combine_keys
+
+    def wrapped_intersect(rows, n_docs=None, **kw):
+        route = "intersect" if n_docs is not None else "intersect_batch"
+        captured[route] = (rows, None, n_docs, None, None)
+        return intersect_keys(rows, n_docs=n_docs, **kw)
+
+    def wrapped_combine(rows, programs, groups=None, lengths=None, **kw):
+        route = "combine_cluster" if groups is not None else "combine_batch"
+        captured[route] = (rows, programs, None, groups, lengths)
+        return combine_keys(rows, programs, groups=groups, lengths=lengths,
+                            **kw)
+
+    def release():
+        tx.intersect_keys, tx.combine_keys = intersect_keys, combine_keys
+    tx.intersect_keys, tx.combine_keys = wrapped_intersect, wrapped_combine
+    return captured, release
+
+
+def index_profile(searcher, queries, top_k: int) -> None:
+    """One `query_batch` on the card under torch.profiler (the card's busy
+    time and idle share against the host's wall, the kernels that take
+    it), then one under cProfile (the host's top functions)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    s = searcher()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.query_batch(queries, top_k=top_k)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, events, by_name = _device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    host = host_profile(searcher(), queries, top_k, "bitmap", n=10,
+                        show=False)
+    emit({"phase": "index_profile", "queries": len(queries),
+          "host_wall_us": wall_us, "device_busy_us": busy_us,
+          "device_idle_share": 1 - busy_us / wall_us if events else None,
+          "device_events": events,
+          "top_kernels_us": [[name[:90], us, n] for name, (us, n) in top],
+          "host_profile_total_s": host["total_s"],
+          "host_top_own_s": host["top_own_s"]})
 
 
 def host_profile(searcher, queries, top_k: int, impl: str,
-                 n: int = 15) -> None:
+                 n: int = 15, show: bool = True) -> dict:
     """cProfile one `query_batch`: the functions with the most own time
-    (host clock; profiling adds its own overhead)."""
+    (host clock; profiling adds its own overhead); printed as a
+    `host_profile` line when `show`, and returned."""
     import cProfile
     import pstats
     import torch
@@ -453,10 +602,13 @@ def host_profile(searcher, queries, top_k: int, impl: str,
     prof.disable()
     stats = pstats.Stats(prof).stats
     rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
-    emit({"phase": "host_profile", "impl": impl,
-          "total_s": sum(v[2] for v in stats.values()),
-          "top_own_s": [[f"{Path(f).name}:{line}({fn})", own, cum]
-                        for (f, line, fn), (_cc, _nc, own, cum, _) in rows]})
+    out = {"phase": "host_profile", "impl": impl,
+           "total_s": sum(v[2] for v in stats.values()),
+           "top_own_s": [[f"{Path(f).name}:{line}({fn})", own, cum]
+                         for (f, line, fn), (_cc, _nc, own, cum, _) in rows]}
+    if show:
+        emit(out)
+    return out
 
 
 # --------------------------------------------------------------- timing
@@ -592,6 +744,187 @@ def timing_phase(tx, device, rng, shapes: dict, errs: dict) -> list[dict]:
             "bound_by": bound_by, "library_ms": None,
             "kernel_us": 1e3 * kernel_ms, "plain_us": 1e3 * plain_ms,
             "bound_us": 1e3 * bound_ms, "h2d_ms": h2d_ms, "d2h_ms": d2h_ms})
+    return kernels
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Median host-clock time (ms) of `fn` ending in a device
+    synchronise, after one warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def keys_bound(plan, n_keys: int, n_hit: int, ranks: bool,
+               ) -> dict[str, tuple[float, str]]:
+    """Least card time (ms) of each key-route kernel on this plan's data,
+    and which term bounds it: bytes over HBM bandwidth against integer
+    operations over the INT32 rate. W = ceil(U / 32) words a row: the
+    padding of the last tile is work of the kernel, not of the function.
+
+    combine_postings reads the ranks of every list a program names, each
+    distinct list once (4 B a rank), the (row, layer) bounds (8 B each)
+    and the programs (12 B a step), and writes 4 B per result word and
+    per tile count; it sets one bit per rank of each named (row, layer)
+    and does one op per step and word plus a popc. bits_to_keys reads the
+    words and the int64 tile offsets and writes 8 B per key (and 4 B per
+    rank with `ranks`); it reads 8 B for each of the `n_hit` distinct
+    universe entries its keys hit (all rows gather from one universe,
+    which fits in L2), none for the identity universe."""
+    import numpy as np
+    r = plan.ranked
+    bounds, prog = r.bounds.cpu().numpy(), plan.programs.cpu().numpy()
+    rows, L, _ = bounds.shape
+    S = prog.shape[1]
+    named = np.zeros((rows, L), dtype=bool)
+    for col in (1, 2):
+        slots = prog[:, :, col]
+        rr, ss = np.nonzero(slots < L)
+        named[rr, slots[rr, ss]] = True
+    spans = bounds[named]
+    distinct = np.unique(spans, axis=0) if len(spans) else spans
+    n_words = rows * ((r.n_bits + 31) // 32)
+
+    def pair(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                          else "operations")
+    return {
+        "combine_postings": pair(
+            4 * int((distinct[:, 1] - distinct[:, 0]).sum()) + bounds.nbytes
+            + prog.nbytes + 4 * n_words + 4 * rows * plan.tiles,
+            int((spans[:, 1] - spans[:, 0]).sum()) + n_words * (S + 1)),
+        "bits_to_keys": pair(
+            4 * n_words + 8 * rows * plan.tiles
+            + (12 if ranks else 8) * n_keys
+            + (0 if r.universe is None else 8 * n_hit),
+            n_words + n_keys)}
+
+
+def keys_timing_phase(tx, device, rng, main: dict, errs: dict,
+                      ) -> list[dict]:
+    """The key route's kernels at each route's last inputs on the main
+    path, one entry per TPU kernel it replaces: `ms` is combine_postings
+    plus bits_to_keys by CUDA events (L2 flushed), `plain_ms` their plain
+    versions, `bound_ms` the sum of their bounds, `parts` each kernel
+    alone; beside them the work around the kernels: the host's plan
+    (`plan_ms`, host clock: leaf checks, H2D, universe, programs), the
+    leaves' H2D copy, the universe's sort and ranking on the card, the
+    keys' D2H copy, and the entry point whole (`entry_ms`), each as the
+    main path called it (`ranks`: bits_to_keys also wrote the keys'
+    ranks, for the lengths `combine_keys` recovers). `routes`
+    gives the bitmap kernel that route took before, timed at the same
+    (rows, L, W) on random bitmaps (0 launches on the main path)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.intersect import ops as txo
+
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    bitmap_shapes, plans = {}, {}
+    for name, route in KEY_ROUTES.items():
+        rows, progs, n_docs, groups, _lengths = main["captured"][name]
+        plan = plans[name] = txo.plan_keys(rows, progs, n_docs, device)
+        n, L, S = len(rows), plan.ranked.bounds.shape[1], \
+            plan.programs.shape[1]
+        W = (plan.ranked.n_bits + 31) // 32
+        bitmap_shapes[name] = {
+            "intersect": ((L, W),), "intersect_batch": ((n, L, W),),
+            "combine_batch": ((n, L, W), (n, S, 3)),
+            "combine_cluster": ((groups, n // (groups or 1), L, W),
+                                (groups, n // (groups or 1), S, 3)),
+        }[name]
+    bitmap = {k["name"]: k for k in timing_phase(tx, device, rng,
+                                                  bitmap_shapes, errs)}
+    kernels = []
+    for name, route in KEY_ROUTES.items():
+        rows, progs, n_docs, groups, lengths = main["captured"][name]
+        plan, r = plans[name], plans[name].ranked
+        ranks = lengths is not None
+        got = txo.keys_kernels(plan, ranks)
+        words, tile_cnt, keys, key_ranks = got
+        plain = txo.keys_plain(plan, ranks)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:4 if ranks else 3], plain):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{route}: kernels differ from the "
+                                     "plain version on the main path's "
+                                     "inputs")
+        flat = tile_cnt.view(-1).to(torch.int64)
+        offsets = torch.cumsum(flat, 0) - flat
+        out_w, out_c = torch.empty_like(words), torch.empty_like(tile_cnt)
+        out_k = torch.empty_like(keys)
+        out_r = None if key_ranks is None else torch.empty_like(key_ranks)
+        parts = {
+            "combine_postings": {
+                "ms": cuda_ms(lambda: txo.launch_combine_postings(
+                    r.ranks, r.bounds, plan.programs, out_w, out_c,
+                    plan.tiles, plan.tile_w), flush),
+                "plain_ms": cuda_ms(lambda: tx.combine_postings_ref(
+                    r.ranks, r.bounds, plan.programs, plan.tiles,
+                    plan.tile_w), flush)},
+            "bits_to_keys": {
+                "ms": cuda_ms(lambda: txo.launch_bits_to_keys(
+                    words, offsets, r.universe, out_k, plan.tiles,
+                    plan.tile_w, out_r), flush),
+                "plain_ms": cuda_ms(lambda: tx.bits_to_keys_ref(
+                    words, r.universe, ranks), flush)}}
+        # distinct keys = distinct universe entries hit (a bijection)
+        n_hit = torch.unique(keys).numel() if r.universe is not None else 0
+        for part, (ms, by) in keys_bound(plan, keys.numel(), n_hit,
+                                         ranks).items():
+            parts[part].update(bound_ms=ms, bound_by=by)
+        # the work around the kernels
+        seen, distinct = set(), []
+        for row in rows:
+            for leaf in row:
+                if id(leaf) not in seen:
+                    seen.add(id(leaf))
+                    distinct.append(np.asarray(leaf).astype(np.int64))
+        host = np.concatenate(distinct)
+        on_card = torch.from_numpy(host).to(device)
+        if progs is None:
+            def entry():
+                return tx.intersect_keys(rows, n_docs=n_docs, device=device)
+        else:
+            def entry():
+                return tx.combine_keys(rows, progs, groups=groups,
+                                       device=device, lengths=lengths)
+        cp, bk = parts["combine_postings"], parts["bits_to_keys"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "kernels": ["combine_postings", "bits_to_keys"],
+            "entry": route, "shape": main["shapes"][route],
+            "ranks": ranks,
+            "launches": main["launches"][route],
+            "max_abs_err": errs[route], "bit_exact": errs[route] == 0,
+            "ms": cp["ms"] + bk["ms"],
+            "plain_ms": cp["plain_ms"] + bk["plain_ms"],
+            "bound_ms": cp["bound_ms"] + bk["bound_ms"],
+            "bound_by": max((cp, bk), key=lambda p: p["bound_ms"])[
+                "bound_by"],
+            "library_ms": None, "parts": parts,
+            "h2d_bytes": host.nbytes,
+            "h2d_ms": cuda_ms(lambda: torch.from_numpy(host).to(device),
+                              flush),
+            "universe_ms": None if n_docs is not None else cuda_ms(
+                lambda: torch.searchsorted(torch.unique(on_card), on_card,
+                                           out_int32=True), flush),
+            "d2h_bytes": keys.numel() * 8,
+            "d2h_ms": cuda_ms(lambda: keys.cpu(), flush),
+            "plan_ms": host_ms(lambda: txo.plan_keys(rows, progs, n_docs,
+                                                     device, lengths)),
+            "entry_ms": host_ms(entry),
+            "routes": {"bitmap": dict(
+                bitmap[name], kernel=BITMAP_KERNEL[name],
+                launches=main["launches"][name])}})
     return kernels
 
 
@@ -1679,9 +2012,7 @@ def main() -> int:
     wkv_errs = wkv_edge_phase(tr, device, args.seed)
     scan_errs = scan_edge_phase(ts, device, args.seed)
     main = main_phase(args, device)
-    kernels = timing_phase(tx, device, rng, main["shapes"], errs)
-    for k in kernels:
-        k["launches"] = main["launches"][k["name"]]
+    kernels = keys_timing_phase(tx, device, rng, main, errs)
     lm = lm_phase(args, device)
     attn = attn_timing_phase(ta, device, args.seed, lm["shapes"], attn_errs)
     kernels.append(attn)

@@ -148,10 +148,10 @@ class IoUSketch:
         superposts (still a superset — correctness is preserved, accuracy
         degrades gracefully).
 
-        `impl="bitmap"` combines through the `intersect` kernel on
-        `device` (`kernels/intersect`): superposts become document-space
-        bitsets and the L-way AND + popcount happens in one fused pass
-        over them on the card.
+        `impl="bitmap"` combines through `intersect_keys` on `device`
+        (`kernels/intersect`): the superposts' doc ids are their own
+        ranks in a universe of `n_docs`, and the kernels set their bits,
+        AND the L layers and read back the matching ids on the card.
         """
         fp = word_fingerprint(word)
         if fp in self.common:
@@ -160,16 +160,13 @@ class IoUSketch:
         if wait_for is not None:
             posts = posts[:max(1, min(wait_for, len(posts)))]
         if impl == "bitmap":
-            from ..kernels.intersect import (bitmap_to_docs, intersect,
-                                             postings_to_bitmap, to_numpy)
+            from ..kernels.intersect import intersect_keys
             if n_docs is None:
                 n_docs = 1 + max((int(p[-1]) for p in posts if len(p)),
                                  default=0)
-            if any(len(p) == 0 for p in posts):
-                return np.empty(0, dtype=np.uint32)
-            bitmap, _count = intersect(postings_to_bitmap(posts, n_docs),
-                                       device=device)
-            return bitmap_to_docs(to_numpy(bitmap))
+            keys, _count = intersect_keys([posts], n_docs=n_docs,
+                                          device=device)
+            return keys.cpu().numpy().astype(np.uint32)
         return intersect_sorted(posts)
 
     # ----------------------------------------------------------------- sizing

@@ -35,7 +35,7 @@ match before verification can save it:
 
 The executor (searcher.py `execute_jobs`) is unchanged in shape: one
 shared superpost round, the candidate algebra in memory (NumPy set ops,
-or the batched CUDA `combine_batch` kernel under `impl="bitmap"`), one
+or the batched CUDA kernels of `combine_keys` under `impl="bitmap"`), one
 shared document round, per-node verification. Classic Term/And/Or trees
 and standalone Regex queries compile to exactly the jobs the pre-planner
 engine built — byte-identical requests, results, and stats.
@@ -512,68 +512,35 @@ def combine_planned(plans: list[PhysicalPlan],
                     ) -> list[tuple[np.ndarray, np.ndarray]]:
     """Evaluate several planned queries' candidate algebra for one unit.
 
-    `impl="sorted"` runs NumPy set ops per query; `impl="bitmap"` maps
-    each query's leaf postings into a dense per-query universe and
-    evaluates every compiled program in ONE batched `combine_batch`
-    launch on `device` (AND/OR/ANDNOT fused per document word).
+    `impl="sorted"` runs NumPy set ops per query; `impl="bitmap"` ranks
+    every query's leaf postings into one universe on `device` and
+    evaluates every compiled program in ONE `combine_keys` call
+    (AND/OR/ANDNOT fused per document word), reading back candidate
+    keys.
     """
     compiled = [_compile_steps(p, pw, is_common)
                 for p, pw in zip(plans, per_words)]
     if impl != "bitmap":
         return [_eval_steps(leaves, steps) for leaves, steps in compiled]
+    return _combine_compiled(compiled, None, device)[0]
 
-    from ..kernels.intersect import combine_batch, pack_programs, to_numpy
 
-    universes: list[np.ndarray | None] = []
-    rows: list[list[np.ndarray]] = []
-    programs: list[list[tuple[int, int, int]]] = []
-    out: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(plans)
-    for j, (leaves, steps) in enumerate(compiled):
-        keys_list = [k for k, _l in leaves]
-        uni = np.unique(np.concatenate(keys_list)) if keys_list else \
-            np.empty(0, np.uint64)
-        if not len(uni):
-            universes.append(None)
-            out[j] = (np.empty(0, np.uint64), np.empty(0, np.uint64))
-            continue
-        universes.append(uni)
-        rows.append([np.searchsorted(uni, k).astype(np.uint32)
-                     for k in keys_list])
-        programs.append(steps)
-    if rows:
-        from ..kernels.intersect import postings_to_bitmap_batch
-        n_bits = max(len(u) for u in universes if u is not None)
-        L_max = max(len(r) for r in rows)
-        # ragged padding: unused layers are all-zero (never referenced —
-        # programs only touch their own leaves)
-        W = (n_bits + 31) // 32
-        bitmaps = np.zeros((len(rows), L_max, W), dtype=np.uint32)
-        for q, posts in enumerate(rows):
-            bitmaps[q, :len(posts)] = postings_to_bitmap_batch(
-                [posts], n_bits)[0, :len(posts)]
-        # re-point step slots at the padded layer count
-        padded = []
-        for posts, steps in zip(rows, programs):
-            shift = L_max - len(posts)
-            padded.append([(op,
-                            a + shift if a >= len(posts) else a,
-                            b + shift if b >= len(posts) else b)
-                           for op, a, b in steps])
-        progs = pack_programs(padded, L_max)
-        inter, _counts = combine_batch(bitmaps, progs, device=device)
-        inter = to_numpy(inter)
-        row_i = 0
-        for j, (leaves, _steps) in enumerate(compiled):
-            if universes[j] is None:
-                continue
-            uni = universes[j]
-            bits = np.unpackbits(inter[row_i].view(np.uint8),
-                                 bitorder="little")
-            sel = np.flatnonzero(bits[:len(uni)])
-            row_i += 1
-            keys = uni[sel].astype(np.uint64, copy=False)
-            out[j] = (keys, _recover_lengths(keys, leaves))
-    return out  # type: ignore[return-value]
+def _combine_compiled(compiled: list, groups: int | None, device,
+                      ) -> tuple[list[tuple[np.ndarray, np.ndarray]],
+                                 "torch.Tensor"]:
+    """`combine_keys` over compiled (leaves, steps) rows → each row's
+    (keys, lengths) and the counts; the lengths are recovered on the
+    device by `_recover_lengths`' rule (`kernels.intersect.ops`'
+    `key_lengths`)."""
+    from ..kernels.intersect import combine_keys, keys_per_row
+
+    keys, counts, lengths = combine_keys(
+        [[k for k, _l in leaves] for leaves, _steps in compiled],
+        [steps for _leaves, steps in compiled], groups=groups,
+        device=device,
+        lengths=[[l for _k, l in leaves] for leaves, _steps in compiled])
+    return list(zip(keys_per_row(keys, counts),
+                    keys_per_row(lengths, counts))), counts
 
 
 def combine_cluster_planned(plans_by_group: list[list[PhysicalPlan]],
@@ -584,90 +551,29 @@ def combine_cluster_planned(plans_by_group: list[list[PhysicalPlan]],
                                                        np.ndarray]]],
                                        np.ndarray]:
     """Evaluate every (shard unit, query) candidate algebra in ONE fused
-    launch on `device` (`kernels.intersect.combine_cluster`).
+    call on `device` (`kernels.intersect.combine_keys` over the
+    cluster's (shard, query) rows).
 
     Group g is one shard unit: `plans_by_group[g][q]`,
     `per_words_by_group[g][q]`, and `is_common_by_group[g]` follow
-    `combine_planned`'s bitmap path per group, but instead of one
-    `combine_batch` launch per unit the whole cluster's programs run on
-    a single (shard, query, tile) grid. Returns `(results, counts)`:
-    `results[g][q]` is the sorted `(keys, lengths)` candidate pair and
-    `counts` a (G, Q) int64 array of per-(group, query) candidate
-    totals — exactly the round-1 statistics `shard_quotas` consumes.
+    `combine_planned`'s bitmap path per group, but instead of one call
+    per unit the whole cluster's programs run on a single (shard,
+    query, tile) grid. Returns `(results, counts)`: `results[g][q]` is
+    the sorted `(keys, lengths)` candidate pair and `counts` a (G, Q)
+    int64 array of per-(group, query) candidate totals — exactly the
+    round-1 statistics `shard_quotas` consumes.
     """
-    from ..kernels.intersect import (combine_cluster, pack_cluster_programs,
-                                     postings_to_bitmap_batch, to_numpy)
-
     G = len(plans_by_group)
     Q = len(plans_by_group[0]) if G else 0
     if not G or not Q:
         return [[] for _ in range(G)], np.zeros((G, Q), dtype=np.int64)
-    compiled = [[_compile_steps(plans_by_group[g][q],
-                                per_words_by_group[g][q],
-                                is_common_by_group[g])
-                 for q in range(Q)] for g in range(G)]
-    universes: list[list[np.ndarray | None]] = \
-        [[None] * Q for _ in range(G)]
-    rows: list[list[list[np.ndarray]]] = [[[] for _ in range(Q)]
-                                          for _ in range(G)]
-    programs: list[list[list[tuple[int, int, int]]]] = \
-        [[[] for _ in range(Q)] for _ in range(G)]
-    for g in range(G):
-        for q in range(Q):
-            leaves, steps = compiled[g][q]
-            keys_list = [k for k, _l in leaves]
-            uni = np.unique(np.concatenate(keys_list)) if keys_list else \
-                np.empty(0, np.uint64)
-            if not len(uni):
-                # placeholder block: layer 0 of the zero-filled tensor is
-                # all-zero, so AND(0, 0) evaluates to the empty set the
-                # grid still needs a program for
-                programs[g][q] = [(OP_AND, 0, 0)]
-                continue
-            universes[g][q] = uni
-            rows[g][q] = [np.searchsorted(uni, k).astype(np.uint32)
-                          for k in keys_list]
-            programs[g][q] = steps
-    n_bits = max((len(u) for row in universes for u in row
-                  if u is not None), default=1)
-    L_max = max(max((len(r) for r in row), default=0)
-                for row in rows) or 1
-    W = (n_bits + 31) // 32
-    bitmaps = np.zeros((G, Q, L_max, W), dtype=np.uint32)
-    padded: list[list[list[tuple[int, int, int]]]] = \
-        [[[] for _ in range(Q)] for _ in range(G)]
-    for g in range(G):
-        for q in range(Q):
-            posts = rows[g][q]
-            if posts:
-                bitmaps[g, q, :len(posts)] = postings_to_bitmap_batch(
-                    [posts], n_bits)[0, :len(posts)]
-                # re-point step slots at the padded layer count
-                shift = L_max - len(posts)
-                padded[g][q] = [(op,
-                                 a + shift if a >= len(posts) else a,
-                                 b + shift if b >= len(posts) else b)
-                                for op, a, b in programs[g][q]]
-            else:
-                padded[g][q] = programs[g][q]      # zero-layer identity
-    progs = pack_cluster_programs(padded, L_max)
-    inter, counts = combine_cluster(bitmaps, progs, device=device)
-    inter = to_numpy(inter)
-    results: list[list[tuple[np.ndarray, np.ndarray]]] = \
-        [[(np.empty(0, np.uint64), np.empty(0, np.uint64))] * Q
-         for _ in range(G)]
-    for g in range(G):
-        for q in range(Q):
-            uni = universes[g][q]
-            if uni is None:
-                continue
-            bits = np.unpackbits(inter[g, q].view(np.uint8),
-                                 bitorder="little")
-            sel = np.flatnonzero(bits[:len(uni)])
-            keys = uni[sel].astype(np.uint64, copy=False)
-            leaves, _steps = compiled[g][q]
-            results[g][q] = (keys, _recover_lengths(keys, leaves))
-    return results, counts.cpu().numpy().astype(np.int64)
+    compiled = [_compile_steps(plans_by_group[g][q],
+                               per_words_by_group[g][q],
+                               is_common_by_group[g])
+                for g in range(G) for q in range(Q)]
+    flat, counts = _combine_compiled(compiled, G, device)
+    return ([flat[g * Q:(g + 1) * Q] for g in range(G)],
+            counts.cpu().numpy().astype(np.int64))
 
 
 # ----------------------------------------------------- global top-K budget

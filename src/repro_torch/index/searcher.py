@@ -801,12 +801,12 @@ def _combine_jobs(jobs: list[_Job],
     """Per-job candidate combine for one unit.
 
     Classic jobs run the ∪/∩ distribution (`impl="bitmap"` batches every
-    multi-term AND through one `intersect_batch` launch, exactly as
-    before the planner); planner-compiled jobs evaluate their candidate
-    algebra — AND/OR plus exact-common-word ANDNOT — via
-    `planner.combine_planned` (one fused `combine_batch` launch for
-    the whole planned set under `impl="bitmap"`). Launches run on the
-    unit's `device`.
+    multi-term AND through one `intersect_keys` call, with the results
+    the pre-planner engine gave); planner-compiled jobs evaluate their
+    candidate algebra — AND/OR plus exact-common-word ANDNOT — via
+    `planner.combine_planned` (one `combine_keys` call for the whole
+    planned set under `impl="bitmap"`). Launches run on the unit's
+    `device`.
     """
     out: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(jobs)
     bitmap_jobs: list[int] = []
@@ -865,48 +865,21 @@ def _combine(q: Query, per_word: dict[str, tuple[np.ndarray, np.ndarray]],
 
 def _bitmap_and_batch(parts_list: list[list[tuple[np.ndarray, np.ndarray]]],
                       device) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Batched multi-way AND via the bitmap kernel on `device`.
+    """Batched multi-way AND on `device`, in ONE `intersect_keys` call.
 
-    Each job's posting keys are mapped into a dense per-job universe
-    (the union of its words' candidate keys); all jobs' bitsets are then
-    intersected in ONE `intersect_batch` call, ragged L and W padded to
-    the batch maxima (all-ones layers are AND identities; key universes
-    shorter than the widest job simply leave their tail bits zero).
+    Every job's posting keys are ranked into one universe on the device
+    (the batch's distinct word lists, shipped once); the kernels set the
+    bits, AND each job's layers and read back its candidate keys, not
+    its bitmap. Lengths come from the job's first word.
     """
-    from ..kernels.intersect import (intersect_batch,
-                                     postings_to_bitmap_batch, to_numpy)
+    from ..kernels.intersect import intersect_keys, keys_per_row
 
-    universes: list[np.ndarray | None] = []
-    rows: list[list[np.ndarray]] = []
-    for parts in parts_list:
-        keys_list = [k for k, _l in parts]
-        if any(len(k) == 0 for k in keys_list):
-            universes.append(None)      # empty AND — no kernel work
-            continue
-        uni = np.unique(np.concatenate(keys_list))
-        universes.append(uni)
-        rows.append([np.searchsorted(uni, k).astype(np.uint32)
-                     for k in keys_list])
-
+    keys, counts = intersect_keys([[k for k, _l in parts]
+                                   for parts in parts_list], device=device)
     out: list[tuple[np.ndarray, np.ndarray]] = []
-    if rows:
-        n_bits = max(len(u) for u in universes if u is not None)
-        bitmaps = postings_to_bitmap_batch(rows, n_bits)
-        inter, _counts = intersect_batch(bitmaps, device=device)
-        inter = to_numpy(inter)
-    row_i = 0
-    for parts, uni in zip(parts_list, universes):
-        if uni is None:
-            out.append((np.empty(0, dtype=np.uint64),
-                        np.empty(0, dtype=np.uint64)))
-            continue
-        bits = np.unpackbits(inter[row_i].view(np.uint8), bitorder="little")
-        sel = np.flatnonzero(bits[:len(uni)])
-        row_i += 1
-        keys = uni[sel]
+    for parts, found in zip(parts_list, keys_per_row(keys, counts)):
         k0, l0 = parts[0]
-        lengths = l0[np.searchsorted(k0, keys)]
-        out.append((keys, lengths))
+        out.append((found, l0[np.searchsorted(k0, found)]))
     return out
 
 

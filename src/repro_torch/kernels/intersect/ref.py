@@ -5,6 +5,12 @@ Bitmaps travel as `torch.int32` tensors holding the uint32 bit patterns
 Only int32/int64 ops are used, so these run on CPU and CUDA tensors
 alike: the CPU path of every wrapper in `ops.py`, and what the CUDA
 kernels are held against on the card.
+
+`combine_postings_ref` and `bits_to_keys_ref` are the route from posting
+ranks to candidate keys: ranks in CSR form (one flat int32 array and
+(rows, L, 2) [start, end) bounds into it), result words laid out as
+(rows, tiles · tile_w) with a (rows, tiles) int32 popcount per tile,
+exactly as the CUDA kernels lay them out.
 """
 
 from __future__ import annotations
@@ -77,3 +83,62 @@ def combine_cluster_ref(bitmaps: torch.Tensor, programs: torch.Tensor,
     out, cnt = combine_batch_ref(bitmaps.reshape(G * Q, L, W),
                                  programs.reshape(G * Q, S, 3))
     return out.reshape(G, Q, W), cnt.reshape(G, Q)
+
+
+def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) → int32 tensors holding the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def postings_bitmaps_ref(ranks: torch.Tensor, bounds: torch.Tensor,
+                         n_words: int) -> torch.Tensor:
+    """CSR rank lists → (rows, L, n_words) int32 bitsets.
+
+    The ranks of one list are distinct, so their bits within a word are
+    distinct powers of two and the word's OR is their sum."""
+    rows, L, _ = bounds.shape
+    start = bounds[..., 0].reshape(-1).to(torch.int64)
+    length = (bounds[..., 1] - bounds[..., 0]).reshape(-1).to(torch.int64)
+    dev = ranks.device
+    total = int(length.sum())
+    seg = torch.repeat_interleave(torch.arange(rows * L, device=dev), length)
+    first = torch.cumsum(length, 0) - length
+    pos = torch.arange(total, device=dev) - first[seg] + start[seg]
+    r = ranks[pos].to(torch.int64)
+    words = torch.zeros(rows * L * n_words, dtype=torch.int64, device=dev)
+    words.index_add_(0, seg * n_words + (r >> 5),
+                     torch.ones_like(r) << (r & 31))
+    return _to_int32_bits(words).view(rows, L, n_words)
+
+
+def combine_postings_ref(ranks: torch.Tensor, bounds: torch.Tensor,
+                         programs: torch.Tensor, tiles: int, tile_w: int,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate (rows, S, 3) programs over CSR rank lists.
+
+    ranks: (n,) int32, each (row, layer)'s [start, end) slice sorted;
+    bounds: (rows, L, 2) int32. Returns the result words (rows,
+    tiles · tile_w) int32 and each tile's popcount (rows, tiles) int32.
+    """
+    bm = postings_bitmaps_ref(ranks, bounds, tiles * tile_w)
+    if programs.shape[1]:
+        out, _ = combine_batch_ref(bm, programs)
+    else:
+        out = bm[:, -1].clone()
+    tile_cnt = popcount(out).view(out.shape[0], tiles, tile_w).sum(-1)
+    return out, tile_cnt.to(torch.int32)
+
+
+def bits_to_keys_ref(words: torch.Tensor,
+                     universe: torch.Tensor | None = None,
+                     ranks: bool = False,
+                     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """(rows, n_words) int32 result words → the set bits' keys, int64,
+    row after row in ascending order: `universe[rank]`, or the rank
+    itself without a universe. With `ranks`, (keys, the keys' int32
+    ranks)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    rk = torch.nonzero(bits.view(words.shape[0], -1))[:, 1]
+    keys = rk if universe is None else universe[rk]
+    return (keys, rk.to(torch.int32)) if ranks else keys

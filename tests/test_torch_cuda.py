@@ -3,8 +3,9 @@
 Marked `cuda`: they skip without a card (the kernels have no CPU mode)
 and run on one with `python -m pytest -m cuda tests/test_torch_cuda.py`.
 Only the port, torch and numpy are imported, so they run where JAX is
-not installed. The intersect comparisons are exact (integer bitmaps and
-counts); flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
+not installed. The intersect comparisons are exact (integer bitmaps,
+counts and keys; the key route's kernels on `kernels.intersect.cases`);
+flash attention is held to 2e-5 in float32 and 2e-2 in bfloat16
 (the JAX package's tolerances for its Pallas kernel), with TF32 off in
 the plain version; the wkv kernel to 1e-4 of the largest |value| of its
 output and of its final state, the JAX package's wkv tolerance; the
@@ -20,6 +21,9 @@ import torch
 from repro_torch.kernels import attention as ta
 from repro_torch.kernels import intersect as tx
 from repro_torch.kernels import rwkv as tr
+from repro_torch.kernels.intersect import ops as txo
+from repro_torch.kernels.intersect.cases import (EDGE_CASES, edge_case,
+                                                 host_lengths)
 from repro_torch.kernels import ssm as ts
 
 pytestmark = pytest.mark.cuda
@@ -75,7 +79,7 @@ def test_kernels_match_plain_on_card(card, G, Q, L, W):
     for (out_k, cnt_k), (out_r, cnt_r) in pairs.values():
         assert out_k.is_cuda and torch.equal(out_k, out_r)
         assert torch.equal(cnt_k, cnt_r)
-    assert set(tx.LAUNCHES.values()) == {1}
+    assert {tx.LAUNCHES[name] for name in pairs} == {1}
     out = tx.to_numpy(pairs["combine_cluster"][0][0])
     for g in range(G):
         for q in range(Q):
@@ -116,11 +120,116 @@ def test_searcher_on_card_matches_cpu(card):
         s = Searcher(SimCloudTransport(SimCloudStore(store, seed=3)), "idx",
                      device=dev)
         results[str(dev)] = s.query_batch(queries, top_k=5)
-    assert tx.LAUNCHES["intersect_batch"] == 1
-    assert tx.LAUNCHES["combine_batch"] == 1
+    assert tx.LAUNCHES["intersect_batch_keys"] == 1
+    assert tx.LAUNCHES["combine_batch_keys"] == 1
     a, b = results.values()
     assert [(r.refs, r.texts, r.stats) for r in a] == \
         [(r.refs, r.texts, r.stats) for r in b]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_fused_kernels_match_plain_on_card(card, case):
+    """combine_postings and bits_to_keys (keys and their ranks) against
+    their plain versions on the same plan, and the entry points against
+    impl="ref": exact."""
+    rows, progs, n_docs = edge_case(case)
+    plan = txo.plan_keys(rows, progs, n_docs, card)
+    got = txo.keys_kernels(plan, ranks=True)
+    want = txo.keys_plain(plan, ranks=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.shape == b.shape and torch.equal(a, b)
+    assert got[3].dtype == torch.int32
+    assert txo.keys_kernels(plan)[3] is None
+
+    def route(**kw):
+        if progs is None:
+            return tx.intersect_keys(rows, n_docs=n_docs, **kw)
+        return tx.combine_keys(rows, progs, **kw)
+    (k, c), (k_ref, c_ref) = route(device=card), route(impl="ref",
+                                                       device=card)
+    assert torch.equal(k, k_ref) and torch.equal(c, c_ref)
+    assert torch.equal(k, want[2])
+
+
+@pytest.mark.parametrize("case", ["empty_leaf", "andnot_identity",
+                                  "one_tile", "high_blob"])
+def test_key_lengths_on_card_follow_the_host_rule(card, case):
+    """The lengths recovered on the card from bits_to_keys' ranks, in
+    chunks of 7 keys and in one, against the planner's host rule."""
+    rows, progs, _ = edge_case(case)
+    rng = np.random.default_rng(3)
+    lengths = [[rng.integers(1, 2**40, len(a), dtype=np.uint64)
+                for a in row] for row in rows]
+    keys, counts, key_len = tx.combine_keys(rows, progs, device=card,
+                                            lengths=lengths)
+    plan = txo.plan_keys(rows, progs, None, card, lengths)
+    key_ranks = txo.keys_kernels(plan, ranks=True)[3]
+    assert torch.equal(txo.key_lengths(plan.ranked, key_ranks, counts,
+                                       chunk=7), key_len)
+    found = tx.keys_per_row(keys, counts)
+    for q, got in enumerate(tx.keys_per_row(key_len, counts)):
+        assert (got == host_lengths(found[q], rows[q], lengths[q])).all()
+
+
+def _small_index(card):
+    from repro_torch import Builder, BuilderConfig, Searcher, parse
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.storage import (InMemoryBlobStore, SimCloudStore,
+                                     SimCloudTransport)
+    docs = make_logs_like(3000, seed=2)
+    store = InMemoryBlobStore()
+    corpus = write_corpus(store, "c", docs, n_blobs=3)
+    Builder(BuilderConfig(B=2500, F0=1.0)).build(corpus, store, "idx")
+    queries = [parse(t) for t in (
+        "info AND blk_12", "warn AND node7 AND exception", '"block blk_3"',
+        "(error OR warn) AND NOT info", "info AND NOT block",
+        "info AND block AND node3", '"info block" OR (warn AND node2)')]
+
+    def searcher(dev):
+        return Searcher(SimCloudTransport(SimCloudStore(store, seed=3)),
+                        "idx", device=dev)
+    return searcher, queries
+
+
+def test_query_batch_on_card_matches_sorted(card):
+    searcher, queries = _small_index(card)
+    got = searcher(card).query_batch(queries, top_k=5)
+    want = searcher(card).query_batch(queries, top_k=5, impl="sorted")
+    assert [(r.refs, r.texts, r.stats) for r in got] == \
+        [(r.refs, r.texts, r.stats) for r in want]
+    assert any(r.refs for r in got)
+
+
+def test_main_path_launches_only_the_key_route_on_card(card):
+    """The routes chip_smoke's main phase counts: one key-route launch
+    per combine call, none of the bitmap kernels."""
+    from repro_torch.core.hashing import word_fingerprint
+    from repro_torch.core.sketch import IoUSketch, SketchSpec
+    from repro_torch.index import planner as tp
+    from repro_torch.index.searcher import lookup_units
+
+    searcher, queries = _small_index(card)
+    s = searcher(card)
+    tx.reset_launches()
+    s.query_batch(queries, top_k=5)
+    posts = {f"w{i}": np.unique(np.random.default_rng(i).integers(
+        0, 500, 200)).astype(np.uint32) for i in range(6)}
+    sketch = IoUSketch.build(posts, SketchSpec(B=40, L=3, n_common=0,
+                                               seed=1))
+    found = [sketch.query(w, impl="bitmap", n_docs=500, device=card)
+             for w in posts]
+    jobs = [j for j in tp.plan_batch(queries, units=(s,))
+            if j.plan is not None]
+    outs, _ = lookup_units([s], [j.lookup_q for j in jobs], s._fetcher)
+    common = lambda w: word_fingerprint(w) in s.common  # noqa: E731
+    tp.combine_cluster_planned([[j.plan for j in jobs]] * 2, [outs[0]] * 2,
+                               [common] * 2, device=card)
+    assert {k: v for k, v in tx.LAUNCHES.items() if v} == {
+        "intersect_keys": len(posts), "intersect_batch_keys": 1,
+        "combine_batch_keys": 1, "combine_cluster_keys": 1}
+    for w, got in zip(posts, found):
+        assert (got == sketch.query(w, impl="sorted")).all()
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
