@@ -20,7 +20,7 @@ in {96, 8192}, with and without an initial state, then the fused scan
 over the same grid with and without the D skip, in bf16 and float32,
 B_ and C_ strided views, dt drawn as the model draws it with keys pushed
 into and below the range of denormal exp(dt·A); y and final state within
-1e-5 of their largest |value|). Then it drives four paths at a real
+1e-5 of their largest |value|). Then it drives five paths at a real
 size, each with the launch counts zeroed just before it and read just
 after:
 
@@ -35,6 +35,19 @@ after:
   kernels. Then one batch traced by torch.profiler and one by cProfile
   (`index_profile`: the card's busy time and idle share, its kernels,
   the host's top functions);
+- the serving tier over the same corpus and queries (`serving`): a
+  4-shard `ShardedIndex` of all of it and a segmented `Index` of its
+  first 250,000 lines plus a committed segment of 50,000 new lines
+  and a memory segment of 20,000; `SearchService.search_batch` over the
+  segmented index (one AND and one planner launch per unit, equal to
+  `impl="sorted"` in refs, texts and stats); 4 client threads through a
+  `Frontend` over the cluster (every answer equal to the service's
+  sorted one; launches equal to the served micro-batches replayed); the
+  fused `ClusterSearcher` (one `combine_cluster_keys` launch a batch,
+  its output bit for bit the plain version's on the same inputs) at top
+  10 under both budgets (identical, true hits) and at top None
+  (equal to the unsharded searcher); none of the bitmap kernels; then
+  one fused batch under torch.profiler;
 - LM serving: `qwen3-32b` at full width (d_model 5120, 64 heads over 8
   KV heads, head size 128, d_ff 25600, vocab 151936) cut to
   `--lm-layers` of its 64 layers, random bf16 weights from a seeded
@@ -111,6 +124,26 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 QUERIES, TOP_K = 256, 10
 GROUPS, PER = 16, 8
 assert QUERIES // 2 == GROUPS * PER
+
+# The serving tier over the main path's corpus: a cluster of
+# SERVING_SHARDS shards over all of it; a segmented index of its first
+# SEG_BASE lines (a second 1M-line build and sorted batch put the
+# script 116-170 s over its time before the serving phase)
+# plus SEG_APPEND new lines committed and SEG_ADD more in a memory
+# segment; FE_CLIENTS client threads through the frontend,
+# micro-batches of at most FE_MAX_BATCH. The fused cluster builds a
+# DocRef and a priority for every candidate on the host, so its top-K
+# drive takes the main path's queries in order of their unsharded
+# candidate count while their total stays within FUSED_CANDIDATES (at
+# 1M lines the queries split into about half with at most a few
+# hundred candidates and half with about 140,000: all of the first and
+# a few of the second); its top-None drive takes the queries whose
+# unsharded result has at most FUSED_FULL_MAX candidates.
+SERVING_SHARDS = 4
+SEG_BASE, SEG_APPEND, SEG_ADD = 250_000, 50_000, 20_000
+FE_CLIENTS, FE_MAX_BATCH = 4, 64
+FUSED_CANDIDATES = 1_500_000
+FUSED_FULL_MAX = 1000
 
 REPLACES = {
     "intersect": "src/repro/kernels/intersect/kernel.py:65",
@@ -533,7 +566,10 @@ def main_phase(args, device) -> dict:
                       "candidates": int(counts.sum())},
           "launches": launches, "shapes": shapes,
           "peak_device_bytes": peak_bytes})
-    return {"launches": launches, "shapes": shapes, "captured": captured}
+    return {"launches": launches, "shapes": shapes, "captured": captured,
+            "store": store, "corpus": corpus, "B": B, "searcher": searcher,
+            "queries": queries, "query_texts": ands + planned,
+            "res_sorted": res_sorted}
 
 
 def capture_key_calls(tx):
@@ -608,6 +644,377 @@ def host_profile(searcher, queries, top_k: int, impl: str,
                          for (f, line, fn), (_cc, _nc, own, cum, _) in rows]}
     if show:
         emit(out)
+    return out
+
+
+# ------------------------------------------------------------ serving
+def _launched(tx) -> dict:
+    return {k: v for k, v in tx.LAUNCHES.items() if v}
+
+
+def _hits(results) -> list:
+    return [(r.refs, r.texts) for r in results]
+
+
+def _wall(fn):
+    """(fn's result, its host-clock seconds ending in a device sync)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _fresh_clock(transport, seed: int) -> None:
+    """Restart a simulated transport's clock and latency draws, so two
+    drives through it see the same virtual latencies."""
+    import numpy as np
+    transport.cloud._rng = np.random.default_rng(seed)
+    transport.cloud.clock_s = 0.0
+
+
+def serving_phase(args, device, main: dict) -> dict:
+    """The serving tier on the card over `main`'s corpus and store: a
+    4-shard `ShardedIndex` and a segmented `Index` (base, one committed
+    segment of SEG_APPEND new lines, one memory segment of SEG_ADD),
+    then four drives, each with the launch counts zeroed before and read
+    after: `SearchService.search_batch` of the main path's queries over
+    the segmented index (== its own `impl="sorted"` in refs, texts and
+    stats); FE_CLIENTS client threads through a started `Frontend` over
+    a `SearchService` of the reopened cluster (every future == the
+    service's sorted answer; launches == the served micro-batches
+    replayed one by one, each at most one AND and one planner launch a
+    shard); and the fused `ClusterSearcher` over per-shard simulated
+    transports at top TOP_K under both budgets (beside the same
+    session's per-shard legs under `impl="sorted"`; byte-identical to
+    each other, every hit a true hit of the corpus, as many as the
+    unsharded index finds, and each batch's `combine_cluster_keys`
+    output bit for bit its plain version's on the same inputs) on the
+    queries FUSED_CANDIDATES admits, light and heavy, and
+    at top None on the queries the unsharded index answers with at most
+    FUSED_FULL_MAX candidates (== the unsharded searcher). Then one
+    fused top-K batch under torch.profiler."""
+    import threading
+
+    import torch
+
+    from repro_torch.core.optimizer import InfeasibleSketchError
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.data.corpus import Corpus
+    from repro_torch.index import BuilderConfig, Index
+    from repro_torch.index import planner as tp
+    from repro_torch.kernels import intersect as tx
+    from repro_torch.serving import (Frontend, FrontendConfig,
+                                     SearchService, ShardedIndex)
+    from repro_torch.serving.cluster import _accept
+    from repro_torch.storage import SimCloudStore, SimCloudTransport
+    from torch.profiler import ProfilerActivity, profile
+
+    store, corpus, queries = main["store"], main["corpus"], main["queries"]
+    texts = main["query_texts"]
+
+    def sim(seed):
+        return SimCloudTransport(SimCloudStore(store, seed=seed))
+
+    # ---- builds ---------------------------------------------------------
+    # a shard holds 1/SERVING_SHARDS of the documents: as many bins a
+    # document as the unsharded index (B bins a shard took twice as long
+    # to build)
+    B = main["B"] // SERVING_SHARDS
+    t0 = time.perf_counter()
+    while True:
+        try:
+            cluster = ShardedIndex.build(
+                corpus, BuilderConfig(F0=1.0, B=B), store, "cluster/hdfs",
+                n_shards=SERVING_SHARDS, device=device)
+            break
+        except InfeasibleSketchError:
+            B *= 2
+    cluster_build_s = time.perf_counter() - t0
+    n_base = min(SEG_BASE, corpus.n_docs)
+    base = corpus if n_base == corpus.n_docs else Corpus(
+        store=corpus.store, refs=corpus.refs[:n_base],
+        texts=corpus.texts[:n_base] if corpus.texts is not None else None)
+    added = [write_corpus(store, f"corpus/hdfs-{name}",
+                          make_logs_like(n, seed=args.seed + 1 + i),
+                          n_blobs=2)
+             for i, (name, n) in enumerate((("append", SEG_APPEND),
+                                            ("add", SEG_ADD)))]
+    seg_seed = args.seed + 11
+    t0 = time.perf_counter()
+    seg_B = main["B"]
+    while True:
+        try:
+            segmented = Index.build(base, BuilderConfig(F0=1.0, B=seg_B),
+                                    sim(seg_seed), "index/hdfs-seg",
+                                    device=device)
+            break
+        except InfeasibleSketchError:
+            seg_B *= 2
+    seg_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = segmented.writer()
+    seg_report = w.append(added[0])
+    w.commit()
+    mem_report = segmented.writer().add(added[1])
+    seg_add_s = time.perf_counter() - t0
+    emit({"phase": "build_serving",
+          "cluster": {"docs": corpus.n_docs, "shards": SERVING_SHARDS,
+                      "B": B, "build_s": cluster_build_s,
+                      "index_bytes": sum(idx.report.index_bytes
+                                         for idx in cluster.shards
+                                         if idx is not None),
+                      "shard_docs": [e["n_docs"] for e in
+                                     cluster.manifest["shards"]]},
+          "segmented": {"base_docs": n_base, "B": seg_B,
+                        "build_s": seg_build_s,
+                        "index_bytes": segmented.report.index_bytes,
+                        "append_docs": SEG_APPEND, "add_docs": SEG_ADD,
+                        "append_add_commit_s": seg_add_s,
+                        "segment_bytes": seg_report.index_bytes,
+                        "memory_bytes": mem_report.index_bytes}})
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"launches": {}}
+
+    # ---- the segmented service ------------------------------------------
+    svc = SearchService(segmented)
+    n_units = svc.searcher.n_units
+    _fresh_clock(segmented.transport, seg_seed)
+    tx.reset_launches()
+    got, seg_card_s = _wall(lambda: svc.search_batch(queries, top_k=TOP_K))
+    seg_launches = _launched(tx)
+    _fresh_clock(segmented.transport, seg_seed)
+    want, seg_sorted_s = _wall(lambda: svc.search_batch(
+        queries, top_k=TOP_K, impl="sorted"))
+    for q, (a, b) in enumerate(zip(got, want)):
+        if (a.refs, a.texts, a.stats) != (b.refs, b.texts, b.stats):
+            raise AssertionError(f"segmented query {q} ({texts[q]!r}): "
+                                 "the card != sorted")
+    expect = {"intersect_batch_keys": n_units, "combine_batch_keys": n_units}
+    if seg_launches != expect:
+        raise AssertionError(f"segmented service launched {seg_launches}, "
+                             f"expected {expect}")
+    svc.close()
+    out["launches"]["segmented"] = seg_launches
+
+    # ---- the frontend over the reopened cluster --------------------------
+    svc = SearchService(ShardedIndex.open(store, "cluster/hdfs",
+                                          device=device))
+    want, fe_sorted_s = _wall(lambda: svc.search_batch(
+        queries, top_k=TOP_K, impl="sorted"))
+    batches, search_batch = [], svc.search_batch
+
+    def recording(qs, **kw):
+        batches.append((list(qs), kw))
+        return search_batch(qs, **kw)
+
+    svc.search_batch = recording
+    fe = Frontend(svc, FrontendConfig(max_queue=len(queries),
+                                      max_batch=FE_MAX_BATCH))
+    futs: list = [None] * len(queries)
+    submitted, latency = [0.0] * len(queries), [0.0] * len(queries)
+
+    def client(c):
+        for i in range(c, len(queries), FE_CLIENTS):
+            submitted[i] = time.perf_counter()
+            futs[i] = fe.submit(queries[i], top_k=TOP_K)
+            futs[i].add_done_callback(
+                lambda _f, i=i: latency.__setitem__(
+                    i, time.perf_counter() - submitted[i]))
+
+    tx.reset_launches()
+    fe.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(FE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    fe_got = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    fe_card_s = time.perf_counter() - t0
+    fe_launches = _launched(tx)
+    fe.close()
+    stats = fe.stats.summary()
+    if _hits(fe_got) != _hits(want):
+        bad = next(q for q, (a, b) in enumerate(zip(fe_got, want))
+                   if _hits([a]) != _hits([b]))
+        raise AssertionError(f"frontend query {bad} ({texts[bad]!r}) != "
+                             "the service's sorted answer")
+    if stats["n_shed"] or stats["n_expired"] or \
+            stats["n_served"] != len(queries):
+        raise AssertionError(f"frontend dropped requests: {stats}")
+    # replayed one by one, each micro-batch launches at most one AND and
+    # one planner combine a shard, and none of the bitmap kernels
+    replayed: dict = {}
+    for qs, kw in batches:
+        tx.reset_launches()
+        search_batch(qs, **kw)
+        one = _launched(tx)
+        if not set(one) <= {"intersect_batch_keys", "combine_batch_keys"} \
+                or max(one.values(), default=0) > SERVING_SHARDS:
+            raise AssertionError(f"a frontend micro-batch of {len(qs)} "
+                                 f"launched {one} over {SERVING_SHARDS} "
+                                 "shards")
+        for k, v in one.items():
+            replayed[k] = replayed.get(k, 0) + v
+    if fe_launches != replayed or len(batches) != stats["n_batches"]:
+        raise AssertionError(f"frontend launched {fe_launches} over "
+                             f"{stats['n_batches']} batches; the "
+                             f"{len(batches)} batches replayed alone "
+                             f"launch {replayed}")
+    svc.close()
+    out["launches"]["frontend"] = fe_launches
+    lat = sorted(latency)
+
+    # ---- the fused cluster -----------------------------------------------
+    def sources(s):
+        return sim(args.seed + 100 + s)
+
+    cs = ShardedIndex.open(store, "cluster/hdfs", device=device).searcher(
+        replica_sources=[sources], fused=True)
+    by_size = sorted(range(len(queries)),
+                     key=lambda q: main["res_sorted"][q].stats.n_candidates)
+    picked, total = [], 0
+    for q in by_size:
+        total += main["res_sorted"][q].stats.n_candidates
+        if total > FUSED_CANDIDATES:
+            break
+        picked.append(q)
+    picked.sort()
+    fq = [queries[q] for q in picked]
+    if not cs._independent_clocks():
+        raise AssertionError("fused legs do not run concurrently")
+    heavy = sum(main["res_sorted"][q].stats.n_candidates > FUSED_FULL_MAX
+                for q in picked)
+    if not heavy:
+        raise AssertionError("the fused top-K batch holds no heavy query")
+    fused, fused_s, fused_launches, reports = {}, {}, {}, {}
+    combine_keys, combined = tx.combine_keys, []
+
+    def recorded(rows, programs, **kw):
+        got = combine_keys(rows, programs, **kw)
+        combined.append((rows, programs, kw, got))
+        return got
+
+    for budget in ("global", "per_shard"):
+        tx.reset_launches()
+        tx.combine_keys = recorded
+        try:
+            fused[budget], fused_s[budget] = _wall(lambda: cs.query_batch(
+                fq, top_k=TOP_K, budget=budget))
+        finally:
+            tx.combine_keys = combine_keys
+        fused_launches[budget] = _launched(tx)
+        reports[budget] = cs.last_scatter
+        if fused_launches[budget] != {"combine_cluster_keys": 1}:
+            raise AssertionError(f"fused batch ({budget}) launched "
+                                 f"{fused_launches[budget]}")
+    if _hits(fused["global"]) != _hits(fused["per_shard"]):
+        raise AssertionError("fused budgets differ")
+    # the kernel's keys, counts and lengths in both batches, bit for bit
+    # the plain version's on the same inputs (its memory kept out of the
+    # drives' peak)
+    peak = torch.cuda.max_memory_allocated()
+    fused_keys = 0
+    for rows, programs, kw, got in combined:
+        want = combine_keys(rows, programs, **{**kw, "impl": "ref"})
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the fused batch's combine_cluster_keys "
+                                 "!= its plain version")
+        fused_keys = int(got[0].numel())
+    if len(combined) != 2:
+        raise AssertionError(f"{len(combined)} fused combines in 2 batches")
+    del combined, got, want
+    torch.cuda.reset_peak_memory_stats()
+    # the host's counterpart: the same session's per-shard legs, sorted
+    tx.reset_launches()
+    _legs, legs_sorted_s = _wall(lambda: cs.query_batch(
+        fq, top_k=TOP_K, impl="sorted", fused=False))
+    if _launched(tx):
+        raise AssertionError(f"sorted legs launched {_launched(tx)}")
+    # true hits: corpus documents the query's own predicate accepts, as
+    # many as the unsharded index returns
+    jobs = tp.plan_batch(fq, top_k=TOP_K)
+    in_corpus = set(corpus.refs)
+    for job, q, res in zip(jobs, picked, fused["global"]):
+        mono, cache = main["res_sorted"][q], {}
+        ok = len(res.refs) == len(mono.refs) and all(
+            ref in in_corpus and _accept(job, (ref.blob, ref.offset,
+                                               ref.length), text, cache)
+            for ref, text in zip(res.refs, res.texts))
+        if not ok or (len(mono.refs) < TOP_K and
+                      set(res.refs) != set(mono.refs)):
+            raise AssertionError(f"fused query {q} ({texts[q]!r}) returned "
+                                 "other than true hits")
+    small = [q for q, r in enumerate(main["res_sorted"])
+             if r.stats.n_candidates <= FUSED_FULL_MAX]
+    mono_searcher = main["searcher"]()
+    full_want = mono_searcher.query_batch([queries[q] for q in small],
+                                          impl="sorted")
+    tx.reset_launches()
+    full_got, full_s = _wall(lambda: cs.query_batch(
+        [queries[q] for q in small]))
+    if _launched(tx) != {"combine_cluster_keys": 1}:
+        raise AssertionError(f"fused full batch launched {_launched(tx)}")
+    if _hits(full_got) != _hits(full_want):
+        raise AssertionError("fused top-None != the unsharded index")
+    out["launches"]["fused"] = {k: fused_launches["global"][k] +
+                                fused_launches["per_shard"][k] + 1
+                                for k in fused_launches["global"]}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+
+    # ---- one fused batch, traced ------------------------------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cs.query_batch(fq, top_k=TOP_K)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, events, _by_name = _device_time(prof)
+    cs.close()
+    emit({"phase": "serving", "queries": len(queries), "top_k": TOP_K,
+          "segmented": {"units": n_units, "identical_to_sorted": True,
+                        "wall_s": {"bitmap_cuda": seg_card_s,
+                                   "sorted": seg_sorted_s}},
+          "frontend": {"clients": FE_CLIENTS, "max_batch": FE_MAX_BATCH,
+                       "batches": stats["n_batches"],
+                       "mean_batch": stats["mean_batch_size"],
+                       "identical_to_sorted": True,
+                       "wall_s": {"bitmap_cuda": fe_card_s,
+                                  "sorted_service": fe_sorted_s},
+                       "latency_s": {
+                           "p50": statistics.median(lat),
+                           "p99": lat[min(len(lat) - 1,
+                                          int(0.99 * len(lat)))],
+                           "max": lat[-1]}},
+          "fused": {"shards": cs.n_shards, "budgets_identical": True,
+                    "true_hits": True,
+                    "wall_s": {**{f"{b}_cuda": fused_s[b] for b in fused_s},
+                               "per_shard_legs_sorted": legs_sorted_s,
+                               "full_cuda": full_s},
+                    "queries": len(fq), "heavy_queries": heavy,
+                    "kernel_identical_to_plain": True,
+                    "combined_keys": fused_keys,
+                    "unsharded_candidates": total - (
+                        main["res_sorted"][by_size[len(picked)]].stats
+                        .n_candidates if len(picked) < len(queries) else 0),
+                    "full_queries": len(small),
+                    "full_identical_to_unsharded": True,
+                    "round2_bytes": {b: reports[b].round2_bytes
+                                     for b in reports},
+                    "round2_requests": {b: reports[b].round2_requests
+                                        for b in reports},
+                    "shard_candidates": reports["global"].shard_candidates},
+          "launches": out["launches"], "peak_device_bytes": peak,
+          "fused_profile": {"host_wall_us": wall_us,
+                            "device_busy_us": busy_us,
+                            "device_idle_share": 1 - busy_us / wall_us
+                            if events else None,
+                            "device_events": events}})
     return out
 
 
@@ -2012,7 +2419,17 @@ def main() -> int:
     wkv_errs = wkv_edge_phase(tr, device, args.seed)
     scan_errs = scan_edge_phase(ts, device, args.seed)
     main = main_phase(args, device)
+    serving = serving_phase(args, device, main)
     kernels = keys_timing_phase(tx, device, rng, main, errs)
+    # the key route runs on two paths: `launches` stays the main path's,
+    # and `launches_by_path` adds the serving phase's
+    for entry in kernels:
+        route = KEY_ROUTES[entry["name"]]
+        entry["launches_by_path"] = {
+            "main": entry["launches"],
+            "serving": sum(drive.get(route, 0) for drive in
+                           serving["launches"].values())}
+    del main, serving
     lm = lm_phase(args, device)
     attn = attn_timing_phase(ta, device, args.seed, lm["shapes"], attn_errs)
     kernels.append(attn)

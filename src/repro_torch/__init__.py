@@ -5,8 +5,11 @@ recurrent-state decode of RWKV-6) with its attention and its wkv
 recurrence in hand-written kernels.
 
 Mirrors `repro` (the JAX package) module for module, over the slices
-ported so far: build → open → `query_batch(impl="bitmap")`, and
-`configs` / `models` / `launch.serve.decode_loop`. Subpackages import
+ported so far: build → open → `query_batch(impl="bitmap")`; the index
+lifecycle (`Index`, segments, memory segments, GC); the serving tier's
+query path (`SearchService`, `Frontend`, `ShardedIndex` →
+`ClusterSearcher` scatter-gather, the control plane); and `configs` /
+`models` / `launch.serve.decode_loop`. Subpackages import
 lazily — `import repro_torch` touches neither torch nor numpy:
 
     from repro_torch import Builder, BuilderConfig, Searcher, as_transport
@@ -23,6 +26,9 @@ __version__ = "0.1.0"
 
 # public façade -> defining module; resolved on first attribute access
 _LAZY_EXPORTS = {
+    "Index": "repro_torch.index",
+    "IndexWriter": "repro_torch.index",
+    "MultiSegmentSearcher": "repro_torch.index",
     "Builder": "repro_torch.index",
     "BuilderConfig": "repro_torch.index",
     "Searcher": "repro_torch.index",
@@ -37,6 +43,17 @@ _LAZY_EXPORTS = {
     "normalize": "repro_torch.index",
     "PureNegationError": "repro_torch.index",
     "GramlessIndexError": "repro_torch.index",
+    "GCReport": "repro_torch.index",
+    "collect_garbage": "repro_torch.index",
+    "SearchService": "repro_torch.serving",
+    "ShardedIndex": "repro_torch.serving",
+    "ClusterSearcher": "repro_torch.serving",
+    "ClusterConflict": "repro_torch.serving",
+    "collect_cluster_garbage": "repro_torch.serving",
+    "Frontend": "repro_torch.serving",
+    "FrontendConfig": "repro_torch.serving",
+    "Overloaded": "repro_torch.serving",
+    "DeadlineExceeded": "repro_torch.serving",
     "StorageTransport": "repro_torch.storage",
     "TransportPolicy": "repro_torch.storage",
     "SimCloudTransport": "repro_torch.storage",

@@ -23,14 +23,17 @@ under their own names, the key route under `intersect_keys` (the
 sketch's doc ids), `intersect_batch_keys`, `combine_batch_keys` and
 `combine_cluster_keys`. `LAST_SHAPE[name]` holds the input shapes of
 its latest launch: (bitmaps,) or (bitmaps, programs), and a dict of
-sizes for the key route. `launch`, `launch_combine_postings` and
-`launch_bits_to_keys` are the bare kernel calls beneath the entry
-points, for timing: they check no input and count nothing.
+sizes for the key route. Both are updated under one lock
+(`count_launch`): the serving tier launches from several threads.
+`launch`, `launch_combine_postings` and `launch_bits_to_keys` are the
+bare kernel calls beneath the entry points, for timing: they check no
+input and count nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -78,12 +81,23 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
      "intersect_keys", "intersect_batch_keys", "combine_batch_keys",
      "combine_cluster_keys"), 0)
 LAST_SHAPE: dict[str, tuple | None] = dict.fromkeys(LAUNCHES)
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        LAST_SHAPE[name] = None
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+            LAST_SHAPE[name] = None
+
+
+def count_launch(name: str, shape) -> None:
+    """Count one launch of `name` with input `shape`, atomically: a
+    `ClusterSearcher`'s shard legs and a `Frontend` launch from their
+    own threads, and an unlocked `+= 1` can lose a count."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAST_SHAPE[name] = shape
 
 
 def postings_to_bitmap(postings: list[np.ndarray], n_docs: int) -> np.ndarray:
@@ -244,8 +258,7 @@ def _launch(name: str, shapes: tuple, bm: torch.Tensor,
     if rows and W:
         with torch.cuda.device(bm.device):
             launch(name, bm, prog, out, cnt)
-        LAUNCHES[name] += 1
-        LAST_SHAPE[name] = shapes
+        count_launch(name, shapes)
     return out, cnt
 
 
@@ -686,12 +699,11 @@ def _keys(route: str, plan: KeyPlan, impl: str, ranks: bool = False,
         _words, tile_cnt, keys, key_ranks = keys_plain(plan, ranks)
     else:
         _words, tile_cnt, keys, key_ranks = keys_kernels(plan, ranks)
-        LAUNCHES[route] += 1
-        LAST_SHAPE[route] = {
+        count_launch(route, {
             "rows": rows, "L": plan.ranked.bounds.shape[1],
             "S": plan.programs.shape[1], "ranks": plan.ranked.ranks.numel(),
             "universe": plan.ranked.n_bits, "tile_w": plan.tile_w,
-            "tiles": plan.tiles, "keys": keys.numel()}
+            "tiles": plan.tiles, "keys": keys.numel()})
     return keys, tile_cnt.sum(1, dtype=torch.int64), key_ranks
 
 

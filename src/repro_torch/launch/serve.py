@@ -1,5 +1,8 @@
-"""Serve launcher (CLI): LM decode with a KV cache or a recurrent state.
+"""Serve launcher (CLI): search serving, or LM decode with a KV cache or
+a recurrent state.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --queries 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
@@ -7,12 +10,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
         --arch jamba-v0.1-52b
 
-Mirrors `repro/launch/serve.py --mode decode` on the reduced config of
+`--mode search` (the default) mirrors `repro/launch/serve.py --mode
+search`: a 4,000-line log corpus indexed into an in-memory store behind
+a simulated `--region`, then one `SearchService.search_batch` of
+`--queries` words drawn from it, top 10, combined on `--device`.
+`--mode decode` mirrors its decode mode on the reduced config of
 `--arch` (a dense or MoE transformer, RWKV-6 or the Jamba hybrid), with
 weights drawn from a seeded `torch.Generator`: prefill of `--batch`
-random 32-token prompts, then greedy decoding. `--mode search` and
-`--mode rag` need `SearchService`, which is not ported yet (ROADMAP queue
-1, items 5 and 8).
+random 32-token prompts, then greedy decoding. `--mode rag` needs
+`RAGPipeline`, which is not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -70,19 +76,64 @@ def decode_loop(model, params, prompt, n_tokens: int) -> Decoded:
     return Decoded(out, logits, t1 - t0, t2 - t1)
 
 
+def serve_search(args) -> None:
+    """`--mode search`: build, open through a simulated region, serve one
+    batch, print the service's latency summary."""
+    import numpy as np
+
+    from ..data import make_logs_like, write_corpus
+    from ..data.tokenizer import distinct_words
+    from ..index import Builder, BuilderConfig
+    from ..kernels.intersect.ops import resolve_device
+    from ..serving import SearchService
+    from ..storage import (REGIONS, InMemoryBlobStore, SimCloudStore,
+                           SimCloudTransport)
+
+    device = resolve_device(args.device)
+    store = InMemoryBlobStore()
+    docs = make_logs_like(4000, seed=13)
+    corpus = write_corpus(store, "corpus/serve", docs, n_blobs=4)
+    Builder(BuilderConfig(B=2000, F0=1.0, hedge_layers=1)).build(
+        corpus, store, "index/serve")
+    cloud = SimCloudStore(store, model=REGIONS[args.region], seed=0)
+    svc = SearchService(SimCloudTransport(cloud), "index/serve",
+                        hedge=args.hedge, device=device)
+    truth = set()
+    for d in docs[:500]:
+        truth.update(distinct_words(d))
+    rng = np.random.default_rng(0)
+    queries = [str(w) for w in
+               rng.choice(sorted(truth), args.queries, replace=False)]
+    results = svc.search_batch(queries, top_k=10)
+    s = svc.stats.summary()
+    print(f"served {s['n_queries']} queries in {s['n']} batch(es) @ "
+          f"{args.region} on {device}: mean {s['mean_ms']:.0f} ms, p99 "
+          f"{s['p99_ms']:.0f} ms, wait {s['wait_ms']:.0f} ms / download "
+          f"{s['download_ms']:.1f} ms, avg FP "
+          f"{s['avg_false_positives']:.2f}, "
+          f"{sum(bool(r.refs) for r in results)} with results")
+    svc.close()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="search",
                     choices=["search", "rag", "decode"])
     ap.add_argument("--arch", default="qwen3-32b")
+    ap.add_argument("--queries", type=int, default=30)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--hedge", action="store_true")
+    ap.add_argument("--region", default="us-central1")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mode != "decode":
-        raise SystemExit(f"--mode {args.mode} needs SearchService, which is "
-                         "not ported yet (ROADMAP queue 1, items 5 and 8)")
+    if args.mode == "rag":
+        raise SystemExit("--mode rag needs RAGPipeline, which is not "
+                         "ported yet (ROADMAP queue 1, item 8)")
+    if args.mode == "search":
+        serve_search(args)
+        return
 
     import numpy as np
 

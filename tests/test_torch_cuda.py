@@ -624,3 +624,150 @@ def test_reduced_jamba_on_card_matches_plain_scan(card):
                            "selective_scan_fused": 4 * n_mamba}
     scale = max(float(runs[1].abs().max()), 1.0)
     assert float((runs[0] - runs[1]).abs().max()) <= 1e-4 * scale
+
+
+# ----------------------------------------------- the serving tier's callers
+def _serving_fixture(card):
+    """A segmented `Index` (base, a committed segment, a memory segment)
+    and a 4-shard `ShardedIndex` over one corpus, for `device`."""
+    from repro_torch import parse
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.index import BuilderConfig, Index
+    from repro_torch.serving import ShardedIndex
+    from repro_torch.storage import InMemoryBlobStore
+
+    store = InMemoryBlobStore()
+    docs = make_logs_like(3000, seed=5)
+    corpus = write_corpus(store, "c", docs[:2400], n_blobs=3)
+    extra = [write_corpus(store, f"x{i}", part, n_blobs=1)
+             for i, part in enumerate((docs[2400:2700], docs[2700:]))]
+    cfg = BuilderConfig(B=2500, F0=1.0)
+
+    def segmented(dev):
+        idx = Index.build(corpus, cfg, store, f"idx-{dev.type}", device=dev)
+        w = idx.writer()
+        w.append(extra[0])
+        w.commit()
+        idx.writer().add(extra[1])
+        return idx
+
+    def cluster(dev):
+        return ShardedIndex.build(corpus, cfg, store, f"cl-{dev.type}",
+                                  n_shards=4, device=dev)
+
+    queries = [parse(t) for t in (
+        "info AND blk_12", "warn AND node7 AND exception", '"block blk_3"',
+        "(error OR warn) AND NOT info", "info AND NOT block",
+        "info AND block AND node3", '"info block" OR (warn AND node2)')]
+    return store, segmented, cluster, queries
+
+
+def _same(a, b):
+    return [(r.refs, r.texts, r.stats) for r in a] == \
+        [(r.refs, r.texts, r.stats) for r in b]
+
+
+def test_segmented_index_on_card_matches_sorted_and_cpu(card):
+    """`MultiSegmentSearcher` combines each unit on the card: one AND and
+    one planner launch per unit, results equal to the host's."""
+    from repro_torch.storage import SimCloudStore, SimCloudTransport
+    store, segmented, _cluster, queries = _serving_fixture(card)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        idx = segmented(dev)
+        idx.searcher()            # caches the units' headers on the handle
+        for impl in ("bitmap", "sorted"):
+            reader = idx.searcher(transport=SimCloudTransport(
+                SimCloudStore(store, seed=3)))
+            tx.reset_launches()
+            runs[dev.type, impl] = reader.query_batch(queries, top_k=5,
+                                                      impl=impl)
+            runs[dev.type, impl, "launches"] = dict(tx.LAUNCHES)
+    assert reader.n_units == 3
+    assert _same(runs["cuda", "bitmap"], runs["cuda", "sorted"])
+    assert _same(runs["cuda", "bitmap"], runs["cpu", "bitmap"])
+    assert any(r.refs for r in runs["cuda", "bitmap"])
+    got = {k: v for k, v in runs["cuda", "bitmap", "launches"].items() if v}
+    assert got == {"intersect_batch_keys": 3, "combine_batch_keys": 3}
+    assert not any(runs["cuda", "sorted", "launches"].values())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_cluster_on_card_matches_sorted_and_cpu(card, fused):
+    """Per-shard legs run on their own threads, each launching on the
+    card; the fused path makes exactly one `combine_cluster_keys` launch
+    a batch and nothing else."""
+    from repro_torch.storage import SimCloudStore, SimCloudTransport
+    store, _segmented, cluster, queries = _serving_fixture(card)
+    sources = [lambda i: SimCloudTransport(SimCloudStore(store,
+                                                         seed=40 + i))]
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        handle = cluster(dev)
+        for impl in ("bitmap", "sorted"):
+            # fresh simulated clocks for each run of the same batches
+            cs = handle.searcher(replica_sources=sources, fused=fused)
+            for k in (None, 5):
+                tx.reset_launches()
+                runs[dev.type, impl, k] = cs.query_batch(
+                    queries, top_k=k, impl=impl)
+                runs[dev.type, impl, k, "launches"] = {
+                    n: v for n, v in tx.LAUNCHES.items() if v}
+            cs.close()
+    for k in (None, 5):
+        assert _same(runs["cuda", "bitmap", k], runs["cpu", "bitmap", k])
+        if not fused:
+            assert _same(runs["cuda", "bitmap", k],
+                         runs["cuda", "sorted", k])
+        assert runs["cuda", "bitmap", k, "launches"] == (
+            {"combine_cluster_keys": 1} if fused else
+            {"intersect_batch_keys": 4, "combine_batch_keys": 4})
+    assert any(r.refs for r in runs["cuda", "bitmap", 5])
+
+
+def test_frontend_threads_on_card_match_the_host(card):
+    """Four client threads through a started `Frontend` over a card
+    `SearchService`: every future equals the host's sorted answer and
+    the launches, counted from the batcher's thread, are exactly what
+    the micro-batches it served launch when replayed one by one."""
+    import threading
+    from repro_torch.serving import Frontend, FrontendConfig, SearchService
+    from repro_torch.serving import ShardedIndex
+    store, _segmented, cluster, queries = _serving_fixture(card)
+    cluster(card)
+    svc = SearchService(ShardedIndex.open(store, "cl-cuda", device=card))
+    want = svc.search_batch(queries * 4, top_k=5, impl="sorted")
+    batches, search_batch = [], svc.search_batch
+
+    def recording(qs, **kw):
+        batches.append((list(qs), kw))
+        return search_batch(qs, **kw)
+
+    svc.search_batch = recording
+    tx.reset_launches()
+    fe = Frontend(svc, FrontendConfig(max_queue=64, max_batch=8)).start()
+    futs = [None] * (4 * len(queries))
+
+    def client(c):
+        for i, q in enumerate(queries):
+            futs[c * len(queries) + i] = fe.submit(q, top_k=5)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    got = [f.result(timeout=120) for f in futs]
+    fe.close()
+    order = [q for c in range(4) for q in queries]
+    want_of = {str(q): r for q, r in zip(queries * 4, want)}
+    assert [(r.refs, r.texts) for r in got] == \
+        [(want_of[str(q)].refs, want_of[str(q)].texts) for q in order]
+    threaded = {k: v for k, v in tx.LAUNCHES.items() if v}
+    assert len(batches) == fe.stats.n_batches >= 1
+    tx.reset_launches()
+    for qs, kw in batches:
+        search_batch(qs, **kw)
+    assert threaded == {k: v for k, v in tx.LAUNCHES.items() if v}
+    assert set(threaded) <= {"intersect_batch_keys", "combine_batch_keys"}
+    svc.close()

@@ -38,6 +38,27 @@ plain = searcher.query_batch(qs, top_k=3, impl="sorted")
 assert [r.refs for r in bitmap] == [r.refs for r in plain]
 assert any(r.refs for r in bitmap)
 
+from repro_torch.serving import (Frontend, FrontendConfig, SearchService,
+                                 ShardedIndex)
+cluster = ShardedIndex.build(corpus, BuilderConfig(B=1200, F0=1.0), store,
+                             "cluster", n_shards=2, device="cpu")
+svc = SearchService(cluster)
+served = svc.search_batch(["info", "info AND warn"], top_k=3)
+assert [r.refs for r in served] == [r.refs for r in svc.search_batch(
+    ["info", "info AND warn"], top_k=3, impl="sorted")]
+fe = Frontend(svc, FrontendConfig(max_queue=4))
+fut = fe.submit("info", top_k=3)
+fe.run_once()
+assert fut.result().refs == served[0].refs
+fused = cluster.searcher(fused=True).query_batch(["info AND warn"])
+assert fused[0].refs == svc.search_batch(["info AND warn"])[0].refs
+svc.close()
+
+import runpy
+sys.argv = ["serve", "--mode", "search", "--device", "cpu", "--queries",
+            "5"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+
 import torch
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 from repro_torch.kernels import attention as ta
@@ -71,7 +92,9 @@ print("standalone ok", [len(r.refs) for r in bitmap])
 
 
 def test_port_builds_and_queries_with_jax_repro_msgpack_blocked():
-    """Index path, then configs, models, attention, the serve loop, and
+    """Index path, the serving tier (a 2-shard cluster behind
+    `SearchService`, a `Frontend`, the fused path, `serve --mode
+    search`), then configs, models, attention, the serve loop, and
     RWKV's model and wkv."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
