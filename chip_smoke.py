@@ -20,7 +20,7 @@ in {96, 8192}, with and without an initial state, then the fused scan
 over the same grid with and without the D skip, in bf16 and float32,
 B_ and C_ strided views, dt drawn as the model draws it with keys pushed
 into and below the range of denormal exp(dt·A); y and final state within
-1e-5 of their largest |value|). Then it drives five paths at a real
+1e-5 of their largest |value|). Then it drives seven paths at a real
 size, each with the launch counts zeroed just before it and read just
 after:
 
@@ -48,6 +48,25 @@ after:
   10 under both budgets (identical, true hits) and at top None
   (equal to the unsharded searcher); none of the bitmap kernels; then
   one fused batch under torch.profiler;
+- cluster management on that cluster (`cluster_admin`), on a fresh
+  handle: `reshard` to twice the slots, `split`, `merge_shards` and
+  `replicate` in alias mode (each writes only its manifest), `compact`
+  of one aliased shard, `append` of 4,000 new lines and
+  `collect_garbage(keep=1)` past the grace window; after each, two
+  fused batches of one `combine_cluster_keys` launch each (bit for bit
+  the plain version on the captured inputs, no other kernel): light
+  queries at top None, byte-identical to the untouched cluster through
+  `compact` and to the per-shard sorted legs after `append`, and heavy
+  ones at top 10 (true hits); GC deletes nothing the kept generation
+  reaches, and a reopened handle answers alike;
+- RAG serving (`rag`): `granite-20b` at full width (d_model 6144, 48
+  query heads on one KV head of 128, d_ff 24576, vocab 49152) cut to
+  RAG_LAYERS of its 52 layers, random bf16 weights, `RAGPipeline` over
+  a `SearchService` of the serving phase's segmented index: three
+  queries, 8 documents and 16 greedy tokens each (exactly 3 · 8 · 17
+  attention launches); each shape it launched held to the plain
+  attention, and the run's logits to the same model through the plain
+  attention, teacher-forced, within 3e-2 of their scale;
 - LM serving: `qwen3-32b` at full width (d_model 5120, 64 heads over 8
   KV heads, head size 128, d_ff 25600, vocab 151936) cut to
   `--lm-layers` of its 64 layers, random bf16 weights from a seeded
@@ -214,6 +233,24 @@ LM_TOL = 3e-2
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:63"
+
+
+# Cluster management on the serving phase's cluster (`cluster_admin`):
+# ADMIN_LIGHT light queries at top None and, at top TOP_K, ADMIN_HEAVY
+# heavy queries beside ADMIN_TOPK_LIGHT light ones, all from the fused
+# drive's queries, after each membership change; ADMIN_SHARD is the
+# shard replicated and compacted; ADMIN_APPEND new lines are appended.
+ADMIN_LIGHT, ADMIN_TOPK_LIGHT, ADMIN_HEAVY = 32, 8, 2
+ADMIN_SHARD, ADMIN_APPEND = 0, 4000
+
+# RAG serving: granite-20b (MQA, 48 query heads on one KV head) at its
+# published widths cut to RAG_LAYERS of its 52 layers, retrieving
+# RAG_DOCS log lines (a prompt of about 100 tokens) for each of
+# RAG_QUERIES from the serving phase's segmented index and decoding
+# RAG_TOKENS greedy tokens
+RAG_ARCH, RAG_LAYERS, RAG_TOKENS, RAG_DOCS = "granite-20b", 8, 16, 8
+RAG_QUERIES = ("error fetch", "received AND exception",
+               "stored OR terminating")
 
 
 def emit(obj) -> None:
@@ -572,23 +609,31 @@ def main_phase(args, device) -> dict:
             "res_sorted": res_sorted}
 
 
-def capture_key_calls(tx):
+def capture_key_calls(tx, outputs: dict | None = None):
     """Wrap the key route's entry points so that each route keeps the
     inputs of its latest call, to time its kernels on the main path's
-    own data. Returns (captured, release); `release()` unwraps."""
+    own data (and, given `outputs`, what that call returned, to hold it
+    to the plain version). Returns (captured, release); `release()`
+    unwraps."""
     captured: dict[str, tuple] = {}
     intersect_keys, combine_keys = tx.intersect_keys, tx.combine_keys
 
     def wrapped_intersect(rows, n_docs=None, **kw):
         route = "intersect" if n_docs is not None else "intersect_batch"
         captured[route] = (rows, None, n_docs, None, None)
-        return intersect_keys(rows, n_docs=n_docs, **kw)
+        got = intersect_keys(rows, n_docs=n_docs, **kw)
+        if outputs is not None:
+            outputs[route] = got
+        return got
 
     def wrapped_combine(rows, programs, groups=None, lengths=None, **kw):
         route = "combine_cluster" if groups is not None else "combine_batch"
         captured[route] = (rows, programs, None, groups, lengths)
-        return combine_keys(rows, programs, groups=groups, lengths=lengths,
-                            **kw)
+        got = combine_keys(rows, programs, groups=groups, lengths=lengths,
+                           **kw)
+        if outputs is not None:
+            outputs[route] = got
+        return got
 
     def release():
         tx.intersect_keys, tx.combine_keys = intersect_keys, combine_keys
@@ -1015,7 +1060,359 @@ def serving_phase(args, device, main: dict) -> dict:
                             "device_idle_share": 1 - busy_us / wall_us
                             if events else None,
                             "device_events": events}})
+    out.update(cluster_prefix="cluster/hdfs", fused_picked=picked,
+               segmented=segmented)
     return out
+
+
+# --------------------------------------------------------- cluster admin
+def cluster_admin_phase(args, device, main: dict, serving: dict) -> dict:
+    """Membership changes and GC on the serving phase's cluster, on a
+    fresh handle on the card: `reshard` to 2·SERVING_SHARDS slots, `split`,
+    `merge_shards` and `replicate` (alias mode: each writes only its
+    manifest), `compact` of one aliased shard (the one step that builds),
+    `append` of ADMIN_APPEND new lines, then `collect_garbage(keep=1)`
+    past the grace window. After each step, `refresh()` and two fused
+    batches, each exactly one `combine_cluster_keys` launch and nothing
+    else, its output bit for bit the plain version's on the captured
+    inputs: ADMIN_LIGHT light queries at top None (byte-identical to the
+    untouched cluster's answer through step 5; equal to the same
+    handle's per-shard `impl="sorted"` legs from step 6 on, when the
+    appended lines change the answer) and, at top TOP_K, ADMIN_HEAVY
+    heavy queries beside ADMIN_TOPK_LIGHT light ones (true hits, as many
+    as the corpus holds up to TOP_K: a top-K answer is a sample whose
+    selection follows the units' layout, so it is not compared byte for
+    byte across layouts). After GC a reopened handle answers both
+    batches alike, and no blob the kept generation reaches was
+    deleted."""
+    import torch
+
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.index import planner as tp
+    from repro_torch.index.lifecycle import DEFAULT_GRACE_S
+    from repro_torch.kernels import intersect as tx
+    from repro_torch.serving import ShardedIndex
+    from repro_torch.serving.cluster import (_accept,
+                                             cluster_reachable_blobs)
+    from repro_torch.storage import SimCloudStore, SimCloudTransport
+
+    store, queries, texts = main["store"], main["queries"], \
+        main["query_texts"]
+    res_sorted, prefix = main["res_sorted"], serving["cluster_prefix"]
+    picked = serving["fused_picked"]
+
+    def n_cand(q):
+        return res_sorted[q].stats.n_candidates
+    light = [q for q in picked if n_cand(q) <= FUSED_FULL_MAX]
+    heavy = [q for q in picked if n_cand(q) > FUSED_FULL_MAX]
+    full_q = light[:ADMIN_LIGHT]
+    topk_q = sorted(light[:ADMIN_TOPK_LIGHT] + heavy[:ADMIN_HEAVY])
+    if len(full_q) < ADMIN_LIGHT or len(heavy) < ADMIN_HEAVY:
+        raise AssertionError(f"the fused queries hold {len(light)} light "
+                             f"and {len(heavy)} heavy ones")
+    extra = write_corpus(store, "corpus/hdfs-admin",
+                         make_logs_like(ADMIN_APPEND, seed=args.seed + 3),
+                         n_blobs=1)
+    in_corpus = set(main["corpus"].refs)
+    jobs = tp.plan_batch([queries[q] for q in topk_q], top_k=TOP_K)
+
+    def sources(s):
+        return SimCloudTransport(SimCloudStore(store,
+                                               seed=args.seed + 200 + s))
+
+    def fused_batch(handle, qs, top_k, name):
+        """One fused batch: its results, wall, launches, replica rows."""
+        cs = handle.searcher(replica_sources=[sources], fused=True)
+        outputs: dict = {}
+        captured, release = capture_key_calls(tx, outputs)
+        tx.reset_launches()
+        try:
+            res, wall = _wall(lambda: cs.query_batch(
+                [queries[q] for q in qs], top_k=top_k))
+        finally:
+            release()
+        launched = _launched(tx)
+        if launched != {"combine_cluster_keys": 1}:
+            raise AssertionError(f"{name}: the fused batch launched "
+                                 f"{launched}")
+        # the plain version's memory kept out of the drive's peak
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        rows, programs, _n, groups, lengths = captured["combine_cluster"]
+        want = tx.combine_keys(rows, programs, groups=groups,
+                               lengths=lengths, impl="ref", device=device)
+        got = outputs["combine_cluster"]
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: combine_cluster_keys != its "
+                                 "plain version")
+        del want, got, outputs
+        torch.cuda.reset_peak_memory_stats()
+        rows_per_shard = [len(r) for r in cs.shard_replicas]
+        cs.close()
+        return res, wall, rows_per_shard
+
+    def check_topk(res, name, grown):
+        """True hits, as many as the corpus holds up to TOP_K."""
+        cache: dict = {}
+        docs = in_corpus | set(extra.refs) if grown else in_corpus
+        for job, q, r in zip(jobs, topk_q, res):
+            base = len(res_sorted[q].refs)
+            ok = all(ref in docs and _accept(job, (ref.blob, ref.offset,
+                                                   ref.length), t, cache)
+                     for ref, t in zip(r.refs, r.texts))
+            count = base <= len(r.refs) <= TOP_K if grown else \
+                len(r.refs) == base
+            if not (ok and count):
+                raise AssertionError(f"{name}: query {q} ({texts[q]!r}) "
+                                     "returned other than true hits")
+
+    peak = [0]
+    torch.cuda.reset_peak_memory_stats()
+    handle = ShardedIndex.open(store, prefix, device=device)
+    base_full, base_s, _rows = fused_batch(handle, full_q, None, "untouched")
+    base_topk, base_topk_s, _rows = fused_batch(handle, topk_q, TOP_K,
+                                                "untouched")
+    check_topk(base_topk, "untouched", False)
+    now = time.time() + 2 * DEFAULT_GRACE_S
+    steps = [
+        ("reshard", lambda: handle.reshard(
+            SERVING_SHARDS, n_slots=2 * SERVING_SHARDS)),
+        ("split", lambda: handle.split(0)),
+        ("merge_shards", lambda: handle.merge_shards(0, 1)),
+        ("replicate", lambda: handle.replicate(ADMIN_SHARD, 2)),
+        ("compact", lambda: handle.compact(ADMIN_SHARD)),
+        ("append", lambda: handle.append(extra)),
+        ("collect_garbage", lambda: handle.collect_garbage(keep=1,
+                                                           now=now)),
+    ]
+    report, launches = [], 0
+    for i, (name, step) in enumerate(steps):
+        grown = name in ("append", "collect_garbage")
+        before = set(store.list(prefix + "/"))
+        reach = cluster_reachable_blobs(store, prefix, keep=1) \
+            if name == "collect_garbage" else None
+        t0 = time.perf_counter()
+        out = step()
+        step_s = time.perf_counter() - t0
+        written = set(store.list(prefix + "/")) - before
+        entry = {"step": name, "wall_s": step_s,
+                 "generation": handle.generation,
+                 "shards": handle.n_shards,
+                 "aliased": list(handle.aliased_shards),
+                 "blobs_written": len(written),
+                 "bytes_written": sum(store.size(n) for n in written)}
+        if name == "reshard" and written != {
+                f"{prefix}/cluster-{handle.generation:08d}.airc"}:
+            raise AssertionError(f"alias reshard wrote {sorted(written)}")
+        if name == "compact" and ADMIN_SHARD in handle.aliased_shards:
+            raise AssertionError("compact left its shard aliased")
+        if name == "collect_garbage":
+            lost = set(out.deleted) & reach
+            if lost or not out.deleted:
+                raise AssertionError(f"GC deleted {len(out.deleted)} "
+                                     f"blobs, {len(lost)} of them "
+                                     "reachable from the kept generation")
+            entry.update(deleted=len(out.deleted),
+                         bytes_reclaimed=out.bytes_reclaimed,
+                         kept_grace=len(out.kept_grace))
+        handle.refresh()
+        full, full_s, rows_per_shard = fused_batch(handle, full_q, None,
+                                                   name)
+        topk, topk_s, _rows = fused_batch(handle, topk_q, TOP_K, name)
+        launches += 2
+        check_topk(topk, name, grown)
+        if not grown:
+            if _hits(full) != _hits(base_full):
+                raise AssertionError(f"{name}: top None != the untouched "
+                                     "cluster's answer")
+        else:
+            legs = handle.searcher()
+            want, legs_s = _wall(lambda: legs.query_batch(
+                [queries[q] for q in full_q], impl="sorted", fused=False))
+            legs.close()
+            if _hits(full) != _hits(want):
+                raise AssertionError(f"{name}: the fused top None != the "
+                                     "per-shard sorted legs")
+            if name == "append" and _hits(full) == _hits(base_full):
+                raise AssertionError("the appended lines changed no "
+                                     "answer")
+            entry["sorted_legs_wall_s"] = legs_s
+        entry.update(batch_wall_s={"full_cuda": full_s, "topk_cuda": topk_s},
+                     replica_rows=rows_per_shard)
+        report.append(entry)
+        emit({"phase": "cluster_admin_step", **entry})
+    reopened = ShardedIndex.open(store, prefix, device=device)
+    again, _s, _r = fused_batch(reopened, full_q, None, "reopened")
+    again_topk, _s, _r = fused_batch(reopened, topk_q, TOP_K, "reopened")
+    launches += 2
+    if _hits(again) != _hits(full) or _hits(again_topk) != _hits(topk):
+        raise AssertionError("a reopened handle answers otherwise after GC")
+    emit({"phase": "cluster_admin", "docs": main["corpus"].n_docs,
+          "appended": ADMIN_APPEND, "full_queries": len(full_q),
+          "topk_queries": len(topk_q), "heavy_queries": ADMIN_HEAVY,
+          "untouched_wall_s": {"full_cuda": base_s,
+                               "topk_cuda": base_topk_s},
+          "identical_through_compact": True,
+          "equal_to_sorted_legs_after_append": True,
+          "kernel_identical_to_plain": True,
+          "reopened_after_gc_identical": True,
+          "combine_cluster_launches": launches + 2,
+          "peak_device_bytes": max(peak[0],
+                                   torch.cuda.max_memory_allocated()),
+          "steps": {e["step"]: e["wall_s"] for e in report}})
+    return {"launches": {"combine_cluster_keys": launches + 2}}
+
+
+# ------------------------------------------------------------------ RAG
+def rag_phase(args, device, serving: dict) -> dict:
+    """`RAGPipeline` on the card: `granite-20b` at full width cut to
+    RAG_LAYERS layers, random bf16 weights, retrieving through a
+    `SearchService` over the serving phase's segmented index. Each of
+    RAG_QUERIES retrieves RAG_DOCS documents, prefills them and decodes
+    RAG_TOKENS greedy tokens: exactly RAG_LAYERS · (1 + RAG_TOKENS)
+    attention launches a query (the prefill kernel for the prompt, the
+    split-KV decode kernel for each step's 48 rows on one KV head). The
+    run's logits are held to the same model through the plain
+    attention, teacher-forced on the run's own prompt and tokens, within
+    LM_TOL of their scale."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import intersect as tx
+    from repro_torch.models import build_model, init_params, param_count
+    from repro_torch.models.transformer import TransformerModel
+    from repro_torch.serving import RAGPipeline, SearchService
+
+    cfg = get_config(RAG_ARCH).with_(n_layers=RAG_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_desc(),
+                         torch.Generator(device=device).manual_seed(args.seed),
+                         device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls: list = []
+
+    def timed(kind, batch, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*a)
+        torch.cuda.synchronize()
+        calls.append((kind, batch["tokens"], logits,
+                      time.perf_counter() - t0))
+        return logits, cache
+
+    class TimedRAG(RAGPipeline):
+        """Records each model call's tokens, logits and wall time (a
+        subclass, so that no reference cycle keeps the weights alive
+        past the phase)."""
+
+        def _prefill(self, params, batch, pad_to):
+            return timed("prefill", batch, super()._prefill, params, batch,
+                         pad_to)
+
+        def _decode(self, params, cache, batch):
+            return timed("decode", batch, super()._decode, params, cache,
+                         batch)
+
+    svc = SearchService(serving["segmented"])
+    rag = TimedRAG(svc, model, params, vocab_size=cfg.vocab)
+    rag.generate(RAG_QUERIES[0], max_new_tokens=2)            # warm-up
+    calls.clear()
+
+    # ---- the rag path: counts zeroed before, read after ----------------
+    ta.reset_launches()
+    tx.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = [rag.generate(q, top_k_docs=RAG_DOCS,
+                            max_new_tokens=RAG_TOKENS)
+               for q in RAG_QUERIES]
+    wall_s = time.perf_counter() - t0
+    launches = ta.LAUNCHES["flash_attention"]
+    shapes = dict(ta.LAUNCH_SHAPES)
+    key_launches = _launched(tx)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+    svc.close()
+
+    want = len(RAG_QUERIES) * cfg.n_layers * (1 + RAG_TOKENS)
+    if launches != want:
+        raise AssertionError(f"flash_attention launched {launches} times on "
+                             f"the rag path, expected {want}")
+    per = 1 + RAG_TOKENS
+    if len(calls) != len(RAG_QUERIES) * per or \
+            not all(len(r.retrieved) == RAG_DOCS for r in results):
+        raise AssertionError(f"{len(calls)} model calls on the rag path, "
+                             f"{[len(r.retrieved) for r in results]} "
+                             "documents retrieved")
+    # the kernel alone against the plain attention at each shape the path
+    # launched: a prefill at its last query, a decode step at the first
+    # step (the slots past it empty) and the last
+    gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+    attn_errs = dict.fromkeys(ATTN_TOL, 0.0)
+    for key in shapes:
+        B, S, T, H, KV, dh, dtype_name = key
+        q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh),
+                              getattr(torch, dtype_name), device)
+        for pos in ((S - 1,) if S > 1 else (T - RAG_TOKENS, T - 1)):
+            kpos = torch.arange(T, dtype=torch.int32, device=device)
+            kpos[pos + 1:] = -1
+            err = attn_compare(ta, f"flash_attention rag {key} pos={pos}",
+                               q, k, v, causal=True,
+                               q_positions=kpos[pos + 1 - S:pos + 1].clone(),
+                               kv_positions=kpos)
+            attn_errs[dtype_name] = max(attn_errs[dtype_name], err)
+        del q, k, v
+    plain_model = TransformerModel(cfg, attn_impl="ref")
+    queries, worst = [], 0.0
+    for i, (q, res) in enumerate(zip(RAG_QUERIES, results)):
+        run = calls[i * per:(i + 1) * per]
+        prompt = run[0][1]
+        tokens = torch.from_numpy(res.tokens).to(device)[None]
+        if res.n_decoded != RAG_TOKENS or any(
+                not torch.equal(c[1][:, 0], tokens[:, t])
+                for t, c in enumerate(run[1:])):
+            raise AssertionError(f"rag query {q!r}: malformed run")
+        kern = torch.stack([c[2] for c in run])
+        if kern.shape != (per, 1, cfg.vocab) or \
+                not torch.isfinite(kern).all():
+            raise AssertionError(f"rag query {q!r}: malformed logits")
+        with torch.inference_mode():
+            plain = teacher_forced(plain_model, params, prompt, tokens)
+        scale = float(plain.abs().max())
+        rel = float((kern - plain).abs().max()) / scale
+        worst = max(worst, rel)
+        queries.append({
+            "query": q, "retrieved": len(res.retrieved),
+            "prompt_tokens": int(prompt.shape[1]),
+            "retrieval_ms_simulated": res.retrieval_ms,
+            "prefill_ms": 1e3 * run[0][3],
+            "decode_ms_per_token": 1e3 * sum(c[3] for c in run[1:])
+            / RAG_TOKENS,
+            "tokens": res.tokens.tolist(),
+            "max_err_over_max_logit": rel, "max_logit": scale,
+            "argmax_agreement": float((kern.argmax(-1) == plain.argmax(-1))
+                                      .float().mean())})
+    emit({"phase": "rag", "arch": RAG_ARCH, "layers": cfg.n_layers,
+          "layers_published": get_config(RAG_ARCH).n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+          "head_dim": cfg.dh, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "params": param_count(params), "init_s": init_s,
+          "new_tokens": RAG_TOKENS, "queries": queries, "wall_s": wall_s,
+          "attention_launches": launches,
+          "attention_shapes": {str(k): v for k, v in shapes.items()},
+          "retrieval_launches": key_launches,
+          "attention_vs_plain_max_abs_err": attn_errs,
+          "vs_plain_attention": {"max_err_over_max_logit": worst,
+                                 "tolerance": LM_TOL},
+          "peak_device_bytes": peak_bytes})
+    if not worst <= LM_TOL:
+        raise AssertionError(f"rag logits through the kernel differ from "
+                             f"the plain attention by {worst} of their "
+                             f"scale (> {LM_TOL})")
+    return {"launches": launches, "errs": attn_errs}
 
 
 # --------------------------------------------------------------- timing
@@ -1362,7 +1759,7 @@ def attn_compare(ta, name: str, q, k, v, **kw) -> float:
 def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
     """Small shapes: causal, window, bidirectional, S < T end-aligned,
     ragged S and T, S = 1 against a cache with empty (-1) slots, GQA
-    g = 1, 4 and 8, head sizes 32/64/128, bfloat16 and float32. In
+    g = 1, 4, 8 and 48, head sizes 32/64/128, bfloat16 and float32. In
     bfloat16 both device kernels run (`ta.plan`); the 2032-slot decode
     cases leave the splits past the query's slot wholly empty."""
     import torch
@@ -1379,6 +1776,10 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
         (4, 1, 2032, 64, 8, 128, True, None, True),
         (1, 300, 300, 32, 8, 128, True, None, False),
         (2, 1, 2032, 32, 8, 128, True, None, True),
+        # granite-20b's MQA, g = 48: a ragged prefill of a RAG prompt, and
+        # a decode step (48 rows on one KV head) in a padded cache
+        (1, 101, 101, 48, 1, 128, True, None, False),
+        (1, 1, 117, 48, 1, 128, True, None, True),
     ]
     errs = dict.fromkeys(ATTN_TOL, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2420,15 +2821,18 @@ def main() -> int:
     scan_errs = scan_edge_phase(ts, device, args.seed)
     main = main_phase(args, device)
     serving = serving_phase(args, device, main)
+    admin = cluster_admin_phase(args, device, main, serving)
+    rag = rag_phase(args, device, serving)
     kernels = keys_timing_phase(tx, device, rng, main, errs)
-    # the key route runs on two paths: `launches` stays the main path's,
-    # and `launches_by_path` adds the serving phase's
+    # the key route runs on three paths: `launches` stays the main path's,
+    # and `launches_by_path` adds the serving and cluster_admin phases'
     for entry in kernels:
         route = KEY_ROUTES[entry["name"]]
         entry["launches_by_path"] = {
             "main": entry["launches"],
             "serving": sum(drive.get(route, 0) for drive in
-                           serving["launches"].values())}
+                           serving["launches"].values()),
+            "cluster_admin": admin["launches"].get(route, 0)}
     del main, serving
     lm = lm_phase(args, device)
     attn = attn_timing_phase(ta, device, args.seed, lm["shapes"], attn_errs)
@@ -2439,14 +2843,16 @@ def main() -> int:
     jamba = jamba_phase(args, device)
     kernels.append(scan_timing_phase(ts, device, args.seed, jamba["shapes"],
                                      scan_errs))
-    # the attention kernel runs on two paths: its launches and its errors
-    # against the plain version are summed over both
+    # the attention kernel runs on three paths: its launches and its
+    # errors against the plain version are summed over all
     attn["launches_by_path"] = {"lm": attn["launches"],
-                                "jamba": jamba["attn_launches"]}
-    attn["launches"] += jamba["attn_launches"]
-    for dtype, err in jamba["attn_errs"].items():
-        attn["max_abs_err_by_dtype"][dtype] = max(
-            attn["max_abs_err_by_dtype"][dtype], err)
+                                "jamba": jamba["attn_launches"],
+                                "rag": rag["launches"]}
+    attn["launches"] += jamba["attn_launches"] + rag["launches"]
+    for errs_of_path in (jamba["attn_errs"], rag["errs"]):
+        for dtype, err in errs_of_path.items():
+            attn["max_abs_err_by_dtype"][dtype] = max(
+                attn["max_abs_err_by_dtype"][dtype], err)
     attn["max_abs_err"] = max(attn["max_abs_err_by_dtype"].values())
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -3,6 +3,7 @@ a recurrent state.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --queries 50
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode rag --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
@@ -17,8 +18,11 @@ a simulated `--region`, then one `SearchService.search_batch` of
 `--mode decode` mirrors its decode mode on the reduced config of
 `--arch` (a dense or MoE transformer, RWKV-6 or the Jamba hybrid), with
 weights drawn from a seeded `torch.Generator`: prefill of `--batch`
-random 32-token prompts, then greedy decoding. `--mode rag` needs
-`RAGPipeline`, which is not ported yet (ROADMAP queue 1, item 8).
+random 32-token prompts, then greedy decoding. `--mode rag` mirrors its
+rag mode: a `SearchService` over the same index behind the same region
+retrieves the top 3 documents for "error fetch", and a `RAGPipeline` on
+the reduced `--arch` prefills them and decodes `--tokens` greedy tokens
+(RWKV-6 raises `TypeError` there, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -76,26 +80,33 @@ def decode_loop(model, params, prompt, n_tokens: int) -> Decoded:
     return Decoded(out, logits, t1 - t0, t2 - t1)
 
 
-def serve_search(args) -> None:
-    """`--mode search`: build, open through a simulated region, serve one
-    batch, print the service's latency summary."""
-    import numpy as np
-
+def _served_index(args):
+    """The 4,000-line log corpus indexed into an in-memory store, behind
+    a simulated `--region`; returns (docs, the simulated store)."""
     from ..data import make_logs_like, write_corpus
-    from ..data.tokenizer import distinct_words
     from ..index import Builder, BuilderConfig
-    from ..kernels.intersect.ops import resolve_device
-    from ..serving import SearchService
-    from ..storage import (REGIONS, InMemoryBlobStore, SimCloudStore,
-                           SimCloudTransport)
+    from ..storage import REGIONS, InMemoryBlobStore, SimCloudStore
 
-    device = resolve_device(args.device)
     store = InMemoryBlobStore()
     docs = make_logs_like(4000, seed=13)
     corpus = write_corpus(store, "corpus/serve", docs, n_blobs=4)
     Builder(BuilderConfig(B=2000, F0=1.0, hedge_layers=1)).build(
         corpus, store, "index/serve")
-    cloud = SimCloudStore(store, model=REGIONS[args.region], seed=0)
+    return docs, SimCloudStore(store, model=REGIONS[args.region], seed=0)
+
+
+def serve_search(args) -> None:
+    """`--mode search`: build, open through a simulated region, serve one
+    batch, print the service's latency summary."""
+    import numpy as np
+
+    from ..data.tokenizer import distinct_words
+    from ..kernels.intersect.ops import resolve_device
+    from ..serving import SearchService
+    from ..storage import SimCloudTransport
+
+    device = resolve_device(args.device)
+    docs, cloud = _served_index(args)
     svc = SearchService(SimCloudTransport(cloud), "index/serve",
                         hedge=args.hedge, device=device)
     truth = set()
@@ -115,6 +126,26 @@ def serve_search(args) -> None:
     svc.close()
 
 
+def serve_rag(args, cfg, model, params, device) -> None:
+    """`--mode rag`: retrieve through the service, then prefill the
+    retrieved documents and decode greedily on `device`."""
+    from ..serving import RAGPipeline, SearchService
+    from ..storage import SimCloudTransport
+
+    _docs, cloud = _served_index(args)
+    svc = SearchService(SimCloudTransport(cloud), "index/serve",
+                        hedge=args.hedge, device=device)
+    rag = RAGPipeline(svc, model, params, vocab_size=cfg.vocab,
+                      max_context=96)
+    out = rag.generate("error fetch", top_k_docs=3,
+                       max_new_tokens=args.tokens)
+    svc.close()
+    print(f"{cfg.name} (reduced) on {device}: retrieved "
+          f"{len(out.retrieved)} docs in {out.retrieval_ms:.0f} ms; "
+          f"decoded {out.n_decoded} tokens")
+    print("greedy tokens:", out.tokens.tolist())
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="search",
@@ -128,9 +159,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mode == "rag":
-        raise SystemExit("--mode rag needs RAGPipeline, which is not "
-                         "ported yet (ROADMAP queue 1, item 8)")
     if args.mode == "search":
         serve_search(args)
         return
@@ -146,6 +174,9 @@ def main(argv=None) -> None:
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(model.param_desc(), gen, device)
+    if args.mode == "rag":
+        serve_rag(args, cfg, model, params, device)
+        return
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(
         rng.integers(4, cfg.vocab, (args.batch, PROMPT_LEN))).to(device)

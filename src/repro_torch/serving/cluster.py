@@ -57,13 +57,13 @@ byte-identical to the unsharded index throughout the alias window.
 `cluster_reachable_blobs` follows alias edges, so a source blob set
 referenced by any kept generation survives the sweep.
 
-In this package the read half is ported: routing, the cluster manifest
-codec (alias entries included), `ShardedIndex.build`/`open`/`refresh`/
-`searcher`, and `ClusterSearcher`'s per-shard and fused scatter-gather.
-Membership changes (`reshard`, `split`, `merge_shards`, `replicate`,
-`compact`, `append`) and cluster GC raise `NotImplementedError` (ROADMAP
-queue 1, item 5). Every shard unit combines on the handle's `device`:
-the per-shard legs through their units' `query_batch`, the fused path
+In this package both halves are ported: the read half (routing, the
+cluster manifest codec with its alias entries, `ShardedIndex.build`/
+`open`/`refresh`/`searcher`, `ClusterSearcher`'s per-shard and fused
+scatter-gather) and the management half (`reshard`, `split`,
+`merge_shards`, `replicate`, `compact`, `append`, and cluster GC). Every
+shard unit opens, builds and combines on the handle's `device`: the
+per-shard legs through their units' `query_batch`, the fused path
 through ONE `combine_cluster_planned` call on the gather side.
 """
 
@@ -72,6 +72,7 @@ from __future__ import annotations
 import hashlib
 import heapq
 import time
+import uuid
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import asdict, dataclass, field, replace
 
@@ -81,9 +82,11 @@ from ..core.topk import sample_size
 from ..data.corpus import Corpus, DocRef
 from ..index import _msgpack
 from ..index.builder import BuilderConfig
-from ..index.lifecycle import (DEFAULT_GRACE_S, Index,
-                               MultiSegmentSearcher, latest_generation,
-                               open_many, publish_generation)
+from ..index.lifecycle import (DEFAULT_GRACE_S, GCReport, Index,
+                               MultiSegmentSearcher, blobs_of,
+                               collect_garbage, latest_generation,
+                               open_many, publish_generation,
+                               reachable_blobs, warn_ungraced_sweep)
 from ..index.planner import (DocContent, combine_cluster_planned,
                              physical_plan, plan_batch, shard_quotas)
 from ..index.query import Query, Regex
@@ -537,32 +540,595 @@ class ShardedIndex:
             refs += idx.corpus_refs()
         return refs
 
-    # -- membership changes and GC: not ported yet ------------------------
+    def _gathered_refs(self, shard_ids: list[int]) -> list[DocRef]:
+        """Manifest-recorded corpus refs of the given shards (alias
+        sources included), in shard then ingest order — the snapshot
+        membership changes rebuild."""
+        refs: list[DocRef] = []
+        for s in shard_ids:
+            refs += self.shard_corpus_refs(s)
+        return refs
+
+    def _snapshot_sources(self, shard_ids: list[int],
+                          ) -> list[tuple[str, int]]:
+        """Source prefixes whose quiescence the membership-change CAS
+        protocol rechecks, at their generation as of NOW. Own shard
+        handles contribute their handle generation; alias sources
+        contribute `latest_generation` — their manifest pin may lawfully
+        trail latest (a past raced commit bumps the source but its
+        documents were already re-applied through routing), and only
+        commits landing DURING this change need detecting."""
+        blobs = self.transport.blobs
+        seen: set[str] = set()
+        out: list[tuple[str, int]] = []
+        for s in shard_ids:
+            idx = self.shards[s]
+            if idx is not None and idx.prefix not in seen:
+                seen.add(idx.prefix)
+                out.append((idx.prefix, idx.generation))
+            for src, _slots in self.alias_sources[s]:
+                if src.prefix in seen:
+                    continue
+                seen.add(src.prefix)
+                out.append((src.prefix, latest_generation(blobs,
+                                                          src.prefix)))
+        return out
+
+    def _stage_prefix(self, generation: int) -> str:
+        """Fresh blob namespace for one membership-change attempt. The
+        uuid token keeps two racing attempts at the same generation from
+        building over each other's blobs; a loser's staging area is
+        deleted on the typed failure. NOTE: until publication these
+        blobs are unreachable from every manifest, so only the GC grace
+        window (`collect_garbage(grace_s=...)`, on by default) protects
+        an in-flight change from a concurrent sweep — keep membership
+        changes shorter than the grace window, or don't run GC with
+        `grace_s=0.0` while one may be in flight."""
+        return f"{self.prefix}/gen-{generation:08d}-{uuid.uuid4().hex[:8]}"
+
+    def _abort_staged(self, stage: str) -> None:
+        blobs = self.transport.blobs
+        for name in blobs.list(stage + "/"):
+            blobs.delete(name)
+
+    def _build_parts(self, parts: list[Corpus], slots_of: list[list[int]],
+                     stage: str, cfg: BuilderConfig,
+                     ) -> tuple[list[Index | None], list[dict]]:
+        """Build one new physical shard per part under the staging
+        prefix; hash-empty parts become empty manifest slots."""
+        shards: list[Index | None] = []
+        entries: list[dict] = []
+        try:
+            for s, part in enumerate(parts):
+                if not part.refs:
+                    shards.append(None)
+                    entries.append({"prefix": None, "generation": 0,
+                                    "n_docs": 0, "slots": slots_of[s]})
+                    continue
+                shard_prefix = f"{stage}/shard-{s:04d}"
+                idx = Index.build(part, cfg, self.transport, shard_prefix,
+                                  device=self.device)
+                shards.append(idx)
+                entries.append({"prefix": shard_prefix,
+                                "generation": idx.generation,
+                                "n_docs": part.n_docs,
+                                "slots": slots_of[s]})
+        except BaseException:
+            self._abort_staged(stage)
+            raise
+        return shards, entries
+
+    def _carried_entry(self, s: int) -> dict:
+        """Re-record an untouched shard for the next manifest (generation
+        refreshed to the handle's current one — shard commits stay
+        shard-local either way, `open` resolves the newest)."""
+        entry = dict(self._manifest["shards"][s])
+        idx = self.shards[s]
+        entry["generation"] = idx.generation if idx is not None else 0
+        return entry
+
+    def _publish_membership(self, generation: int, entries: list[dict],
+                            n_slots: int, stage: str,
+                            sources: list[tuple[str, int]]) -> dict:
+        """CAS-publish the next cluster generation, or clean up and fail
+        typed. Two races are checked: (1) a shard writer committed to a
+        source shard after its corpus was snapshotted — the new shards
+        would silently drop that commit's documents; (2) another
+        publisher claimed this cluster generation. Either way the staged
+        blobs are deleted and `ClusterConflict` tells the caller to
+        `refresh()` and retry. A commit can still slip between this
+        recheck and the CAS; `_reapply_raced_commits` runs after a
+        successful publish to close that window."""
+        blobs = self.transport.blobs
+        for sprefix, gen in sources:
+            if latest_generation(blobs, sprefix) != gen:
+                self._abort_staged(stage)
+                raise ClusterConflict(
+                    f"shard {sprefix!r} committed a new generation while "
+                    f"the new shard set was being built from generation "
+                    f"{gen}; refresh() and retry")
+        if latest_generation(blobs, self.prefix,
+                             stem="cluster") != generation - 1:
+            self._abort_staged(stage)
+            raise ClusterConflict(
+                f"cluster {self.prefix!r} moved past generation "
+                f"{generation - 1} during the membership change; "
+                "refresh() and retry")
+        manifest = {"generation": generation, "n_shards": len(entries),
+                    "n_slots": n_slots, "shards": entries,
+                    "config": self._manifest.get("config")}
+        try:
+            publish_generation(
+                blobs, _cluster_manifest_name(self.prefix, generation),
+                encode_cluster_manifest(manifest), generation, self.prefix)
+        except RuntimeError as exc:
+            self._abort_staged(stage)
+            raise ClusterConflict(str(exc)) from exc
+        if self._bus is not None:
+            self._bus.post_generation(prefix=self.prefix, kind="published",
+                                      generation=generation)
+        return manifest
+
+    # -- aliasing (zero-rebuild membership changes) ------------------------
+    def _flat_sources(self, shard_ids: list[int],
+                      ) -> list[tuple[str, int, list[DocRef]]]:
+        """Flatten the given shards into their physical blob sets:
+        `(prefix, pinned generation, manifest-recorded refs)` per
+        distinct source — every alias source plus every own prefix.
+        Aliases therefore always point one hop at real blobs;
+        re-aliasing an aliased shard never builds chains, and because
+        each new entry's slot filter is applied under the CURRENT
+        modulus against its FULL slot set, the intermediate filters
+        drop out (the old entries partition each source's documents, so
+        the union over old shards of `docs ∩ new-slots` is exactly
+        `source-docs ∩ new-slots`)."""
+        pinned: dict[str, int] = {}
+        out: list[tuple[str, int, list[DocRef]]] = []
+        for s in shard_ids:
+            for src, _slots in self.alias_sources[s]:
+                if src.prefix in pinned:
+                    if pinned[src.prefix] != src.generation:
+                        raise ClusterConflict(
+                            f"shards alias different generations of "
+                            f"{src.prefix!r}; compact() one of them "
+                            "before re-aliasing")
+                    continue
+                pinned[src.prefix] = src.generation
+                out.append((src.prefix, src.generation,
+                            src.corpus_refs()))
+            idx = self.shards[s]
+            if idx is not None and idx.prefix not in pinned:
+                pinned[idx.prefix] = idx.generation
+                out.append((idx.prefix, idx.generation,
+                            idx.corpus_refs()))
+        return out
+
+    def _alias_entries(self, sources: list[tuple[str, int, list[DocRef]]],
+                       slots_of: list[list[int]],
+                       n_slots: int) -> list[dict]:
+        """Manifest entries that serve `slots_of[j]` purely by aliasing
+        `sources`, with per-source document counts taken by hashing each
+        source's refs exactly once (O(total refs), no blob reads).
+        Sources contributing zero documents to an entry are dropped from
+        its alias list."""
+        slot_to_part = [-1] * n_slots
+        for j, slots in enumerate(slots_of):
+            for slot in slots:
+                slot_to_part[int(slot)] = j
+        counts = [[0] * len(slots_of) for _ in sources]
+        for k, (_p, _g, refs) in enumerate(sources):
+            for r in refs:
+                j = slot_to_part[slot_of_ref(r, n_slots)]
+                if j >= 0:
+                    counts[k][j] += 1
+        entries: list[dict] = []
+        for j, slots in enumerate(slots_of):
+            aliases = [{"prefix": p, "generation": g,
+                        "slots": [int(x) for x in slots]}
+                       for k, (p, g, _refs) in enumerate(sources)
+                       if counts[k][j]]
+            entry = {"prefix": None, "generation": 0,
+                     "n_docs": sum(c[j] for c in counts),
+                     "slots": [int(x) for x in slots]}
+            if aliases:
+                entry["aliases"] = aliases
+            entries.append(entry)
+        return entries
+
+    def _publish_alias_generation(self, entries: list[dict],
+                                  n_slots: int,
+                                  sources: list[tuple[str, int]],
+                                  snapshot_refs: list[DocRef],
+                                  ) -> "ShardedIndex":
+        """Shared tail of the alias-mode membership changes: CAS-publish
+        the aliased manifest (nothing is staged — the op writes only the
+        manifest), reopen members from it, and close the recheck→CAS
+        window exactly like the rebuild paths do."""
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)   # empty; cleanup no-ops
+        manifest = self._publish_membership(generation, entries, n_slots,
+                                            stage, sources)
+        self._manifest = manifest
+        self.shards, self.alias_sources = _open_member_shards(
+            self.transport, manifest, self.device)
+        self._attach_shard_buses()
+        self._reapply_raced_commits(sources, snapshot_refs)
+        return self
+
     def reshard(self, n_shards: int, n_slots: int | None = None,
                 mode: str = "alias") -> "ShardedIndex":
-        _management("ShardedIndex.reshard")
+        """Repartition the whole corpus into a new `n_shards`-shard set
+        and CAS-publish it as the next cluster generation.
+
+        `mode="alias"` (the default) writes **O(manifest) bytes**: the
+        new entries alias the existing immutable shard blob sets with a
+        served-slot filter instead of rebuilding moved documents —
+        readers post-filter round-1 candidates to the served slots, so
+        results stay byte-identical to the unsharded index before,
+        during, and after the cutover; `compact(shard_i)` later
+        materializes real per-shard blobs in the background.
+        `mode="rebuild"` re-reads the corpus from the manifest-recorded
+        document refs and rebuilds every shard under a fresh staging
+        namespace (the pre-aliasing behavior — what `compact` amortizes
+        away). Either way live readers keep serving the old generation
+        until their `refresh()` swaps, and `ClusterConflict` (staged
+        blobs cleaned up) reports a raced shard commit or publisher.
+
+        `n_slots` defaults to keeping the cluster's current modulus
+        (grown to `n_shards` if needed) so an over-provisioned cluster
+        stays splittable across reshards; pass it explicitly to change
+        the routing resolution.
+        """
+        if mode not in ("alias", "rebuild"):
+            raise ValueError(f"unknown reshard mode {mode!r}: use "
+                             "'alias' or 'rebuild'")
+        if n_shards < 1:
+            raise ValueError("need at least one shard")
+        n_slots = max(n_shards, self.n_slots) if n_slots is None \
+            else int(n_slots)
+        if n_slots < n_shards:
+            raise ValueError(
+                f"n_slots={n_slots} must be >= n_shards={n_shards}")
+        all_ids = list(range(self.n_shards))
+        sources = self._snapshot_sources(all_ids)
+        slots_of = [list(range(s * n_slots // n_shards,
+                               (s + 1) * n_slots // n_shards))
+                    for s in range(n_shards)]
+        if mode == "alias":
+            flat = self._flat_sources(all_ids)
+            entries = self._alias_entries(flat, slots_of, n_slots)
+            return self._publish_alias_generation(
+                entries, n_slots, sources,
+                [r for _p, _g, refs in flat for r in refs])
+        cfg = self._require_config()
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)
+        shard_of_slot = [s for s in range(n_shards) for _ in slots_of[s]]
+        corpus = Corpus(store=self.transport.blobs,
+                        refs=self._gathered_refs(all_ids))
+        parts = partition_by_slots(corpus, n_slots, shard_of_slot,
+                                   n_shards)
+        shards, entries = self._build_parts(parts, slots_of, stage, cfg)
+        manifest = self._publish_membership(generation, entries, n_slots,
+                                            stage, sources)
+        self._manifest = manifest
+        self.shards = shards
+        self.alias_sources = [[] for _ in shards]
+        self._attach_shard_buses()
+        self._reapply_raced_commits(sources, corpus.refs)
+        return self
 
     def split(self, shard_i: int, mode: str = "alias") -> "ShardedIndex":
-        _management("ShardedIndex.split")
+        """Split one physical shard's hash slots across two new shards
+        (targeted reshard — only this shard's documents move).
+
+        `mode="alias"` (the default) publishes two entries aliasing the
+        shard's existing blob set with half the slots each — no blobs
+        are written; `mode="rebuild"` rebuilds the two halves. Needs the
+        shard to serve >= 2 slots — build the cluster with `n_slots >
+        n_shards` to keep splits available; a single-slot shard can only
+        grow via a full `reshard`.
+        """
+        if mode not in ("alias", "rebuild"):
+            raise ValueError(f"unknown split mode {mode!r}: use "
+                             "'alias' or 'rebuild'")
+        entry = self._manifest["shards"][shard_i]
+        slots = [int(x) for x in entry["slots"]]
+        if len(slots) < 2:
+            raise ValueError(
+                f"shard {shard_i} of {self.prefix!r} serves a single "
+                "hash slot and cannot be split; build with n_slots > "
+                "n_shards or use reshard()")
+        sources = self._snapshot_sources([shard_i])
+        halves = [slots[:len(slots) // 2], slots[len(slots) // 2:]]
+        if mode == "alias":
+            flat = self._flat_sources([shard_i])
+            new_entries = self._alias_entries(flat, halves, self.n_slots)
+            entries = [self._carried_entry(s)
+                       for s in range((self.n_shards))]
+            entries[shard_i:shard_i + 1] = new_entries
+            return self._publish_alias_generation(
+                entries, self.n_slots, sources,
+                [r for _p, _g, refs in flat for r in refs])
+        cfg = self._require_config()
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)
+        refs = self._gathered_refs([shard_i])
+        first = set(halves[0])
+        part_refs: list[list[DocRef]] = [[], []]
+        for r in refs:
+            k = 0 if slot_of_ref(r, self.n_slots) in first else 1
+            part_refs[k].append(r)
+        parts = [Corpus(store=self.transport.blobs, refs=pr)
+                 for pr in part_refs]
+        new_shards, new_entries = self._build_parts(parts, halves, stage,
+                                                    cfg)
+        entries = [self._carried_entry(s) for s in range(self.n_shards)]
+        entries[shard_i:shard_i + 1] = new_entries
+        shards = list(self.shards)
+        shards[shard_i:shard_i + 1] = new_shards
+        alias_sources = list(self.alias_sources)
+        alias_sources[shard_i:shard_i + 1] = [[], []]
+        manifest = self._publish_membership(generation, entries,
+                                            self.n_slots, stage, sources)
+        self._manifest = manifest
+        self.shards = shards
+        self.alias_sources = alias_sources
+        self._attach_shard_buses()
+        self._reapply_raced_commits(sources, refs)
+        return self
 
     def merge_shards(self, a: int, b: int,
                      mode: str = "alias") -> "ShardedIndex":
-        _management("ShardedIndex.merge_shards")
+        """Merge two physical shards into one serving both slot sets
+        (targeted reshard — only these shards' documents move). The
+        merged shard takes the lower position; the slot count — and
+        therefore document routing — is unchanged. `mode="alias"` (the
+        default) publishes one entry aliasing both existing blob sets —
+        no blobs are written; `mode="rebuild"` rebuilds the union."""
+        if mode not in ("alias", "rebuild"):
+            raise ValueError(f"unknown merge mode {mode!r}: use "
+                             "'alias' or 'rebuild'")
+        if a == b:
+            raise ValueError("cannot merge a shard with itself")
+        a, b = sorted((a, b))
+        ea = self._manifest["shards"][a]
+        eb = self._manifest["shards"][b]
+        sources = self._snapshot_sources([a, b])
+        slots = sorted(int(x) for x in
+                       list(ea["slots"]) + list(eb["slots"]))
+        if mode == "alias":
+            flat = self._flat_sources([a, b])
+            merged = self._alias_entries(flat, [slots], self.n_slots)
+            entries = [self._carried_entry(s)
+                       for s in range(self.n_shards)]
+            entries[a:a + 1] = merged
+            del entries[b]
+            return self._publish_alias_generation(
+                entries, self.n_slots, sources,
+                [r for _p, _g, refs in flat for r in refs])
+        cfg = self._require_config()
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)
+        refs = self._gathered_refs([a, b])
+        part = Corpus(store=self.transport.blobs, refs=refs)
+        new_shards, new_entries = self._build_parts([part], [slots],
+                                                    stage, cfg)
+        entries = [self._carried_entry(s) for s in range(self.n_shards)]
+        shards = list(self.shards)
+        alias_sources = list(self.alias_sources)
+        entries[a:a + 1] = new_entries
+        shards[a:a + 1] = new_shards
+        alias_sources[a:a + 1] = [[]]
+        del entries[b], shards[b], alias_sources[b]
+        manifest = self._publish_membership(generation, entries,
+                                            self.n_slots, stage, sources)
+        self._manifest = manifest
+        self.shards = shards
+        self.alias_sources = alias_sources
+        self._attach_shard_buses()
+        self._reapply_raced_commits(sources, refs)
+        return self
 
     def replicate(self, shard_i: int, n_replicas: int) -> "ShardedIndex":
-        _management("ShardedIndex.replicate")
+        """Publish the next generation with shard `shard_i` marked to
+        serve through `n_replicas` replicas — instant hot-shard
+        scale-out: the manifest records N aliases of ONE immutable blob
+        set, so the change writes O(manifest) bytes and `searcher()`
+        simply vends that many replica rows (each `replica_sources`
+        entry is multiplied). `n_replicas=1` clears the marker. The
+        marker is reset by membership changes that rebuild or re-alias
+        the shard (`reshard`/`split`/`merge_shards`/`compact` keeps it,
+        a shard absorbed into another entry loses it)."""
+        if not 1 <= int(n_replicas) <= 64:
+            raise ValueError(
+                f"n_replicas={n_replicas} out of range [1, 64]")
+        if not 0 <= shard_i < self.n_shards:
+            raise IndexError(f"shard {shard_i} out of range")
+        entries = [self._carried_entry(s) for s in range(self.n_shards)]
+        if int(n_replicas) == 1:
+            entries[shard_i].pop("replicas", None)
+        else:
+            entries[shard_i]["replicas"] = int(n_replicas)
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)   # empty; cleanup no-ops
+        manifest = self._publish_membership(generation, entries,
+                                            self.n_slots, stage,
+                                            sources=[])
+        self._manifest = manifest                # membership unchanged:
+        self._attach_shard_buses()               # handles stay valid
+        return self
 
     def compact(self, shard_i: int) -> "ShardedIndex":
-        _management("ShardedIndex.compact")
+        """Materialize an aliased shard into a real per-shard blob set
+        and CAS-publish the de-aliased generation — the background half
+        of zero-rebuild resharding. A no-op for physical shards. The
+        aliased generation keeps serving until the CAS lands; a crash
+        mid-build leaves only staged blobs, which are deleted on the
+        typed failure paths and swept by GC's grace window otherwise.
+        Once every manifest referencing the alias ages out of the
+        latest-K window, the source blobs the alias pinned become
+        collectible again."""
+        entry = self._manifest["shards"][shard_i]
+        if not entry.get("aliases"):
+            return self
+        cfg = self._require_config()
+        sources = self._snapshot_sources([shard_i])
+        refs = self.shard_corpus_refs(shard_i)
+        generation = self.generation + 1
+        stage = self._stage_prefix(generation)
+        part = Corpus(store=self.transport.blobs, refs=refs)
+        _shards, new_entries = self._build_parts(
+            [part], [[int(x) for x in entry["slots"]]], stage, cfg)
+        if "replicas" in entry:
+            new_entries[0]["replicas"] = entry["replicas"]
+        entries = [self._carried_entry(s) for s in range(self.n_shards)]
+        entries[shard_i] = new_entries[0]
+        manifest = self._publish_membership(generation, entries,
+                                            self.n_slots, stage, sources)
+        self._manifest = manifest
+        self.shards, self.alias_sources = _open_member_shards(
+            self.transport, manifest, self.device)
+        self._attach_shard_buses()
+        self._reapply_raced_commits(sources, refs)
+        return self
 
     def append(self, corpus: Corpus) -> "ShardedIndex":
-        _management("ShardedIndex.append")
+        """Route and commit new documents into the current generation:
+        each live target shard takes a shard-local delta commit (no
+        cluster republish needed); documents routed to an empty slot
+        materialize its shard via a follow-up cluster generation (same
+        CAS protocol as the other membership changes). A purely aliased
+        shard (no overlay index yet) counts as empty here: its fresh
+        documents materialize an overlay that serves ALONGSIDE the
+        aliases, which stay in the entry until `compact()`.
 
+        Safe to retry after a `ClusterConflict`: empty slots are
+        materialized FIRST (nothing is committed if that CAS loses),
+        and delta commits skip documents a target shard's corpus map
+        already records — re-appending the same refs is a no-op, never
+        a duplicate."""
+        if latest_generation(self.transport.blobs, self.prefix,
+                             stem="cluster") != self.generation:
+            # a stale handle would commit into a superseded generation's
+            # shard set — invisible to current readers and doomed to GC
+            raise ClusterConflict(
+                f"cluster {self.prefix!r} moved past generation "
+                f"{self.generation}; refresh() and retry append")
+        parts = self.partition(corpus)
+        empties = [s for s, part in enumerate(parts)
+                   if part.refs and self.shards[s] is None]
+        build_parts: dict[int, Corpus] = {}
+        for s in list(empties):
+            part = parts[s]
+            if self.alias_sources[s]:
+                # an aliased shard with no overlay yet: only genuinely
+                # new documents get one — re-appending refs the aliases
+                # already serve is a no-op, matching the delta-commit
+                # dedupe below
+                have = set(self.shard_corpus_refs(s))
+                fresh = [i for i, r in enumerate(part.refs)
+                         if r not in have]
+                if not fresh:
+                    empties.remove(s)
+                    continue
+                part = Corpus(store=part.store,
+                              refs=[part.refs[i] for i in fresh],
+                              texts=[part.texts[i] for i in fresh]
+                              if part.texts is not None else None)
+            build_parts[s] = part
+        if empties:
+            cfg = self._require_config()
+            generation = self.generation + 1
+            stage = self._stage_prefix(generation)
+            slots_of = [list(self._manifest["shards"][s]["slots"])
+                        for s in empties]
+            new_shards, new_entries = self._build_parts(
+                [build_parts[s] for s in empties], slots_of, stage, cfg)
+            entries = [self._carried_entry(s)
+                       for s in range(self.n_shards)]
+            shards = list(self.shards)
+            for s, sh, e in zip(empties, new_shards, new_entries):
+                old = self._manifest["shards"][s]
+                if old.get("aliases"):
+                    # the overlay joins the aliases rather than
+                    # replacing them: the entry keeps serving the
+                    # aliased documents plus the fresh ones
+                    e["aliases"] = old["aliases"]
+                    e["n_docs"] = int(old["n_docs"]) + int(e["n_docs"])
+                if "replicas" in old:
+                    e["replicas"] = old["replicas"]
+                entries[s], shards[s] = e, sh
+            manifest = self._publish_membership(
+                generation, entries, self.n_slots, stage, sources=[])
+            self._manifest = manifest
+            self.shards = shards
+            self._attach_shard_buses()
+        for s, part in enumerate(parts):
+            if not part.refs or s in empties or self.shards[s] is None:
+                continue
+            idx = self.shards[s]
+            idx.refresh()                # follow foreign commits first
+            have = set(self.shard_corpus_refs(s))
+            fresh = [i for i, r in enumerate(part.refs) if r not in have]
+            if not fresh:
+                continue                 # retry after a partial append
+            delta = Corpus(store=part.store,
+                           refs=[part.refs[i] for i in fresh],
+                           texts=[part.texts[i] for i in fresh]
+                           if part.texts is not None else None)
+            w = idx.writer()
+            w.append(delta)
+            w.commit()
+        return self
+
+    def _reapply_raced_commits(self, sources: list[tuple[str, int]],
+                               snapshot_refs: list[DocRef]) -> None:
+        """Close the recheck→CAS window of `_publish_membership`: a
+        commit landing on a source shard between the pre-publish recheck
+        and the CAS is absent from the just-published shard set (which
+        was built from the snapshot). Nothing is lost — the old shard's
+        manifest still records the committed documents — so diff each
+        moved source against the snapshot and `append` the missing
+        documents through the new generation's routing, iterating until
+        the sources are quiescent."""
+        blobs = self.transport.blobs
+        snapshot = set(snapshot_refs)
+        pending = list(sources)
+        for _attempt in range(8):
+            moved: list[tuple[str, int]] = []
+            missing: list[DocRef] = []
+            for sprefix, gen in pending:
+                current = latest_generation(blobs, sprefix)
+                if current == gen:
+                    continue
+                idx = Index.open(self.transport, sprefix,
+                                 device=self.device)
+                missing += [r for r in idx.corpus_refs()
+                            if r not in snapshot]
+                moved.append((sprefix, current))
+            if not moved:
+                return
+            snapshot.update(missing)
+            pending = moved
+            if missing:
+                self.append(Corpus(store=blobs, refs=missing))
+        raise ClusterConflict(
+            f"source shards of {self.prefix!r} kept committing while "
+            "their raced writes were being re-applied; refresh() and "
+            "reshard again")
+
+    # -- garbage collection ------------------------------------------------
     def collect_garbage(self, keep: int = 2,
                         grace_s: float = DEFAULT_GRACE_S,
-                        dry_run: bool = False, now: float | None = None,
-                        leases=None):
-        _management("ShardedIndex.collect_garbage")
+                        dry_run: bool = False,
+                        now: float | None = None,
+                        leases=None) -> GCReport:
+        """Sweep this cluster's prefix: see `collect_cluster_garbage`."""
+        return collect_cluster_garbage(self.transport, self.prefix,
+                                       keep=keep, grace_s=grace_s,
+                                       dry_run=dry_run, now=now,
+                                       leases=leases)
 
     # -- sessions ---------------------------------------------------------
     def searcher(self, cache: SuperpostCache | None = None,
@@ -1398,17 +1964,88 @@ def _merge_fetch(parts: list[FetchStats], concurrent: bool) -> FetchStats:
 # ============================================================ garbage collection
 def cluster_reachable_blobs(blobs, prefix: str, keep: int = 2,
                             leases=None) -> set[str]:
-    _management("cluster_reachable_blobs")
+    """Blobs reachable from the kept cluster generations — the latest
+    `keep`, widened down to the oldest leased cluster generation when a
+    `LeaseRegistry` is passed — plus, for every shard prefix any kept
+    manifest references, that shard's own reachable set
+    (`index.lifecycle.reachable_blobs`: shard manifests, unit headers,
+    superpost blocks, corpus blobs), itself widened by any lease on the
+    shard prefix. The walk follows **alias edges**: an aliased entry's
+    source prefixes are shard prefixes too, and the reachability floor
+    of each source prefix is lowered to the oldest generation any kept
+    manifest's alias pins — a blob set two generations alias survives
+    until the LAST manifest referencing it ages out, and the de-aliased
+    originals become garbage only after `compact` plus age-out. A
+    cluster reader session leases the cluster prefix AND each shard
+    prefix it serves, so both levels of the walk respect its pins.
+    Everything else under the prefix is garbage: old-generation shard
+    sets a `reshard(mode="rebuild")` replaced, alias sources `compact`
+    de-referenced, orphaned staging areas of conflicted membership
+    changes, pre-merge segment blobs beyond the shard's own history
+    window."""
+    all_names = blobs.list(f"{prefix}/")
+    manifests = sorted(n for n in all_names
+                       if n.startswith(f"{prefix}/cluster-")
+                       and n.endswith(".airc"))
+    if not manifests:
+        return set(all_names)
+    kept = manifests[-max(1, int(keep)):]
+    min_gen = leases.min_generation(prefix) if leases is not None else None
+    if min_gen is not None:
+        floor = min(int(min_gen), _cluster_manifest_generation(kept[0]))
+        kept = [m for m in manifests
+                if _cluster_manifest_generation(m) >= floor]
+    out: set[str] = set(kept)
+    shard_prefixes: set[str] = set()
+    alias_floor: dict[str, int] = {}
+    for name in kept:
+        manifest = decode_cluster_manifest(blobs.get(name))
+        for entry in manifest["shards"]:
+            if entry["prefix"] is not None:
+                shard_prefixes.add(entry["prefix"])
+            for a in entry.get("aliases") or []:
+                sp, g = a["prefix"], int(a["generation"])
+                shard_prefixes.add(sp)
+                alias_floor[sp] = min(alias_floor.get(sp, g), g)
+    for sp in sorted(shard_prefixes):
+        # shard prefixes nest under the cluster prefix: reuse the one
+        # cluster-level LIST instead of re-listing per shard
+        lease_min = leases.min_generation(sp) if leases is not None \
+            else None
+        floors = [f for f in (lease_min, alias_floor.get(sp))
+                  if f is not None]
+        out |= reachable_blobs(blobs, sp, keep=keep,
+                               all_names=all_names,
+                               min_generation=min(floors)
+                               if floors else None)
+    return out
+
+
+def _cluster_manifest_generation(name: str) -> int:
+    tail = name.rsplit("cluster-", 1)[1]
+    return int(tail.split(".")[0])
 
 
 def collect_cluster_garbage(source, prefix: str, keep: int = 2,
                             grace_s: float = DEFAULT_GRACE_S,
-                            dry_run: bool = False, now: float | None = None,
-                            leases=None):
-    _management("collect_cluster_garbage")
+                            dry_run: bool = False,
+                            now: float | None = None,
+                            leases=None) -> GCReport:
+    """Delete blobs under a cluster prefix unreachable from the kept
+    cluster + shard manifest generations.
 
-
-def _management(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported yet: ROADMAP queue 1, item 5 (cluster "
-        "management)")
+    The reachability walk (`cluster_reachable_blobs`) and the sweep
+    semantics — reader leases as the primary protection, grace window by
+    `BlobStore.mtime` as the fallback, `dry_run` reporting, `GCReport`
+    accounting — are shared with single-index GC
+    (`index.lifecycle.collect_garbage`); only the root set differs.
+    `grace_s=0.0` with no `leases` registry raises the same
+    `UngracedSweepError` (repro/compat.py). Accepts a `BlobStore`,
+    `SimCloudStore`, or `StorageTransport`."""
+    blobs = blobs_of(source)
+    warn_ungraced_sweep(grace_s, leases)
+    return collect_garbage(
+        blobs, prefix, keep=keep, grace_s=grace_s, dry_run=dry_run,
+        now=now,
+        reachable=cluster_reachable_blobs(blobs, prefix, keep,
+                                          leases=leases))

@@ -255,6 +255,10 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 3, 100, 8, 1, 64, True, None, False),      # decode kernel, 24 rows
     (2, 4, 130, 16, 2, 128, True, 40, False),      # 32 rows, a window
     (1, 8, 77, 16, 2, 32, False, None, False),     # 64 rows, bidirectional
+    # granite-20b's MQA, g = 48: a ragged RAG prefill, then a decode step
+    # of 48 rows on one KV head in a padded cache
+    (1, 101, 101, 48, 1, 128, True, None, False),
+    (1, 1, 117, 48, 1, 128, True, None, True),
 ])
 def test_flash_attention_matches_plain_on_card(card, B, S, T, H, KV, dh,
                                                causal, window, slots, dtype):
@@ -770,4 +774,133 @@ def test_frontend_threads_on_card_match_the_host(card):
         search_batch(qs, **kw)
     assert threaded == {k: v for k, v in tx.LAUNCHES.items() if v}
     assert set(threaded) <= {"intersect_batch_keys", "combine_batch_keys"}
+    svc.close()
+
+
+def _admin_trace(dev):
+    """Alias `reshard` → `split` → `compact` → `append` →
+    `collect_garbage` on a small cluster on `dev`, with `uuid.uuid4`
+    patched to one sequence: the manifests, every fused and per-shard
+    answer (top None and top 5) after each step, the fused batches'
+    launches, the GC report and the blobs."""
+    import dataclasses
+    import itertools
+    import uuid
+    from unittest import mock
+
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.index import BuilderConfig, parse
+    from repro_torch.serving import ShardedIndex
+    from repro_torch.storage import (InMemoryBlobStore, SimCloudStore,
+                                     SimCloudTransport)
+    counter = itertools.count(1)
+    queries = [parse(q) for q in (
+        "error", "info AND block", "(error OR warn) AND NOT info",
+        '"info block" OR (warn AND node2)')]
+    trace, launches = [], []
+    with mock.patch.object(uuid, "uuid4",
+                           lambda: uuid.UUID(int=next(counter) << 96)):
+        store = InMemoryBlobStore()
+        corpus = write_corpus(store, "c", make_logs_like(600, seed=5),
+                              n_blobs=3)
+        extra = write_corpus(store, "x", make_logs_like(60, seed=6),
+                             n_blobs=1)
+        cluster = ShardedIndex.build(corpus, BuilderConfig(B=900, F0=1.0),
+                                     store, "cl", n_shards=4, device=dev)
+        steps = [lambda: cluster.reshard(4, n_slots=8),
+                 lambda: cluster.split(0),
+                 lambda: cluster.compact(cluster.aliased_shards[0]),
+                 lambda: cluster.append(extra),
+                 lambda: cluster.collect_garbage(keep=1, now=4.0e9)]
+        for step in steps:
+            out = step()
+            cluster.refresh()
+            trace.append(dataclasses.asdict(out) if out is not cluster
+                         else cluster.manifest)
+            for fused in (False, True):
+                cs = cluster.searcher(replica_sources=[
+                    lambda i: SimCloudTransport(SimCloudStore(store,
+                                                              seed=40 + i))],
+                    fused=fused)
+                for k in (None, 5):
+                    tx.reset_launches()
+                    res = cs.query_batch(queries, top_k=k)
+                    trace.append([(r.refs, r.texts, r.stats) for r in res])
+                    if fused:
+                        launches.append({n: v for n, v in
+                                         tx.LAUNCHES.items() if v})
+                cs.close()
+        trace.append({n: store.get(n) for n in store.list()})
+    return trace, launches
+
+
+def test_cluster_management_on_card_matches_cpu(card):
+    """Membership changes and GC give the same blobs and the same answers
+    with the cluster's combines on the card as on the host; every fused
+    batch is one `combine_cluster_keys` launch."""
+    on_card, launches = _admin_trace(card)
+    on_host, _ = _admin_trace(torch.device("cpu"))
+    assert on_card == on_host
+    assert launches == [{"combine_cluster_keys": 1}] * 10
+
+
+def test_reduced_granite_rag_on_card_matches_plain_attention(card):
+    """`RAGPipeline` over a card `SearchService` on the reduced
+    granite-20b (MQA), bf16: prefill + 4 greedy decode steps, exactly
+    5 attention launches a layer; the run's logits against the same
+    model through the plain attention, teacher-forced on its prompt and
+    tokens, within 3e-2 of their scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_logs_like, write_corpus
+    from repro_torch.index import Builder, BuilderConfig
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import TransformerModel
+    from repro_torch.serving import RAGPipeline, SearchService
+    from repro_torch.storage import (InMemoryBlobStore, SimCloudStore,
+                                     SimCloudTransport)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = InMemoryBlobStore()
+    corpus = write_corpus(store, "c", make_logs_like(800, seed=4), n_blobs=2)
+    Builder(BuilderConfig(B=800, F0=1.0)).build(corpus, store, "ix")
+    svc = SearchService(SimCloudTransport(SimCloudStore(store, seed=0)),
+                        "ix", device=card)
+    cfg = get_config("granite-20b", reduced=True)
+    model, plain = TransformerModel(cfg), TransformerModel(cfg, "ref")
+    params = init_params(model.param_desc(),
+                         torch.Generator(card).manual_seed(2), card)
+    rag = RAGPipeline(svc, model, params, vocab_size=cfg.vocab,
+                      max_context=64)
+    calls, prefill, decode = [], rag._prefill, rag._decode
+
+    def rec_prefill(p, batch, pad_to):
+        logits, cache = prefill(p, batch, pad_to)
+        calls.append((batch["tokens"], pad_to, logits))
+        return logits, cache
+
+    def rec_decode(p, cache, batch):
+        logits, cache = decode(p, cache, batch)
+        calls.append((batch["tokens"], None, logits))
+        return logits, cache
+
+    rag._prefill, rag._decode = rec_prefill, rec_decode
+    ta.reset_launches()
+    out = rag.generate("error fetch", top_k_docs=3, max_new_tokens=4)
+    assert ta.LAUNCHES["flash_attention"] == 5 * cfg.n_layers
+    assert len(out.retrieved) == 3 and out.n_decoded == 4
+    prompt, pad_to, _ = calls[0]
+    assert prompt.is_cuda and pad_to == prompt.shape[1] + 4
+    with torch.inference_mode():
+        logits, cache = plain.prefill(params, {"tokens": prompt},
+                                      pad_to=pad_to)
+        want = [logits]
+        for tok in out.tokens:
+            logits, cache = plain.decode_step(params, cache, {
+                "tokens": torch.tensor([[tok]], dtype=torch.int32,
+                                       device=card)})
+            want.append(logits)
+    got = torch.stack([c[2] for c in calls])
+    want = torch.stack(want)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= 3e-2 * scale
     svc.close()

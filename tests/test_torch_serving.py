@@ -20,9 +20,10 @@ quantiles and events. The JAX side runs its Pallas kernels in
 interpret mode, the port its plain PyTorch versions (`device="cpu"`).
 
 Then the port alone: the cluster equals the unsharded index, a cluster
-the JAX package aliased with `split` is read the same by both, the fused
-path refuses units on two devices, and the management half raises
-`NotImplementedError` naming its roadmap item.
+the JAX package aliased with `split` is read the same by both, and so is
+one the port aliased (its blobs equal the JAX package's byte for byte),
+and the fused path refuses units on two devices. The management half
+itself is held to the JAX package in `tests/test_torch_resharding.py`.
 """
 
 import dataclasses
@@ -43,7 +44,6 @@ import repro.storage as j_storage
 import repro_torch.data as t_data
 import repro_torch.index as t_index
 import repro_torch.serving as t_serving
-import repro_torch.serving.cluster as t_cluster
 import repro_torch.storage as t_storage
 
 SIDES = {
@@ -362,6 +362,49 @@ def test_port_reads_an_aliased_cluster_as_jax_does(aliased, fused):
     t_cs.close()
 
 
+@pytest.fixture(scope="module")
+def aliased_by_port(aliased):
+    """The same cluster, built and split in alias mode by the port, and
+    copied into a JAX store."""
+    store = t_storage.InMemoryBlobStore()
+    docs = t_data.make_logs_like(400, seed=31)
+    corpus = t_data.write_corpus(store, "corpus/al", docs, n_blobs=2)
+    cluster = t_serving.ShardedIndex.build(
+        corpus, t_index.BuilderConfig(**SHARD_CFG), store, "cluster/al",
+        n_shards=2, n_slots=8, device="cpu")
+    with uuid_sequence():
+        cluster.split(0)
+    assert cluster.aliased_shards
+    assert _blobs(store) == _blobs(aliased[0])
+    j_store = j_storage.InMemoryBlobStore()
+    for name, data in _blobs(store).items():
+        j_store.put(name, data)
+    return j_store, store
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_jax_reads_a_cluster_the_port_aliased_as_the_port_does(
+        aliased_by_port, fused):
+    j_store, t_store = aliased_by_port
+    queries = ["error", "info AND block", "warn OR node7"]
+    j_idx = j_serving.ShardedIndex.open(j_store, "cluster/al")
+    assert j_idx.aliased_shards
+    j_cs = j_idx.searcher(
+        replica_sources=[_sources(SIDES["j"], j_store, 20)], fused=fused)
+    t_cs = t_serving.ShardedIndex.open(t_store, "cluster/al",
+                                       device="cpu").searcher(
+        replica_sources=[_sources(SIDES["t"], t_store, 20)], fused=fused)
+    for k in (None, 3):
+        a = j_cs.query_batch([j_index.parse(q) for q in queries], top_k=k,
+                             impl="bitmap")
+        b = t_cs.query_batch([t_index.parse(q) for q in queries], top_k=k)
+        assert _plain(a) == _plain(b)
+        assert dataclasses.asdict(j_cs.last_scatter) == \
+            dataclasses.asdict(t_cs.last_scatter)
+    j_cs.close()
+    t_cs.close()
+
+
 def test_fused_path_refuses_units_on_two_devices():
     store = t_storage.InMemoryBlobStore()
     corpus = t_data.write_corpus(store, "c", t_data.make_logs_like(200,
@@ -397,32 +440,3 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch):
     svc = t_serving.SearchService(store, "ix", device="cpu")
     assert svc.search_batch(["error"])[0].refs
     svc.close()
-
-
-MANAGEMENT = [
-    ("reshard", (4,)), ("split", (0,)), ("merge_shards", (0, 1)),
-    ("replicate", (0, 2)), ("compact", (0,)), ("append", (None,)),
-    ("collect_garbage", ()),
-]
-
-
-@pytest.mark.parametrize("name,args", MANAGEMENT,
-                         ids=[m[0] for m in MANAGEMENT])
-def test_management_half_names_its_roadmap_item(name, args):
-    store = t_storage.InMemoryBlobStore()
-    corpus = t_data.write_corpus(store, "c", t_data.make_logs_like(120,
-                                                                   seed=3))
-    cluster = t_serving.ShardedIndex.build(
-        corpus, t_index.BuilderConfig(**SHARD_CFG), store, "cl",
-        n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, item 5 \(cluster "
-                             r"management\)"):
-        getattr(cluster, name)(*args)
-
-
-@pytest.mark.parametrize("fn", ["collect_cluster_garbage",
-                                "cluster_reachable_blobs"])
-def test_cluster_gc_names_its_roadmap_item(fn):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        getattr(t_cluster, fn)(t_storage.InMemoryBlobStore(), "cl")
