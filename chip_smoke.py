@@ -9,7 +9,9 @@ per library, started together) and holds each against its plain PyTorch
 version on the card (`edge`: the four bitmap intersect kernels on ragged
 shapes, then the key route's `combine_postings` and `bits_to_keys` on
 `kernels.intersect.cases`, bit for bit and against NumPy's sets;
-`attn_edge`; `wkv_edge`: the wkv kernels
+`attn_edge`, also with positions per batch row, wrapped rings and
+non-causal cross and encoder attention (`kernels.attention.cases`);
+`wkv_edge`: the wkv kernels
 over S in {1, 37, 128, 2000}, head sizes 32/64/128, bf16 and float32
 r/k/v, then the model's decays (with keys held at w = 0 and w = 1) at S
 in {1, T-1, T, T+1, 2T+1} for the prefill kernel's chunk T, and a B·H
@@ -20,7 +22,7 @@ in {96, 8192}, with and without an initial state, then the fused scan
 over the same grid with and without the D skip, in bf16 and float32,
 B_ and C_ strided views, dt drawn as the model draws it with keys pushed
 into and below the range of denormal exp(dt·A); y and final state within
-1e-5 of their largest |value|). Then it drives seven paths at a real
+1e-5 of their largest |value|). Then it drives ten paths at a real
 size, each with the launch counts zeroed just before it and read just
 after:
 
@@ -93,9 +95,36 @@ after:
   33 attention launches per attention layer); then the same tokens
   teacher-forced through the plain fused scan: in bf16 printed and
   bounded only by the logits' scale, in float32 (2 prompts of 512
-  tokens, 8 forced steps) within 1e-4 of it.
+  tokens, 8 forced steps) within 1e-4 of it;
+- Mixtral serving (`mixtral`): `mixtral-8x22b` at its published widths
+  (d_model 6144, 48 heads over 8 KV heads of 128, d_ff 16384, 8 experts
+  top-2 in every layer, vocab 32768, a sliding window of 4096) cut to
+  MIXTRAL_LAYERS of its 56 layers, `decode_loop` over 2 prompts of 5000
+  tokens (the window masks in prefill) and 32 greedy tokens; then the
+  ring: the prompt's last 4096 positions laid into a `cache_desc` cache
+  of 4096 slots at slot pos % 4096 decode the same tokens, teacher-
+  forced, to the full cache's logits within 3e-2 of their scale;
+- VLM serving (`vlm`): `qwen2-vl-72b` at its published widths (d_model
+  8192, 64 heads over 8 KV heads of 128, QKV bias, d_ff 29568, vocab
+  152064, M-RoPE sections (16, 24, 24)) cut to VLM_LAYERS of its 80,
+  4 rows of 500 image patches on four other grids and 1500 text tokens
+  at Qwen2-VL's position ids (so each row's query positions differ),
+  then 32 greedy tokens with (B, 1, 3) ids;
+- encoder-decoder serving (`encdec`): `seamless-m4t-medium`, all 12 + 12
+  layers (d_model 1024, 16 heads of 64, d_ff 4096, vocab 256206), 4
+  utterances of 4096 encoder frames, a 32-token decoder prompt, 32
+  greedy tokens: bidirectional encoder attention, causal decoder
+  self-attention and cross-attention (the split-KV decode kernel, non-
+  causal, at S = 32 and S = 1).
+Each of the three: exact attention launch counts, each launched shape
+against the plain attention, and the logits through the kernel against
+the same model through the plain attention, teacher-forced, within 3e-2
+of their scale.
 
-Last, each kernel is timed at the shapes its path gave it (median of
+Last, each kernel is timed at the shapes its path gave it (attention
+also at the windowed prefill, the per-row-position prefill beside the
+shared arange at its shape, the encoder's prefill and the cross-
+attention; median of
 CUDA-event timings, L2 flushed before each; the key route's kernels on
 the main path's own inputs, with the host's plan, the H2D and D2H
 copies and the universe's sort timed beside them, and the bitmap kernel
@@ -233,6 +262,24 @@ LM_TOL = 3e-2
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:63"
+
+# Mixtral serving: mixtral-8x22b at its published widths cut to
+# MIXTRAL_LAYERS of its 56 layers (about 10.4 B parameters, 20.8 GB bf16),
+# MIXTRAL_BATCH prompts of MIXTRAL_PROMPT tokens, past its window of 4096
+# so that the window masks in prefill, and LM_TOKENS greedy tokens
+MIXTRAL_ARCH, MIXTRAL_LAYERS = "mixtral-8x22b", 4
+MIXTRAL_BATCH, MIXTRAL_PROMPT = 2, 5000
+# VLM serving: qwen2-vl-72b at its published widths cut to VLM_LAYERS of
+# its 80 (about 9.5 B parameters); one row a grid of VLM_GRIDS, each
+# 500 image patches (the JAX package's VLM_PATCH_FRAC of 0.25 of
+# VLM_SEQ positions) and then text, so that the rows' text positions,
+# and their queries' positions, differ
+VLM_ARCH, VLM_LAYERS, VLM_SEQ = "qwen2-vl-72b", 8, 2000
+VLM_GRIDS = ((20, 25), (25, 20), (10, 50), (50, 10))
+# Encoder-decoder serving: seamless-m4t-medium, all 12 + 12 layers;
+# ENCDEC_BATCH utterances of the config's ENC_FRAMES frames, a decoder
+# prompt of ENCDEC_PROMPT tokens, LM_TOKENS greedy tokens
+ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_PROMPT = "seamless-m4t-medium", 4, 32
 
 
 # Cluster management on the serving phase's cluster (`cluster_admin`):
@@ -1796,7 +1843,18 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
             name = f"attn {dtype} {(B, S, T, H, KV, dh, causal, window)}"
             key = str(dtype).removeprefix("torch.")
             errs[key] = max(errs[key], attn_compare(ta, name, q, k, v, **kw))
-    emit({"phase": "attn_edge", "cases": 2 * len(cases),
+    from repro_torch.kernels.attention.cases import position_cases
+    positioned = position_cases(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (B, S, T, H, KV, dh), kw in positioned:
+            q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh), dtype,
+                                  device)
+            key = str(dtype).removeprefix("torch.")
+            errs[key] = max(errs[key], attn_compare(
+                ta, f"attn {dtype} {name} {(B, S, T, H, KV, dh)}", q, k, v,
+                **kw))
+    emit({"phase": "attn_edge", "cases": 2 * (len(cases) + len(positioned)),
+          "position_cases": [name for name, _, _ in positioned],
           "max_abs_err": errs, "tolerance": ATTN_TOL})
     return errs
 
@@ -1813,6 +1871,22 @@ def teacher_forced(model, params, prompt, tokens):
                                           {"tokens": tokens[:, t:t + 1]})
         steps.append(logits)
     return torch.stack(steps)
+
+
+def logits_versus(kern, plain) -> dict:
+    """Two runs' logits (steps, B, vocab): the largest difference over the
+    largest |logit|, per step too, and the share of equal argmaxes."""
+    import torch
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise AssertionError("teacher-forced logits are not finite")
+    diff = (kern - plain).abs()
+    return {"max_err_over_max_logit": float(diff.max())
+            / float(plain.abs().max()),
+            "per_step": (diff.amax(dim=(1, 2))
+                         / plain.abs().amax(dim=(1, 2))).tolist(),
+            "argmax_agreement": float((kern.argmax(-1) == plain.argmax(-1))
+                                      .float().mean()),
+            "max_logit": float(plain.abs().max()), "tolerance": LM_TOL}
 
 
 def lm_phase(args, device) -> dict:
@@ -1861,15 +1935,9 @@ def lm_phase(args, device) -> dict:
     kern = teacher_forced(model, params, prompt, out.tokens)
     plain = teacher_forced(TransformerModel(cfg, attn_impl="ref"), params,
                            prompt, out.tokens)
-    torch.cuda.synchronize()
-    compare_s = time.perf_counter() - t0
-    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
-        raise AssertionError("teacher-forced logits are not finite")
-    scale = float(plain.abs().max())
-    rel = float((kern - plain).abs().max()) / scale
-    per_step = ((kern - plain).abs().amax(dim=(1, 2))
-                / plain.abs().amax(dim=(1, 2))).tolist()
-    same_argmax = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    versus = logits_versus(kern, plain)
+    versus["wall_s"] = time.perf_counter() - t0
+    rel = versus["max_err_over_max_logit"]
     repeat = float((kern[-1] - out.logits).abs().max())
     emit({"phase": "lm", "arch": LM_ARCH, "layers": cfg.n_layers,
           "layers_published": get_config(LM_ARCH).n_layers,
@@ -1885,11 +1953,7 @@ def lm_phase(args, device) -> dict:
           "attention_launches": launches,
           "attention_shapes": {str(k): v for k, v in shapes.items()},
           "greedy_tokens": out.tokens.tolist(),
-          "vs_plain_attention": {"max_err_over_max_logit": rel,
-                                 "tolerance": LM_TOL,
-                                 "per_step": per_step,
-                                 "argmax_agreement": same_argmax,
-                                 "max_logit": scale, "wall_s": compare_s},
+          "vs_plain_attention": versus,
           "decode_loop_vs_forced_rerun_max_abs": repeat})
     if not rel <= LM_TOL:
         raise AssertionError(f"LM logits through the kernel differ from the "
@@ -1967,27 +2031,94 @@ def lm_profile(model, params, prompt, steps: int = 4,
                                          in pre_top]}})
 
 
-def attn_bound(qpos, kpos, B, S, T, H, KV, dh, nbytes_el) -> tuple:
-    """Least card time (ms) for one attention call on these positions:
-    4·dh flops per allowed (query, key) pair and head over the bf16 (or
-    float32) rate, against q, k, v, o and positions moved once over HBM
-    bandwidth; the larger, and which it is."""
-    import torch
-    ok = (kpos >= 0)[None, :] & (qpos[:, None] >= kpos[None, :])
-    pairs = int(ok.sum())
-    flops = 4 * B * H * pairs * dh
-    nbytes = nbytes_el * dh * (2 * B * S * H + 2 * B * T * KV) + 4 * (S + T)
+def attn_bound(qpos, kpos, B, S, T, H, KV, dh, nbytes_el, causal=True,
+               window=None) -> tuple:
+    """Least card time (ms) for one attention call on these positions
+    ((S,)/(T,) shared by the batch, or (B, S)/(B, T)): 4·dh flops per
+    allowed (query, key) pair and head over the bf16 (or float32) rate,
+    against q, k, v, o and positions moved once over HBM bandwidth; the
+    larger, and which it is."""
+    from repro_torch.kernels.attention.ref import _allowed
+    pairs = int(_allowed(B, S, T, causal, window, qpos, kpos,
+                         qpos.device).sum())
+    flops = 4 * H * pairs * dh
+    nbytes = nbytes_el * dh * (2 * B * S * H + 2 * B * T * KV) \
+        + 4 * (qpos.numel() + kpos.numel())
     rate = BF16_FLOPS_PER_S if nbytes_el == 2 else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def attn_time_shape(ta, flush, gen, name: str, key: tuple, kw: dict,
+                    launches: int) -> dict:
+    """The kernel at one shape and set of positions (`kw`: causal,
+    window, q_positions, kv_positions): checked against the plain version,
+    then the bare launch, the plain version and one SDPA call timed
+    (CUDA events, L2 flushed), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.ref import _allowed
+    B, S, T, H, KV, dh, dtype_name = key
+    dev = flush.device
+    q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh),
+                          getattr(torch, dtype_name), dev)
+    qpos, kpos = kw["q_positions"], kw["kv_positions"]
+    causal, window = kw["causal"], kw.get("window")
+    err = attn_compare(ta, f"flash_attention {name} {key}", q, k, v, **kw)
+    out = torch.empty_like(q)
+    kernel_ms = cuda_ms(lambda: ta.launch(q, k, v, out, causal, window,
+                                          qpos, kpos), flush)
+    plain_ms = cuda_ms(lambda: ta.attention_ref(q, k, v, **kw), flush)
+    # the library yardstick: one SDPA call, (B, H, S, dh) views; causal
+    # where the positions are the shared arange(S) of a prefill, no mask
+    # where every pair may attend, else the allowed pairs as a mask
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ok = _allowed(B, S, T, causal, window, qpos, kpos, dev)
+    arange = qpos.dim() == 1 and kpos.dim() == 1 and S == T and \
+        torch.equal(qpos, kpos) and torch.equal(
+            qpos.long(), torch.arange(S, device=dev))
+    if bool(ok.all()):
+        sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
+            qt, kt, vt, enable_gqa=True)
+        mask = "none"
+    elif causal and window is None and arange:
+        sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        mask = "is_causal"
+    else:
+        allowed = ok[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(    # noqa: E731
+            qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+        mask = "bool (B, 1, S, T)"
+    del ok
+    sdpa_err = float((sdpa().transpose(1, 2).float()
+                      - out.float()).abs().max())
+    library_ms = cuda_ms(sdpa, flush)
+    bound_ms, bound_by, flops, nbytes = attn_bound(
+        qpos, kpos, B, S, T, H, KV, dh, q.element_size(), causal, window)
+    kernel, n_split, _ = (ta.plan(B, S, T, H, KV) if dtype_name ==
+                          "bfloat16" else ("float32", 1, T))
+    return {
+        "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "dh": dh,
+                  "dtype": dtype_name},
+        "causal": causal, "window": window,
+        "positions": "per row" if qpos.dim() == 2 or kpos.dim() == 2
+        else "shared",
+        "kernel": kernel, "n_split": n_split,
+        "launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library": "scaled_dot_product_attention"
+        f"(enable_gqa=True, mask {mask})", "library_max_abs_diff": sdpa_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "bytes": nbytes, "max_abs_err": err,
+        "share_of_bound": bound_ms / kernel_ms}
+
+
 def attn_timing_phase(ta, device, seed: int, shapes: dict,
                       edge_errs: dict) -> dict:
     """Time the kernel at the LM path's prefill and decode shapes."""
     import torch
-    import torch.nn.functional as F
 
     flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -1998,44 +2129,16 @@ def attn_timing_phase(ta, device, seed: int, shapes: dict,
     errs = dict(edge_errs)
     for kind, key in sorted(picked.items(), reverse=True):
         B, S, T, H, KV, dh, dtype_name = key
-        dtype = getattr(torch, dtype_name)
-        q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh), dtype,
-                              device)
         kpos = torch.arange(T, dtype=torch.int32, device=device)
         # prefill: the model's arange positions; decode: the last step of
         # the main path, one query at T - 1 against a full cache
         qpos = kpos.clone() if S == T else kpos[T - S:].clone()
-        kw = {"causal": True, "q_positions": qpos, "kv_positions": kpos}
-        err = attn_compare(ta, f"flash_attention {kind} {key}", q, k, v,
-                           **kw)
-        errs[dtype_name] = max(errs[dtype_name], err)
-        out = torch.empty_like(q)
-        kernel_ms = cuda_ms(lambda: ta.launch(q, k, v, out, True, None,
-                                              qpos, kpos), flush)
-        plain_ms = cuda_ms(lambda: ta.attention_ref(q, k, v, **kw), flush)
-        # the library yardstick: one SDPA call, (B, H, S, dh) views
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = (lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)) if S == T else \
-            (lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                    enable_gqa=True))
-        sdpa_err = float((sdpa().transpose(1, 2).float()
-                          - out.float()).abs().max())
-        library_ms = cuda_ms(sdpa, flush)
-        bound_ms, bound_by, flops, nbytes = attn_bound(
-            qpos, kpos, B, S, T, H, KV, dh, q.element_size())
-        kernel, n_split, _ = (ta.plan(B, S, T, H, KV) if dtype_name ==
-                              "bfloat16" else ("float32", 1, T))
-        out_shapes[kind] = {
-            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "dh": dh,
-                      "dtype": dtype_name},
-            "kernel": kernel, "n_split": n_split,
-            "launches": shapes[key], "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": "scaled_dot_product_attention"
-            "(enable_gqa=True)", "library_max_abs_diff": sdpa_err,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes, "max_abs_err": err,
-            "share_of_bound": bound_ms / kernel_ms}
+        out_shapes[kind] = attn_time_shape(
+            ta, flush, gen, kind, key,
+            {"causal": True, "q_positions": qpos, "kv_positions": kpos},
+            shapes[key])
+        errs[dtype_name] = max(errs[dtype_name],
+                               out_shapes[kind]["max_abs_err"])
     main = out_shapes["prefill"]
     return {"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
             "replaces": ATTN_REPLACES,
@@ -2552,18 +2655,7 @@ def jamba_phase(args, device) -> dict:
         kern = teacher_forced(model, params_, prompt_, tokens_)
         plain = teacher_forced(HybridModel(cfg, scan_impl="ref"), params_,
                                prompt_, tokens_)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
-            raise AssertionError("teacher-forced logits are not finite")
-        diff = (kern - plain).abs()
-        return {"max_err_over_max_logit": float(diff.max())
-                / float(plain.abs().max()),
-                "per_step": (diff.amax(dim=(1, 2))
-                             / plain.abs().amax(dim=(1, 2))).tolist(),
-                "argmax_agreement": float((kern.argmax(-1)
-                                           == plain.argmax(-1)).float()
-                                          .mean()),
-                "max_logit": float(plain.abs().max())}, kern
+        return logits_versus(kern, plain), kern
 
     checks = []
     t0 = time.perf_counter()
@@ -2622,6 +2714,524 @@ def jamba_phase(args, device) -> dict:
                 f"their scale (> {c['tolerance']})")
     return {"launches": scan_launches, "shapes": scan_shapes,
             "attn_launches": attn_launches, "attn_errs": attn_errs}
+
+
+# ------------------------------------------- mixtral, vlm and encdec
+def qwen2_vl_positions(grids, n_text: int):
+    """Qwen2-VL's position ids (B, S, 3) as numpy int32: an h × w grid of
+    image patches at (t, h, w) = (0, row, col), then the text from the
+    largest id + 1 with all three ids equal; and each row's next text
+    id."""
+    import numpy as np
+    rows, nxt = [], []
+    for h, w in grids:
+        r, c = np.divmod(np.arange(h * w), w)
+        img = np.stack([np.zeros_like(r), r, c], -1)
+        start = max(h, w)
+        txt = np.repeat(np.arange(start, start + n_text)[:, None], 3, -1)
+        rows.append(np.concatenate([img, txt]))
+        nxt.append(start + n_text)
+    return np.stack(rows).astype(np.int32), np.array(nxt, np.int32)
+
+
+def serve_forced(model, params, batch, pad_to: int, extra, n: int,
+                 tokens=None):
+    """`model.prefill(batch, pad_to)`, then `n` decode steps, each fed its
+    token and `extra(t)` (a VLM's M-RoPE ids, else nothing): the greedy
+    token where `tokens` is None, else tokens[:, t]. Returns (the tokens
+    fed (B, n), logits (n + 1, B, vocab), prefill s, decode s, the
+    cache), host clock ending in a device synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, pad_to=pad_to)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps, fed = [logits], []
+    for t in range(n):
+        tok = (logits.argmax(-1).to(torch.int32)[:, None] if tokens is None
+               else tokens[:, t:t + 1])
+        fed.append(tok)
+        logits, cache = model.decode_step(params, cache,
+                                          {"tokens": tok, **extra(t)})
+        steps.append(logits)
+    torch.cuda.synchronize()
+    return (torch.cat(fed, dim=1), torch.stack(steps), t1 - t0,
+            time.perf_counter() - t1, cache)
+
+
+def path_attention_errs(ta, device, seed: int, name: str, shapes: dict,
+                        cases) -> dict:
+    """The kernel against the plain attention at each shape a path
+    launched, on random q, k, v: `cases(key)` gives the path's
+    (causal, window, q_positions, kv_positions) at that shape."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    errs = dict.fromkeys(ATTN_TOL, 0.0)
+    for key in shapes:
+        B, S, T, H, KV, dh, dtype_name = key
+        q, k, v = attn_inputs(gen, (B, S, H, dh), (B, T, KV, dh),
+                              getattr(torch, dtype_name), device)
+        for i, kw in enumerate(cases(key)):
+            err = attn_compare(ta, f"flash_attention {name} {key} #{i}",
+                               q, k, v, **kw)
+            errs[dtype_name] = max(errs[dtype_name], err)
+        del q, k, v
+    return errs
+
+
+def check_path(name: str, launches: int, want: int, logits, B: int,
+               vocab: int, versus: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"flash_attention launched {launches} times on "
+                             f"the {name} path, expected {want}")
+    if logits.shape != (1 + LM_TOKENS, B, vocab) \
+            or not bool(logits.isfinite().all()):
+        raise AssertionError(f"the {name} path gave malformed or non-finite"
+                             " logits")
+    if not versus["max_err_over_max_logit"] <= LM_TOL:
+        raise AssertionError(
+            f"{name} logits through the kernel differ from the plain "
+            f"attention by {versus['max_err_over_max_logit']} of their "
+            f"scale (> {LM_TOL})")
+
+
+def model_fields(cfg, published, params, init_s: float) -> dict:
+    from repro_torch.models import param_count
+    return {"arch": published.name, "layers": cfg.n_layers,
+            "layers_published": published.n_layers, "d_model": cfg.d_model,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "head_dim": cfg.dh,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "params": param_count(params), "init_s": init_s}
+
+
+def new_params(model, seed: int, device):
+    import torch
+
+    from repro_torch.models import init_params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(model.param_desc(),
+                         torch.Generator(device=device).manual_seed(seed),
+                         device)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def routed_alike(run_a, run_b):
+    """`run_a()` with the MoE routing it computes, recorded call by call;
+    then `run_b()` with that routing replayed: each call's top-k experts
+    per token and each expert's capacity picks are run_a's, the gates run
+    b's own renormalised probabilities on them. A bf16 difference of
+    attention output (kernel against plain, or a ring against a full
+    cache) can flip a near tie of the router; replayed, the two runs
+    differ in attention alone, which is what their comparison is about.
+    Returns (run_a's result, run_b's, the decisions that run_b's own
+    routing would have taken otherwise: tokens whose top-k set, and
+    experts whose capacity picks, differ)."""
+    import torch
+
+    from repro_torch.models import blocks
+    orig = blocks.moe_ffn_global
+    calls, flips = [], {"top_k": 0, "capacity": 0, "calls": 0}
+
+    def moe(x, p, cfg, replay):
+        moe_cfg = cfg.moe
+        B, S, D = x.shape
+        N, E, K = B * S, moe_cfg.n_experts, moe_cfg.top_k
+        xf = x.reshape(N, D)
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        own_top = torch.topk(probs, K, dim=-1).indices
+        top = calls[flips["calls"]][0] if replay else own_top
+        vals = probs.gather(-1, top)
+        keep = torch.zeros_like(probs).scatter_(
+            -1, top, vals / vals.sum(-1, keepdim=True))
+        C = min(max(int(moe_cfg.capacity_factor * K * N / E), 1), N)
+        own_gate, own_tok = torch.topk(keep.T, C, dim=-1)
+        if replay:
+            tok = calls[flips["calls"]][1]
+            gate = keep.T.gather(1, tok)
+            flips["top_k"] += int((own_top.sort(-1).values
+                                   != top.sort(-1).values).any(-1).sum())
+            flips["capacity"] += int((own_tok.sort(-1).values
+                                      != tok.sort(-1).values).any(-1).sum())
+            flips["calls"] += 1
+        else:
+            gate, tok = own_gate, own_tok
+            calls.append((top, tok))
+        y = blocks._experts(xf[tok.reshape(-1)].reshape(E, C, D), p, gate)
+        out = torch.zeros((N, D), dtype=y.dtype, device=x.device)
+        out.index_add_(0, tok.reshape(-1), y.reshape(E * C, D))
+        return out.reshape(B, S, D)
+    try:
+        blocks.moe_ffn_global = lambda x, p, cfg: moe(x, p, cfg, False)
+        a = run_a()
+        blocks.moe_ffn_global = lambda x, p, cfg: moe(x, p, cfg, True)
+        b = run_b()
+    finally:
+        blocks.moe_ffn_global = orig
+    if flips["calls"] != len(calls):
+        raise AssertionError(f"run_b made {flips['calls']} MoE calls, "
+                             f"run_a {len(calls)}")
+    return a, b, flips
+
+
+def mixtral_phase(args, device) -> dict:
+    """Mixtral's sliding window: prompts past the window, so it masks in
+    prefill; decode against the full cache; then the ring check: the
+    prompt's last MIXTRAL_WINDOW positions laid into a `cache_desc` ring
+    at slot pos % window, decoded teacher-forced, must give the full
+    cache's logits (both mask the same keys)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.serve import decode_loop, prefill
+    from repro_torch.models import TransformerModel, build_model
+
+    t_phase = time.perf_counter()
+    published = get_config(MIXTRAL_ARCH)
+    cfg = published.with_(n_layers=MIXTRAL_LAYERS)
+    W = cfg.swa
+    model = build_model(cfg)
+    params, init_s = new_params(model, args.seed, device)
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        4, cfg.vocab, (MIXTRAL_BATCH, MIXTRAL_PROMPT))).to(device)
+    decode_loop(model, params, prompt[:, :64], 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_loop(model, params, prompt, LM_TOKENS)
+    launches = ta.LAUNCHES["flash_attention"]
+    shapes = dict(ta.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    # kernel vs plain attention and then the ring vs the full cache, each
+    # pair with the first run's MoE routing replayed in the second
+    # (`routed_alike`): teacher-forced bf16 runs that differ in attention
+    # rounding flip a near tie of the router now and then (measured: 0.14
+    # of the logits' scale at one step of 32, the rest under 1.3e-2)
+    t0 = time.perf_counter()
+    kern, plain, flips = routed_alike(
+        lambda: teacher_forced(model, params, prompt, out.tokens),
+        lambda: teacher_forced(TransformerModel(cfg, attn_impl="ref"),
+                               params, prompt, out.tokens))
+    versus = logits_versus(kern, plain)
+    versus["wall_s"] = time.perf_counter() - t0
+    versus["routing_replayed"] = flips
+    del plain
+    repeat = float((kern[-1] - out.logits).abs().max())
+    check_path("mixtral", launches, cfg.n_layers * (1 + LM_TOKENS), kern,
+               MIXTRAL_BATCH, cfg.vocab, versus)
+
+    # the ring: a `cache_desc` cache of W slots holding the prompt's last W
+    # positions at slot p % W (kpos to match), decoded teacher-forced
+    S = MIXTRAL_PROMPT
+    logits, full = prefill(model, params, prompt, LM_TOKENS)
+    ring_desc = model.cache_desc(MIXTRAL_BATCH, S + LM_TOKENS)
+    if ring_desc["k"].shape[2] != W:
+        raise AssertionError(f"cache_desc gave {ring_desc['k'].shape[2]} "
+                             f"slots under a window of {W}")
+    held = torch.arange(S - W, S, device=device)
+    ring = {"k": torch.zeros(ring_desc["k"].shape, dtype=torch.bfloat16,
+                             device=device),
+            "kpos": torch.full((W,), -1, dtype=torch.int32, device=device),
+            "pos": torch.tensor(S, dtype=torch.int32)}
+    ring["v"] = torch.zeros_like(ring["k"])
+    for name in ("k", "v"):
+        ring[name][:, :, held % W] = full[name][:, :, held]
+    ring["kpos"][held % W] = held.to(torch.int32)
+    def decode_from(cache):
+        steps = [logits]
+        for t in range(LM_TOKENS):
+            lt, cache = model.decode_step(
+                params, cache, {"tokens": out.tokens[:, t:t + 1]})
+            steps.append(lt)
+        return torch.stack(steps), cache
+    (full_logits, _), (ring_logits, ring), flips = routed_alike(
+        lambda: decode_from(full), lambda: decode_from(ring))
+    ring_versus = logits_versus(ring_logits, full_logits)
+    ring_versus["routing_replayed"] = flips
+    wrapped = ring["kpos"].cpu().numpy()
+    want_kpos = np.arange(S + LM_TOKENS - W, S + LM_TOKENS)
+    if not np.array_equal(wrapped[want_kpos % W], want_kpos):
+        raise AssertionError("the ring's kpos is not the last window")
+
+    def cases(key):
+        B, S_, T, H, KV, dh, _ = key
+        pos = torch.arange(T, dtype=torch.int32, device=device)
+        if S_ > 1:                   # prefill: arange, the window masks
+            return [{"causal": True, "window": W, "q_positions": pos,
+                     "kv_positions": pos}]
+        out_ = []                    # decode: its first step and its last
+        for p in (S, T - 1):
+            kp = pos.clone()
+            kp[p + 1:] = -1
+            out_.append({"causal": True, "window": W,
+                         "q_positions": kp[p:p + 1].clone(),
+                         "kv_positions": kp})
+        return out_
+    errs = path_attention_errs(ta, device, args.seed + 8, "mixtral", shapes,
+                               cases)
+    emit({"phase": "mixtral", **model_fields(cfg, published, params, init_s),
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "window": W, "batch": MIXTRAL_BATCH, "prompt": MIXTRAL_PROMPT,
+          "new_tokens": LM_TOKENS, "cache_slots": S + LM_TOKENS,
+          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+          "decode_s_per_token": out.decode_s / LM_TOKENS,
+          "decode_tok_per_s": MIXTRAL_BATCH * LM_TOKENS / out.decode_s,
+          "peak_device_bytes": peak_bytes, "attention_launches": launches,
+          "attention_shapes": {str(k): v for k, v in shapes.items()},
+          "attention_vs_plain_max_abs_err": errs,
+          "greedy_tokens": out.tokens.tolist(), "vs_plain_attention": versus,
+          "decode_loop_vs_forced_rerun_max_abs": repeat,
+          "ring": {"slots": W, "held": [S - W, S - 1], **ring_versus},
+          "wall_s": time.perf_counter() - t_phase})
+    if not ring_versus["max_err_over_max_logit"] <= LM_TOL:
+        raise AssertionError(
+            f"mixtral: decoding from the ring differs from the full cache "
+            f"by {ring_versus['max_err_over_max_logit']} of the logits' "
+            f"scale (> {LM_TOL})")
+    return {"launches": launches, "shapes": shapes, "errs": errs,
+            "window": W}
+
+
+def vlm_phase(args, device) -> dict:
+    """Qwen2-VL: rows of image patches and text at M-RoPE ids, each row
+    its own grid, so that every row's query positions differ."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.models import TransformerModel, build_model
+
+    t_phase = time.perf_counter()
+    published = get_config(VLM_ARCH)
+    cfg = published.with_(n_layers=VLM_LAYERS)
+    model = build_model(cfg)
+    params, init_s = new_params(model, args.seed, device)
+    B, S = len(VLM_GRIDS), VLM_SEQ
+    n_img = VLM_GRIDS[0][0] * VLM_GRIDS[0][1]
+    n_text = S - n_img
+    ids, nxt = qwen2_vl_positions(VLM_GRIDS, n_text)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 9)
+    batch = {"tokens": torch.randint(4, cfg.vocab, (B, n_text), generator=gen,
+                                     device=device, dtype=torch.int32),
+             "patches": torch.randn(B, n_img, cfg.d_model, generator=gen,
+                                    device=device).to(torch.bfloat16),
+             "positions": torch.from_numpy(ids).to(device)}
+    nxt = torch.from_numpy(nxt).to(device)
+
+    def extra(t):                     # each row's next text id, (B, 1, 3)
+        return {"positions": (nxt + t)[:, None, None].expand(B, 1, 3)
+                .contiguous()}
+    warm = {"tokens": batch["tokens"][:, :48],
+            "patches": batch["patches"][:, :16],
+            "positions": batch["positions"][:, :64]}
+    serve_forced(model, params, warm, 66, extra, 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, logits, prefill_s, decode_s, _ = serve_forced(
+        model, params, batch, S + LM_TOKENS, extra, LM_TOKENS)
+    launches = ta.LAUNCHES["flash_attention"]
+    shapes = dict(ta.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    t0 = time.perf_counter()
+    kern = serve_forced(model, params, batch, S + LM_TOKENS, extra,
+                        LM_TOKENS, tokens)[1]
+    plain = serve_forced(TransformerModel(cfg, attn_impl="ref"), params,
+                         batch, S + LM_TOKENS, extra, LM_TOKENS, tokens)[1]
+    versus = logits_versus(kern, plain)
+    versus["wall_s"] = time.perf_counter() - t0
+    repeat = float((kern - logits).abs().max())
+    del plain, kern
+    check_path("vlm", launches, cfg.n_layers * (1 + LM_TOKENS), logits, B,
+               cfg.vocab, versus)
+    q_ids = batch["positions"][..., 0].contiguous()
+
+    def cases(key):
+        T = key[2]
+        if key[1] > 1:               # prefill: the rows' own temporal ids
+            return [{"causal": True, "window": None, "q_positions": q_ids,
+                     "kv_positions": q_ids}]
+        kp = torch.full((T,), -1, dtype=torch.int32, device=device)
+        kp[:S] = q_ids[0]            # row 0's ids, as the model's cache
+        kp[S] = S                    # and the first step's slot (pos)
+        return [{"causal": True, "window": None,
+                 "q_positions": nxt[:, None].contiguous(),
+                 "kv_positions": kp}]
+    errs = path_attention_errs(ta, device, args.seed + 10, "vlm", shapes,
+                               cases)
+    emit({"phase": "vlm", **model_fields(cfg, published, params, init_s),
+          "mrope_sections": list(cfg.mrope_sections), "batch": B,
+          "positions": S, "patches_per_row": n_img, "text_per_row": n_text,
+          "grids": [list(g) for g in VLM_GRIDS], "next_ids": nxt.tolist(),
+          "new_tokens": LM_TOKENS, "cache_slots": S + LM_TOKENS,
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_s_per_token": decode_s / LM_TOKENS,
+          "decode_tok_per_s": B * LM_TOKENS / decode_s,
+          "peak_device_bytes": peak_bytes, "attention_launches": launches,
+          "attention_shapes": {str(k): v for k, v in shapes.items()},
+          "attention_vs_plain_max_abs_err": errs,
+          "greedy_tokens": tokens.tolist(), "vs_plain_attention": versus,
+          "greedy_vs_forced_rerun_max_abs": repeat,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"launches": launches, "shapes": shapes, "errs": errs,
+            "q_ids": q_ids}
+
+
+def encdec_phase(args, device) -> dict:
+    """SeamlessM4T-medium: utterances of ENC_FRAMES encoder frames, a
+    decoder prompt, greedy tokens; every layer, encoder and decoder."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.seamless_m4t_medium import ENC_FRAMES
+    from repro_torch.kernels import attention as ta
+    from repro_torch.models import EncDecModel, build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params, init_s = new_params(model, args.seed, device)
+    B, S = ENCDEC_BATCH, ENCDEC_PROMPT
+    gen = torch.Generator(device=device).manual_seed(args.seed + 11)
+    batch = {"frames": torch.randn(B, ENC_FRAMES, cfg.d_model, generator=gen,
+                                   device=device).to(torch.bfloat16),
+             "tokens": torch.randint(4, cfg.vocab, (B, S), generator=gen,
+                                     device=device, dtype=torch.int32)}
+
+    def extra(t):
+        return {}
+    serve_forced(model, params, {"frames": batch["frames"][:, :64],
+                                 "tokens": batch["tokens"][:, :8]},
+                 10, extra, 2)                                # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, logits, prefill_s, decode_s, cache = serve_forced(
+        model, params, batch, S + LM_TOKENS, extra, LM_TOKENS)
+    launches = ta.LAUNCHES["flash_attention"]
+    shapes = dict(ta.LAUNCH_SHAPES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+    cross_shape = tuple(cache["cross_k"].shape)
+    del cache
+
+    t0 = time.perf_counter()
+    kern = serve_forced(model, params, batch, S + LM_TOKENS, extra,
+                        LM_TOKENS, tokens)[1]
+    plain = serve_forced(EncDecModel(cfg, attn_impl="ref"), params, batch,
+                         S + LM_TOKENS, extra, LM_TOKENS, tokens)[1]
+    versus = logits_versus(kern, plain)
+    versus["wall_s"] = time.perf_counter() - t0
+    repeat = float((kern - logits).abs().max())
+    del plain, kern
+    n_dec = model.n_dec
+    check_path("encdec", launches,
+               cfg.n_layers + 2 * n_dec + LM_TOKENS * 2 * n_dec, logits, B,
+               cfg.vocab, versus)
+
+    def cases(key):
+        _, S_, T, *_ = key
+        ar = torch.arange(T, dtype=torch.int32, device=device)
+        if T == ENC_FRAMES:          # encoder self or cross: no mask
+            q = ar if S_ == T else torch.arange(S_, dtype=torch.int32,
+                                                device=device)
+            return [{"causal": False, "window": None, "q_positions": q,
+                     "kv_positions": ar}]
+        if S_ > 1:                   # decoder self-attention at prefill
+            return [{"causal": True, "window": None, "q_positions": ar,
+                     "kv_positions": ar}]
+        out_ = []                    # decode: its first step and its last
+        for p in (S, T - 1):
+            kp = ar.clone()
+            kp[p + 1:] = -1
+            out_.append({"causal": True, "window": None,
+                         "q_positions": kp[p:p + 1].clone(),
+                         "kv_positions": kp})
+        return out_
+    errs = path_attention_errs(ta, device, args.seed + 12, "encdec", shapes,
+                               cases)
+    emit({"phase": "encdec",
+          **model_fields(cfg, cfg, params, init_s),
+          "encoder_layers": cfg.n_layers, "decoder_layers": n_dec,
+          "batch": B, "encoder_frames": ENC_FRAMES, "prompt": S,
+          "new_tokens": LM_TOKENS, "cache_slots": S + LM_TOKENS,
+          "cross_cache_shape": list(cross_shape),
+          "prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_s_per_token": decode_s / LM_TOKENS,
+          "decode_tok_per_s": B * LM_TOKENS / decode_s,
+          "peak_device_bytes": peak_bytes, "attention_launches": launches,
+          "attention_shapes": {str(k): v for k, v in shapes.items()},
+          "attention_vs_plain_max_abs_err": errs,
+          "greedy_tokens": tokens.tolist(), "vs_plain_attention": versus,
+          "greedy_vs_forced_rerun_max_abs": repeat,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"launches": launches, "shapes": shapes, "errs": errs}
+
+
+def attn_paths_timing(ta, device, seed: int, attn: dict, mixtral: dict,
+                      vlm: dict, encdec: dict) -> None:
+    """Time the attention shapes the mixtral, vlm and encdec paths
+    launched, into the kernels line's attention entry: the windowed
+    prefill; the per-row-position prefill beside the shared arange at
+    the same shape; the encoder's prefill; the cross-attention decode
+    step and the decoder prompt's cross-attention."""
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int32, device=device)
+
+    def shape_of(shapes, pick):
+        keys = [k for k in shapes if pick(k)]
+        if len(keys) != 1:
+            raise AssertionError(f"expected one shape, got {keys}")
+        return keys[0], shapes[keys[0]]
+    out = attn["shapes"]
+    key, n = shape_of(mixtral["shapes"], lambda k: k[1] > 1)
+    out["mixtral_prefill"] = attn_time_shape(
+        ta, flush, gen, "mixtral_prefill", key,
+        {"causal": True, "window": mixtral["window"],
+         "q_positions": ar(key[1]), "kv_positions": ar(key[2])}, n)
+    key, n = shape_of(vlm["shapes"], lambda k: k[1] > 1)
+    q_ids = vlm["q_ids"]
+    out["vlm_prefill_rows"] = attn_time_shape(
+        ta, flush, gen, "vlm_prefill_rows", key,
+        {"causal": True, "window": None, "q_positions": q_ids,
+         "kv_positions": q_ids}, n)
+    out["vlm_prefill_shared"] = attn_time_shape(
+        ta, flush, gen, "vlm_prefill_shared", key,
+        {"causal": True, "window": None, "q_positions": ar(key[1]),
+         "kv_positions": ar(key[2])}, 0)
+    shapes = encdec["shapes"]
+    frames = max(k[2] for k in shapes)         # the encoder's memory
+    for label, pick in (("encoder_prefill", lambda k: k[1] == k[2] == frames),
+                        ("cross_decode", lambda k: k[1] == 1
+                         and k[2] == frames),
+                        ("cross_prefill", lambda k: 1 < k[1] < k[2])):
+        key, n = shape_of(shapes, pick)
+        out[label] = attn_time_shape(
+            ta, flush, gen, label, key,
+            {"causal": False, "window": None, "q_positions": ar(key[1]),
+             "kv_positions": ar(key[2])}, n)
+    rows, shared = out["vlm_prefill_rows"], out["vlm_prefill_shared"]
+    rows["ms_over_shared"] = rows["ms"] / shared["ms"]
+    errs = attn["max_abs_err_by_dtype"]
+    for entry in out.values():
+        dtype = entry["shape"]["dtype"]
+        errs[dtype] = max(errs[dtype], entry["max_abs_err"])
 
 
 def scan_bound(B, S, D, N, with_h0) -> tuple:
@@ -2843,13 +3453,21 @@ def main() -> int:
     jamba = jamba_phase(args, device)
     kernels.append(scan_timing_phase(ts, device, args.seed, jamba["shapes"],
                                      scan_errs))
-    # the attention kernel runs on three paths: its launches and its
+    mixtral = mixtral_phase(args, device)
+    vlm = vlm_phase(args, device)
+    encdec = encdec_phase(args, device)
+    attn_paths_timing(ta, device, args.seed, attn, mixtral, vlm, encdec)
+    # the attention kernel runs on six paths: its launches and its
     # errors against the plain version are summed over all
     attn["launches_by_path"] = {"lm": attn["launches"],
                                 "jamba": jamba["attn_launches"],
-                                "rag": rag["launches"]}
-    attn["launches"] += jamba["attn_launches"] + rag["launches"]
-    for errs_of_path in (jamba["attn_errs"], rag["errs"]):
+                                "rag": rag["launches"],
+                                "mixtral": mixtral["launches"],
+                                "vlm": vlm["launches"],
+                                "encdec": encdec["launches"]}
+    attn["launches"] = sum(attn["launches_by_path"].values())
+    for errs_of_path in (jamba["attn_errs"], rag["errs"], mixtral["errs"],
+                         vlm["errs"], encdec["errs"]):
         for dtype, err in errs_of_path.items():
             attn["max_abs_err_by_dtype"][dtype] = max(
                 attn["max_abs_err_by_dtype"][dtype], err)

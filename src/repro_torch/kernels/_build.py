@@ -15,10 +15,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Callable
+
+from ..analysis.locks import OrderedLock
 
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,7 +47,7 @@ class Library:
                  defines: tuple[str, ...] = ()):
         self.name, self.csrc, self._declare = name, Path(csrc), declare
         self.flags = NVCC_FLAGS + tuple(defines)
-        self._lock = threading.Lock()
+        self._lock = OrderedLock(f"kernels.build.{name}")
         self._lib: ctypes.CDLL | None = None
         # what the last build in this process did: nvcc seconds (0.0 when
         # the library was already built) and ptxas's register report

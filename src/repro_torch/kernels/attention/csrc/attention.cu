@@ -12,11 +12,15 @@
 //   - layout: q, o (B, S, H, dh) and k, v (B, T, KV, dh), as the model
 //     holds them, contiguous; no transposes and no GQA repeat of K/V.
 //     Query head h reads KV head h / (H / KV), as jnp.repeat does.
-//   - positions: optional int32 q_pos (S,) and k_pos (T,). A negative key
-//     position is an empty cache slot and is masked. Without them q_pos
-//     is arange(S) + T - S and k_pos arange(T), the TPU kernel's end-
-//     aligned default. Causal keeps q_pos >= k_pos, a window keeps
-//     q_pos - k_pos < window.
+//   - positions: optional int32 q_pos (S,) or (B, S) and k_pos (T,) or
+//     (B, T), as the model's `blockwise_attention` takes them: a batch
+//     stride of 0 shares one row of positions across the batch (M-RoPE's
+//     temporal ids differ per row). A negative key position is an empty
+//     cache slot and is masked. Without them q_pos is arange(S) + T - S
+//     and k_pos arange(T), the TPU kernel's end-aligned default. Causal
+//     keeps q_pos >= k_pos, a window keeps q_pos - k_pos < window. No
+//     kernel assumes key positions sorted (a rolling cache's are not):
+//     every skip and mask tests each key's own position.
 //   - ragged lengths: any S, T >= 1 (the TPU kernel wants multiples of
 //     128); the tail of the last tile is masked.
 //   - a query row that may attend to no key at all comes out as zeros.
@@ -99,17 +103,24 @@ struct Args {
     void* o;
     const int* qpos;                 // (S,) or null: arange(S) + T - S
     const int* kpos;                 // (T,) or null: arange(T)
+    int qpos_bs, kpos_bs;            // batch strides of qpos / kpos; 0: shared
     int B, S, T, H, KV, causal, window;   // window <= 0: none
     float scale;                     // 1 / sqrt(dh)
 };
 
-__device__ __forceinline__ int q_position(const Args& a, int s) {
-    return a.qpos ? a.qpos[s] : s + a.T - a.S;
+__device__ __forceinline__ int q_position(const Args& a, int b, int s) {
+    return a.qpos ? a.qpos[(size_t)b * a.qpos_bs + s] : s + a.T - a.S;
+}
+
+// Batch row b's key positions: null for arange(T)
+__device__ __forceinline__ const int* key_positions(const Args& a, int b) {
+    return a.kpos ? a.kpos + (size_t)b * a.kpos_bs : nullptr;
 }
 
 // -1 (masked) past the end, so the ragged tail needs no other test
-__device__ __forceinline__ int k_position(const Args& a, int t) {
-    return t >= a.T ? -1 : (a.kpos ? a.kpos[t] : t);
+__device__ __forceinline__ int k_position(const Args& a, int b, int t) {
+    const int* kp = key_positions(a, b);
+    return t >= a.T ? -1 : (kp ? kp[t] : t);
 }
 
 __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp) {
@@ -138,14 +149,14 @@ __device__ __forceinline__ size_t row_offset(const Args& a, int b, int kvh,
     return (((size_t)b * a.S + s) * a.H + (size_t)kvh * g + j) * dh;
 }
 
-// The range of query positions over rows [r0, r1) of this block, into
-// *lo / *hi (shared). Ends with a barrier.
-__device__ void block_q_range(const Args& a, int g, int r0, int r1, int* lo,
-                              int* hi) {
+// The range of query positions over rows [r0, r1) of batch row b in this
+// block, into *lo / *hi (shared). Ends with a barrier.
+__device__ void block_q_range(const Args& a, int b, int g, int r0, int r1,
+                              int* lo, int* hi) {
     if (threadIdx.x == 0) { *lo = INT_MAX; *hi = INT_MIN; }
     __syncthreads();
     for (int s = r0 / g + threadIdx.x; s <= (r1 - 1) / g; s += blockDim.x) {
-        const int p = q_position(a, s);
+        const int p = q_position(a, b, s);
         atomicMin(lo, p);
         atomicMax(hi, p);
     }
@@ -358,6 +369,7 @@ flash_decode_bf16(const Args a, const int split_keys, float* __restrict__ ws,
     // are masked. Keys past t_end are zero-filled, never read.
     const size_t kv_pitch = (size_t)a.KV * DH;      // from key t to t + 1
     const size_t kv_base = ((size_t)b * a.T * a.KV + kvh) * DH;
+    const int* kpos = key_positions(a, b);
     auto load = [&](int stage, int tile) {
         const int t0 = t_begin + tile * D_BN;
 #pragma unroll
@@ -370,15 +382,15 @@ flash_decode_bf16(const Args a, const int split_keys, float* __restrict__ ws,
             cp_async16(Ks + sm, k + at, ok);
             cp_async16(Vs + sm, v + at, ok);
         }
-        if (a.kpos && tid < D_BN) {
+        if (kpos && tid < D_BN) {
             const bool ok = t0 + tid < t_end;
-            cp_async4(&kps[stage][tid], a.kpos + (ok ? t0 + tid : 0), ok);
+            cp_async4(&kps[stage][tid], kpos + (ok ? t0 + tid : 0), ok);
         }
     };
     // position of key t of tile i (masked past the split)
     auto key_pos = [&](int i, int t) {
         return t >= t_end ? -1
-             : a.kpos ? kps[i % D_STAGES][t - t_begin - i * D_BN] : t;
+             : kpos ? kps[i % D_STAGES][t - t_begin - i * D_BN] : t;
     };
 
 #pragma unroll
@@ -386,8 +398,8 @@ flash_decode_bf16(const Args a, const int split_keys, float* __restrict__ ws,
         if (s < ntiles) load(s, s);
         cp_async_commit();
     }
-    const int qpA = okA ? q_position(a, rA / g) : 0;
-    const int qpB = okB ? q_position(a, rB / g) : 0;
+    const int qpA = okA ? q_position(a, b, rA / g) : 0;
+    const int qpB = okB ? q_position(a, b, rB / g) : 0;
     uint32_t qf[DH / 16][4];
     load_q_fragments<DH>(a, b, kvh, g, rA, okA, okB, tig, qf);
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
@@ -820,7 +832,7 @@ flash_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
             int qmin = INT_MAX, qmax = INT_MIN;   // over the item's rows
             const int s_hi = (min(r0 + P_BM, R) - 1) / g;
             for (int s = r0 / g + tid; s <= s_hi; s += 32) {
-                const int qp = q_position(a, s);
+                const int qp = q_position(a, b, s);
                 qmin = min(qmin, qp);
                 qmax = max(qmax, qp);
             }
@@ -833,7 +845,8 @@ flash_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
             constexpr int KL = P_BN / 32;
             int kpn[KL];
 #pragma unroll
-            for (int u = 0; u < KL; ++u) kpn[u] = k_position(a, tid + 32 * u);
+            for (int u = 0; u < KL; ++u)
+                kpn[u] = k_position(a, b, tid + 32 * u);
             bool sent = false;
             for (int t0 = 0; t0 < a.T; t0 += P_BN) {
                 int kp[KL];
@@ -841,7 +854,7 @@ flash_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
                 for (int u = 0; u < KL; ++u) {
                     kp[u] = kpn[u];
-                    kpn[u] = k_position(a, t0 + P_BN + tid + 32 * u);
+                    kpn[u] = k_position(a, b, t0 + P_BN + tid + 32 * u);
                     any = any || needed(a, qmin, qmax, kp[u]);
                     all = all && needed_by_all(a, qmin, qmax, kp[u]);
                 }
@@ -1008,8 +1021,8 @@ flash_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
         // accumulator rows grp and grp + 8 of this warp's 16
         const int rA = r0 + wg * 64 + ((ct >> 5) & 3) * 16 + grp, rB = rA + 8;
         const bool okA = rA < R, okB = rB < R;
-        qpA = okA ? q_position(a, rA / g) : 0;
-        qpB = okB ? q_position(a, rB / g) : 0;
+        qpA = okA ? q_position(a, b, rA / g) : 0;
+        qpB = okB ? q_position(a, b, rB / g) : 0;
         cp_async_wait<0>();
         group_sync(1 + wg);                   // the group's rows are in
         read_q();
@@ -1107,9 +1120,9 @@ flash_fwd_f32(const Args a) {
     const int tid = threadIdx.x, row = tid >> 2, qt = tid & 3;
     const bool ok = r0 + row < R;
 
-    block_q_range(a, g, r0, r1, &q_lo, &q_hi);
+    block_q_range(a, b, g, r0, r1, &q_lo, &q_hi);
     const int qmin = q_lo, qmax = q_hi;
-    const int qp = ok ? q_position(a, (r0 + row) / g) : 0;
+    const int qp = ok ? q_position(a, b, (r0 + row) / g) : 0;
 
     for (int i = tid; i < F_BM * DH; i += F_THREADS) {
         const int rr = i / DH, d = i % DH;
@@ -1130,7 +1143,7 @@ flash_fwd_f32(const Args a) {
         __syncthreads();                            // last tile consumed
         int live = 0;
         if (tid < F_BN) {
-            const int kp = k_position(a, t0 + tid);
+            const int kp = k_position(a, b, t0 + tid);
             kp_s[tid] = kp;
             live = needed(a, qmin, qmax, kp);
         }
@@ -1328,23 +1341,27 @@ cudaError_t launch_dh(const Args& a, bool bf16, int split_keys, float* ws,
 extern "C" {
 
 // q, o (B, S, H, dh); k, v (B, T, KV, dh); contiguous, all bf16 (bf16 = 1)
-// or all float32 (bf16 = 0); dh is 32, 64 or 128. qpos (S,) / kpos (T,)
-// int32 or null. window <= 0 means none. bf16 only: split_keys > 0 runs
+// or all float32 (bf16 = 0); dh is 32, 64 or 128. qpos (S,) or (B, S) /
+// kpos (T,) or (B, T) int32, or null; qpos_bs / kpos_bs are their batch
+// strides (S / T for a row each, 0 for one row shared by the batch).
+// window <= 0 means none. bf16 only: split_keys > 0 runs
 // the decode kernel over ⌈T / split_keys⌉ splits of split_keys keys (at
 // most 64 splits, S·H/KV <= 64 rows) with ws, float32
 // [B·KV·splits·S·(H/KV)·(dh + 2)], and tickets, int32 [B·KV] zeros (left
 // zero); split_keys = 0 runs the prefill kernel. Returns the launch's
 // cudaError_t (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, const int* qpos, const int* kpos, int B,
-                           int S, int T, int H, int KV, int dh, int causal,
-                           int window, int bf16, int split_keys, void* ws,
-                           void* tickets, void* stream) {
+                           void* o, const int* qpos, const int* kpos,
+                           int qpos_bs, int kpos_bs, int B, int S, int T,
+                           int H, int KV, int dh, int causal, int window,
+                           int bf16, int split_keys, void* ws, void* tickets,
+                           void* stream) {
     if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 ||
-        (dh != 32 && dh != 64 && dh != 128) || split_keys < 0)
+        (dh != 32 && dh != 64 && dh != 128) || split_keys < 0 ||
+        qpos_bs < 0 || kpos_bs < 0)
         return (int)cudaErrorInvalidValue;
-    const Args a{q, k, v, o, qpos, kpos, B, S, T, H, KV, causal, window,
-                 (float)(1.0 / sqrt((double)dh))};
+    const Args a{q, k, v, o, qpos, kpos, qpos_bs, kpos_bs, B, S, T, H, KV,
+                 causal, window, (float)(1.0 / sqrt((double)dh))};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* w = static_cast<float*>(ws);
     int* t = static_cast<int*>(tickets);

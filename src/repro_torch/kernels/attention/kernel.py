@@ -3,9 +3,10 @@ ctypes binding, argument checks and a launch counter.
 
 `flash_attention` takes CUDA tensors in the model's layout — q (B, S, H,
 dh), k and v (B, T, KV, dh), one dtype (bfloat16 or float32) — and
-returns (B, S, H, dh) in q's dtype. Optional int32 `q_positions` (S,) and
-`kv_positions` (T,) replace the end-aligned default; a negative key
-position is an empty slot. `LAUNCHES["flash_attention"]` counts launches
+returns (B, S, H, dh) in q's dtype. Optional int32 `q_positions` (S,) or
+(B, S) and `kv_positions` (T,) or (B, T) replace the end-aligned default
+(one row of positions shared by the batch, or one a batch row, as
+M-RoPE's temporal ids are); a negative key position is an empty slot. `LAUNCHES["flash_attention"]` counts launches
 and `LAUNCH_SHAPES` counts them by (B, S, T, H, KV, dh, dtype). `launch`
 is the bare call beneath, for timing: it checks nothing, counts nothing
 and allocates nothing once its stream's workspace exists. The library is
@@ -37,10 +38,11 @@ _MAX_INT = 2**31 - 1          # the kernel indexes rows with int
 
 
 def _declare(handle: ctypes.CDLL) -> None:
-    """flash_attention_launch(q, k, v, o, q_pos, kv_pos, B, S, T, H, KV,
-    dh, causal, window, bf16, split_keys, workspace, tickets, stream)."""
+    """flash_attention_launch(q, k, v, o, q_pos, kv_pos, q_pos batch
+    stride, kv_pos batch stride, B, S, T, H, KV, dh, causal, window, bf16,
+    split_keys, workspace, tickets, stream)."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 10 + [vp] * 3
+    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 12 + [vp] * 3
     handle.flash_attention_launch.restype = i
 
 
@@ -90,20 +92,21 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be bfloat16 or all float32; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, p, n in (("q_positions", q_positions, S),
+                       ("kv_positions", kv_positions, T)):
+        if p is not None and (p.shape not in ((n,), (B, n))
+                              or p.dtype != torch.int32
+                              or p.device != q.device
+                              or not p.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 ({n},) or "
+                             f"({B}, {n}) on q's device")
+    if window is not None and not 1 <= window <= _MAX_INT:
+        raise ValueError(f"window must be in [1, 2**31), not {window}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device \
                 or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              "tensor on q's CUDA device")
-    for name, p, n in (("q_positions", q_positions, S),
-                       ("kv_positions", kv_positions, T)):
-        if p is not None and (p.shape != (n,) or p.dtype != torch.int32
-                              or p.device != q.device
-                              or not p.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous int32 ({n},) on "
-                             "q's device")
-    if window is not None and not 1 <= window <= _MAX_INT:
-        raise ValueError(f"window must be in [1, 2**31), not {window}")
 
 
 def plan(B: int, S: int, T: int, H: int, KV: int) -> tuple[str, int, int]:
@@ -155,6 +158,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _batch_stride(positions: torch.Tensor | None) -> int:
+    """Elements from one batch row's positions to the next: 0 for one
+    row shared by the batch."""
+    return 0 if positions is None or positions.dim() == 1 \
+        else positions.shape[1]
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, causal: bool, window: int | None,
            q_positions: torch.Tensor | None,
@@ -177,6 +187,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(),
         None if kv_positions is None else kv_positions.data_ptr(),
+        _batch_stride(q_positions), _batch_stride(kv_positions),
         B, S, T, H, KV, dh, int(causal), window or 0,
         int(q.dtype == torch.bfloat16), split_keys,
         None if ws is None else ws.data_ptr(),

@@ -23,8 +23,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               device="cuda") -> torch.Tensor:
     """Attention on `device`; returns (B, S, H, dh) in q's dtype.
 
-    `q_positions` (S,) and `kv_positions` (T,) are absolute token
-    positions (negative = empty cache slot); without them the ends of the
+    `q_positions` (S,) or (B, S) and `kv_positions` (T,) or (B, T) are
+    absolute token positions (negative = empty cache slot), one row
+    shared by the batch or one a batch row; without them the ends of the
     query and key ranges are aligned. K/V are cast to q's dtype first (a
     bf16 cache against float32 queries)."""
     if impl not in ("cuda", "ref"):

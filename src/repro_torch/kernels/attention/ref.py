@@ -21,31 +21,34 @@ import torch
 MASKED = -1e30                 # score of a masked pair, as the kernels use
 
 
-def _allowed(S: int, T: int, causal: bool, window: int | None,
+def _allowed(B: int, S: int, T: int, causal: bool, window: int | None,
              q_positions, kv_positions, dev) -> torch.Tensor:
-    """(S, T) bool: may query s attend to key t. Without positions,
-    queries sit at arange(S) + T - S and keys at arange(T) (ends
-    aligned). A negative key position is an empty slot."""
+    """(B, S, T) bool: may query s of batch row b attend to key t.
+    Positions are (S,)/(T,), shared by the batch, or (B, S)/(B, T), one
+    row each. Without them, queries sit at arange(S) + T - S and keys at
+    arange(T) (ends aligned). A negative key position is an empty slot."""
     qpos = (torch.arange(S, device=dev) + (T - S) if q_positions is None
             else q_positions.to(dev, torch.int64))
     kpos = (torch.arange(T, device=dev) if kv_positions is None
             else kv_positions.to(dev, torch.int64))
-    ok = (kpos >= 0)[None, :].expand(S, T)
+    qpos = qpos.expand(B, S)[:, :, None]
+    kpos = kpos.expand(B, T)[:, None, :]
+    ok = (kpos >= 0).expand(B, S, T)
     if causal:
-        ok = ok & (qpos[:, None] >= kpos[None, :])
+        ok = ok & (qpos >= kpos)
     if window is not None:
-        ok = ok & (qpos[:, None] - kpos[None, :] < window)
+        ok = ok & (qpos - kpos < window)
     return ok
 
 
 def _scores(q, k, ok):
     """Masked float32 scores (B, KV, g, S, T) of q (B, S, H, dh) against
-    k (B, T, KV, dh)."""
+    k (B, T, KV, dh); `ok` is (B, S, T)."""
     B, S, H, dh = q.shape
     KV = k.shape[2]
     qg = q.float().reshape(B, S, KV, H // KV, dh) * (1.0 / math.sqrt(dh))
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
-    return s.masked_fill_(~ok, MASKED)
+    return s.masked_fill_(~ok[:, None, None], MASKED)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,11 +57,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   kv_positions: torch.Tensor | None = None) -> torch.Tensor:
     """Full-materialisation attention over (S, T) scores."""
     B, S, H, dh = q.shape
-    ok = _allowed(S, k.shape[1], causal, window, q_positions, kv_positions,
-                  q.device)
+    ok = _allowed(B, S, k.shape[1], causal, window, q_positions,
+                  kv_positions, q.device)
     p = torch.softmax(_scores(q, k, ok), dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-    out = out * ok.any(dim=-1).to(out.dtype)[None, :, None, None, None]
+    out = out * ok.any(dim=-1).to(out.dtype)[:, :, None, None, None]
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
@@ -76,14 +79,16 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and zeros where no range had an allowed key."""
     B, S, H, dh = q.shape
     T = k.shape[1]
-    ok = _allowed(S, T, causal, window, q_positions, kv_positions, q.device)
+    ok = _allowed(B, S, T, causal, window, q_positions, kv_positions,
+                  q.device)
     s = _scores(q, k, ok)
+    ok = ok[:, None, None]                               # (B, 1, 1, S, T)
     parts = []
     for t0 in range(0, T, split_keys):
         sl = slice(t0, t0 + split_keys)
-        seen = ok[:, sl].any(dim=-1)[:, None]            # (S, 1)
+        seen = ok[..., sl].any(dim=-1, keepdim=True)     # (B, 1, 1, S, 1)
         m = s[..., sl].amax(dim=-1, keepdim=True)
-        p = torch.exp(s[..., sl] - m).masked_fill_(~ok[:, sl], 0.0)
+        p = torch.exp(s[..., sl] - m).masked_fill_(~ok[..., sl], 0.0)
         acc = torch.einsum("bkgst,btkd->bkgsd", p, v[:, sl].float())
         parts.append((m.masked_fill(~seen, MASKED), p.sum(-1, keepdim=True),
                       acc))

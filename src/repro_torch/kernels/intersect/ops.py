@@ -33,13 +33,13 @@ input and count nothing.
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ...analysis.locks import OrderedLock
 from .._build import Library
 from .ref import (bits_to_keys_ref, combine_batch_ref,
                   combine_cluster_ref, combine_postings_ref,
@@ -81,7 +81,7 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
      "intersect_keys", "intersect_batch_keys", "combine_batch_keys",
      "combine_cluster_keys"), 0)
 LAST_SHAPE: dict[str, tuple | None] = dict.fromkeys(LAUNCHES)
-_COUNT_LOCK = threading.Lock()
+_COUNT_LOCK = OrderedLock("kernels.intersect.launch_counts")
 
 
 def reset_launches() -> None:

@@ -10,12 +10,21 @@ kernels are held against on the card.
 ranks to candidate keys: ranks in CSR form (one flat int32 array and
 (rows, L, 2) [start, end) bounds into it), result words laid out as
 (rows, tiles · tile_w) with a (rows, tiles) int32 popcount per tile,
-exactly as the CUDA kernels lay them out.
+exactly as the CUDA kernels lay them out. `intersect_keys_ref` and
+`combine_keys_ref` compute the route's entry points' function from the
+rows' leaf key lists by set operations on the host, with neither ranks
+nor bitmaps.
 """
 
 from __future__ import annotations
 
+from functools import reduce
+
+import numpy as np
 import torch
+
+# a combine program's step operators, as `ops.py` numbers them
+_AND, _OR, _ANDNOT = 0, 1, 2
 
 _U32 = 0xFFFFFFFF
 
@@ -142,3 +151,46 @@ def bits_to_keys_ref(words: torch.Tensor,
     rk = torch.nonzero(bits.view(words.shape[0], -1))[:, 1]
     keys = rk if universe is None else universe[rk]
     return (keys, rk.to(torch.int32)) if ranks else keys
+
+
+def _set_keys(rows: list, programs: list | None,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's result by NumPy set operations on its leaves' uint64
+    keys (the AND of all of them, or its program's last slot) → (flat
+    int64 keys row after row, each row ascending; (rows,) int64 counts)."""
+    found = []
+    for q, row in enumerate(rows):
+        slots = [np.asarray(a).astype(np.uint64) for a in row]
+        if programs is None:
+            found.append(reduce(np.intersect1d, slots) if slots
+                         else np.empty(0, np.uint64))
+            continue
+        for op, a, b in programs[q]:
+            va, vb = slots[a], slots[b]
+            slots.append(np.intersect1d(va, vb) if op == _AND else
+                         np.union1d(va, vb) if op == _OR else
+                         np.setdiff1d(va, vb))
+        found.append(slots[-1])
+    keys = np.concatenate(found) if found else np.empty(0, np.uint64)
+    return (torch.from_numpy(keys.astype(np.uint64).view(np.int64)),
+            torch.tensor([len(f) for f in found], dtype=torch.int64))
+
+
+def intersect_keys_ref(rows: list, n_docs: int | None = None,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ops.intersect_keys`'s function: each row's L-way AND of its
+    sorted leaf key lists → (keys, counts), the keys as one flat int64
+    tensor (uint64 posting keys as their bits), row after row, each row
+    ascending. A key is the leaf's own value in either universe (document
+    ids below `n_docs`, or posting keys), so `n_docs` changes nothing."""
+    return _set_keys(rows, None)
+
+
+def combine_keys_ref(rows: list, programs: list, groups: int | None = None,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ops.combine_keys`'s function (without lengths): each row's
+    AND/OR/ANDNOT program over its own slots (its leaves first, then one
+    slot a step; the last step is the result) → (keys, counts), the
+    counts (G, Q) with `groups` = G."""
+    keys, counts = _set_keys(rows, programs)
+    return keys, counts if groups is None else counts.view(groups, -1)

@@ -1,15 +1,17 @@
-"""The model zoo, ported so far for the dense and MoE transformers
-(prefill and KV-cache decode), RWKV-6 (prefill and recurrent-state
-decode) and the Jamba hybrid (prefill, then decode from the Mamba states
-and the KV cache)."""
+"""The model zoo: the dense, MoE (Mixtral's sliding window and rolling
+cache included) and VLM transformers, the SeamlessM4T encoder-decoder,
+RWKV-6 and the Jamba hybrid — prefill and decode from a KV cache or a
+recurrent state. Not ported yet: the int8 KV cache, sharding (ROADMAP
+queue 1, item 7) and the training losses (item 9)."""
 
-from .api import build_model
+from .api import batch_desc, build_model
 from .common import Desc, init_params, param_count, stack_tree
 from .convert import params_from_numpy
+from .encdec import EncDecModel
 from .hybrid import HybridModel
 from .rwkv_model import RWKVModel
 from .transformer import TransformerModel
 
-__all__ = ["build_model", "Desc", "init_params", "param_count", "stack_tree",
-           "params_from_numpy", "HybridModel", "RWKVModel",
-           "TransformerModel"]
+__all__ = ["batch_desc", "build_model", "Desc", "init_params", "param_count",
+           "stack_tree", "params_from_numpy", "EncDecModel", "HybridModel",
+           "RWKVModel", "TransformerModel"]

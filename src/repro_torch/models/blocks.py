@@ -1,5 +1,5 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention projections,
-the SwiGLU FFN and the top-k MoE FFN.
+"""Transformer building blocks: RMSNorm, RoPE and M-RoPE, GQA attention
+projections (self and cross), the SwiGLU FFN and the top-k MoE FFN.
 
 Each keeps the JAX package's dtype steps (`repro/models/blocks.py`): norms
 and RoPE compute in float32 and cast back, matrix products run in the
@@ -8,7 +8,6 @@ written here: the model calls `kernels.attention.ops.attention` with
 explicit positions, which runs the hand-written flash kernel on a card.
 The MoE FFN is plain PyTorch (top-k, gathers, batched products over the
 experts, `index_add_`), as JAX computes it outside any Pallas kernel.
-M-RoPE (VLM) waits for its own slice (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -28,17 +27,29 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------- rope
-def rope_cos_sin(positions: torch.Tensor, dh: int, theta: float):
-    """cos/sin tables (…, S, dh // 2) in float32 for 1-D RoPE.
+def rope_cos_sin(positions: torch.Tensor, dh: int, theta: float,
+                 sections: tuple[int, int, int] | None = None):
+    """cos/sin tables (…, S, dh // 2) in float32.
 
-    The inverse frequencies are computed in float32 on the positions'
-    device, as the JAX package computes them with numpy (equal to an
-    ulp): a host-to-device copy here would make every decode step wait
-    for the card to finish the step before it."""
+    positions: (…, S) for 1-D RoPE, or (…, S, 3) for M-RoPE (Qwen2-VL:
+    the temporal, height and width ids each turn their own `sections`
+    of the frequency bands). The inverse frequencies are computed in
+    float32 on the positions' device, as the JAX package computes them
+    with numpy (equal to an ulp): a host-to-device copy here would make
+    every decode step wait for the card to finish the step before it."""
     half = dh // 2
     inv = 1.0 / theta ** (torch.arange(0, half, dtype=torch.float32,
                                        device=positions.device) / half)
-    freqs = positions[..., None].float() * inv
+    if sections is None:
+        freqs = positions[..., None].float() * inv
+    else:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {sections} must sum to "
+                             f"dh // 2 = {half}")
+        pos = positions.float()                          # (…, S, 3)
+        bounds = [0, sections[0], sections[0] + sections[1], half]
+        freqs = torch.cat([pos[..., i:i + 1] * inv[bounds[i]:bounds[i + 1]]
+                           for i in range(3)], dim=-1)   # (…, S, half)
     return torch.cos(freqs), torch.sin(freqs)
 
 
@@ -52,7 +63,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 # ----------------------------------------------------------------- attention
-def attention_desc(cfg: ModelConfig) -> dict:
+def attention_desc(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Q/K/V/O projections; a cross-attention block (`cross`) has neither
+    bias nor QK-norm, as in the JAX package."""
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh
     p = {
         "wq": Desc((D, H * dh)),
@@ -60,27 +73,31 @@ def attention_desc(cfg: ModelConfig) -> dict:
         "wv": Desc((D, KV * dh)),
         "wo": Desc((H * dh, D)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = Desc((H * dh,), init="zeros")
         p["bk"] = Desc((KV * dh,), init="zeros")
         p["bv"] = Desc((KV * dh,), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = Desc((dh,), init="ones")
         p["k_norm"] = Desc((dh,), init="ones")
     return p
 
 
-def qkv_project(x: torch.Tensor, p: dict, cfg: ModelConfig):
-    """(B, S, D) → q (B, S, H, dh), k and v (B, S, KV, dh), with optional
-    bias and per-head QK-norm (after the reshape, before RoPE)."""
+def qkv_project(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                kv_x: torch.Tensor | None = None):
+    """(B, S, D) → q (B, S, H, dh), k and v (B, Tk, KV, dh), with optional
+    bias and per-head QK-norm (after the reshape, before RoPE). K and V
+    project `kv_x` (B, Tk, D) for cross-attention, else x itself."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.dh
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    src = x if kv_x is None else kv_x
+    Tk = src.shape[1]
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, KV, dh)
-    v = v.reshape(B, S, KV, dh)
+    k = k.reshape(B, Tk, KV, dh)
+    v = v.reshape(B, Tk, KV, dh)
     if "q_norm" in p:                      # qwen3: per-head RMS on q, k
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

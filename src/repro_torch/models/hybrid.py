@@ -21,6 +21,9 @@ the activations' dtype and "h" (n, B, d_inner, d_state) float32}, "kpos":
 (T,) int32 absolute position per slot, -1 for empty, "pos": () int32 on
 the host}. `decode_step` writes the new token's K/V into the cache's
 tensors in place, as `transformer.py` does, and returns new Mamba states.
+With a sliding window (`cfg.swa`) the attention cache rolls as
+`transformer.py`'s does: `cache_desc` gives min(cache_len, swa) slots
+and position pos goes to slot pos % T.
 Prefill takes each Mamba layer's conv tail from `mamba_forward`'s own
 `in_proj` product, where JAX's `_conv_tail` repeats that product on the
 same inputs. The training loss is not ported yet.
@@ -41,10 +44,6 @@ class HybridModel:
                  attn_impl: str = "cuda"):
         if cfg.kind != "hybrid":
             raise ValueError(f"{cfg.name} is kind {cfg.kind!r}, not 'hybrid'")
-        if cfg.swa:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window attention and its rolling cache"
-                " are not ported yet (ROADMAP queue 1, item 7)")
         self.cfg = cfg
         self.period = cfg.attn_every
         if cfg.n_layers % self.period:
@@ -88,11 +87,12 @@ class HybridModel:
 
     def cache_desc(self, batch: int, cache_len: int) -> dict:
         cfg = self.cfg
+        T = min(cache_len, cfg.swa) if cfg.swa else cache_len
         n = self.n_periods
         slots = {}
         for i in range(self.period):
             if self._slot_is_attn(i):
-                kv = (n, batch, cache_len, cfg.n_kv, cfg.dh)
+                kv = (n, batch, T, cfg.n_kv, cfg.dh)
                 slots[f"slot{i}"] = {"k": Desc(kv, init="zeros"),
                                      "v": Desc(kv, init="zeros")}
             else:
@@ -100,8 +100,7 @@ class HybridModel:
                     mamba.mamba_state_desc(cfg, batch), n)
         return {
             "slots": slots,
-            "kpos": Desc((cache_len,), init="full", scale=-1,
-                         dtype=torch.int32),
+            "kpos": Desc((T,), init="full", scale=-1, dtype=torch.int32),
             "pos": Desc((), init="zeros", dtype=torch.int32),
         }
 
@@ -209,7 +208,7 @@ class HybridModel:
         attn_slot = cache["slots"][f"slot{self.period - 1}"]
         ks, vs = attn_slot["k"], attn_slot["v"]
         T = ks.shape[2]
-        slot = min(pos, T - 1)
+        slot = pos % T if cfg.swa else min(pos, T - 1)   # rolling: pos % T
         kpos = cache["kpos"].clone()
         kpos[slot] = pos
         q_pos = kpos[slot:slot + 1]                        # (1,) == pos

@@ -225,3 +225,105 @@ def test_main_path_decode_fills_two_waves_and_prefill_goes_to_prefill():
     assert ta.plan(1, 5, 3, 2, 1)[0] == "decode"
     assert ta.plan(1, 8, 8, 8, 1)[0] == "decode"
     assert ta.plan(1, 9, 9, 8, 1) == ("prefill", 1, 9)
+
+
+# ---- positions per batch row, and a rolling cache ------------------------
+def _per_row_case(name, rng):
+    """(S, T, q_positions, kv_positions) with one row of positions per
+    batch row (B = 3), as a VLM's M-RoPE temporal ids give them: a run of
+    equal ids (image patches) and then text from an offset that differs
+    by row; in decode one query a row against a shared cache."""
+    offsets = np.array([4, 9, 30])
+    if name == "prefill":                      # (B, S) and (B, T), S = T
+        qpos = np.stack([np.concatenate([np.zeros(12), o + np.arange(28)])
+                         for o in offsets]).astype(np.int32)
+        return 40, 40, qpos, qpos
+    kpos = np.full(50, -1, np.int32)           # row 0's ids, then empty
+    kpos[:40] = np.concatenate([np.zeros(12), 4 + np.arange(28)])
+    # each row's query past the cache's last id, all within the window
+    return 1, 50, np.array([[32], [33], [35]], np.int32), kpos
+
+
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+def test_per_row_positions_match_blockwise_attention(case, window):
+    rng = np.random.default_rng(7)
+    S, T, qpos, kpos = _per_row_case(case, rng)
+    B, H, KV, dh = 3, 8, 2, 32
+    q, k, v = _inputs(rng, B, S, T, H, KV, dh)
+    want = np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos),
+        causal=True, window=window, chunk=8, rules=NULL_RULES))
+    kw = dict(causal=True, window=window, q_positions=torch.from_numpy(qpos),
+              kv_positions=torch.from_numpy(kpos))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ta.attention(tq, tk, tv, device="cpu", **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
+    # each row alone, with its own row of positions, gives the same rows
+    for b in range(B):
+        row = ta.attention(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1],
+                           device="cpu", causal=True, window=window,
+                           q_positions=kw["q_positions"][b],
+                           kv_positions=(kw["kv_positions"][b]
+                                         if kpos.ndim == 2
+                                         else kw["kv_positions"]))
+        torch.testing.assert_close(row[0], got[b], atol=0, rtol=0)
+    # the decode kernel's split-KV merge rule over per-row positions
+    for split_keys in (8, 16, T):
+        np.testing.assert_allclose(
+            ta.attention_split_ref(tq, tk, tv, split_keys=split_keys,
+                                   **kw).numpy(), want, atol=3e-5)
+
+
+@pytest.mark.parametrize("split_keys", [7, 16, 24])
+def test_rolling_cache_after_a_wrap_matches_blockwise_attention(split_keys):
+    """A ring of T = window = 24 slots after 73 positions: slot p % 24
+    holds position p, so the key positions run 72, 73, 50, 51, ... 71 —
+    not sorted. Attention over the ring equals attention over the same
+    keys laid out in order, and JAX's over the ring."""
+    B, H, KV, dh, W = 2, 4, 2, 64, 24
+    rng = np.random.default_rng(8)
+    q, k, v = _inputs(rng, B, 1, W, H, KV, dh)
+    kpos = np.empty(W, np.int32)
+    for p in range(73 - W + 1, 74):
+        kpos[p % W] = p
+    qpos = np.array([73], np.int32)
+    assert not np.all(np.diff(kpos) > 0)
+    want = np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos),
+        causal=True, window=W, chunk=8, rules=NULL_RULES))
+    kw = dict(causal=True, window=W, q_positions=torch.from_numpy(qpos),
+              kv_positions=torch.from_numpy(kpos))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ta.attention(tq, tk, tv, device="cpu", **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
+    order = np.argsort(kpos)
+    sorted_out = ta.attention(tq, tk[:, order], tv[:, order], device="cpu",
+                              **dict(kw, kv_positions=torch.from_numpy(
+                                  kpos[order])))
+    np.testing.assert_allclose(got.numpy(), sorted_out.numpy(), atol=2e-6)
+    np.testing.assert_allclose(
+        ta.attention_split_ref(tq, tk, tv, split_keys=split_keys,
+                               **kw).numpy(), want, atol=3e-5)
+
+
+def test_kernel_wrapper_takes_per_row_positions_and_refuses_others():
+    """(S,)/(B, S) and (T,)/(B, T) pass the wrapper's checks (which then
+    stop at the CPU tensors); any other shape is refused."""
+    q = torch.zeros(2, 4, 2, 64)
+    kv = torch.zeros(2, 6, 2, 64)
+    for qp, kp in (((4,), (6,)), ((2, 4), (2, 6)), ((2, 4), (6,))):
+        with pytest.raises(ValueError, match="CUDA device"):
+            ta.flash_attention(q, kv, kv,
+                               q_positions=torch.zeros(qp, dtype=torch.int32),
+                               kv_positions=torch.zeros(kp,
+                                                        dtype=torch.int32))
+    for name, qp, kp in (("q_positions", (3, 4), (6,)),
+                         ("kv_positions", (4,), (1, 6)),
+                         ("kv_positions", (4,), (2, 5))):
+        with pytest.raises(ValueError, match=name):
+            ta.kernel._check(q, kv, kv,
+                             torch.zeros(qp, dtype=torch.int32),
+                             torch.zeros(kp, dtype=torch.int32), None)

@@ -904,3 +904,127 @@ def test_reduced_granite_rag_on_card_matches_plain_attention(card):
     scale = max(float(want.abs().max()), 1.0)
     assert float((got - want).abs().max()) <= 3e-2 * scale
     svc.close()
+
+
+# ---- positions per batch row, rings and the three new model kinds -------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(8))
+def test_flash_attention_with_model_positions_matches_plain_on_card(
+        card, case, dtype):
+    """`kernels.attention.cases`: (B, S) and (B, T) positions in prefill
+    and decode, a wrapped ring (key positions not sorted) in decode and
+    prefill, non-causal cross-attention and an encoder."""
+    from repro_torch.kernels.attention.cases import position_cases
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, (B, S, T, H, KV, dh), kw = position_cases(card)[case]
+    gen = torch.Generator(card).manual_seed(case)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
+    ta.reset_launches()
+    got = ta.attention(q, k, v, device=card, **kw)
+    want = ta.attention(q, k, v, impl="ref", device=card, **kw)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_attention"] == 1
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], (name, err)
+
+
+def _kernel_vs_plain(card, arch, batch, steps, pad_to, extra=None):
+    """Prefill + decode `steps` of the reduced `arch` in bf16 through the
+    kernel and through the plain attention, teacher-forced: the two
+    (steps + 1, B, vocab) logits and the kernel's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    kernel = build_model(cfg)
+    plain = type(kernel)(cfg, attn_impl="ref")
+    params = init_params(kernel.param_desc(),
+                         torch.Generator(card).manual_seed(1), card)
+    runs, launches = [], []
+    for model in (kernel, plain):
+        ta.reset_launches()
+        logits, cache = model.prefill(params, batch, pad_to=pad_to)
+        out = [logits]
+        for t, tok in enumerate(steps):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": tok, **(extra(t) if extra else {})})
+            out.append(logits)
+        runs.append(torch.stack(out))
+        launches.append(ta.LAUNCHES["flash_attention"])
+    assert launches[1] == 0
+    return runs[0], runs[1], launches[0], kernel, params, cache
+
+
+def _close(a, b, tol=3e-2):
+    scale = max(float(b.abs().max()), 1.0)
+    assert bool(a.isfinite().all())
+    assert float((a - b).abs().max()) <= tol * scale
+
+
+def test_reduced_mixtral_ring_on_card_matches_the_full_cache(card):
+    """Reduced mixtral (window 64), bf16: an 80-token prefill (the window
+    masks) and 3 decode steps through the kernel against the plain
+    attention; then the prompt's last 64 positions laid into a ring of
+    64 slots at slot p % 64 decode the same tokens with the full cache's
+    logits."""
+    g = torch.Generator(card).manual_seed(2)
+    toks = torch.randint(4, 512, (2, 83), generator=g, device=card)
+    steps = [toks[:, 80 + t:81 + t] for t in range(3)]
+    kern, plain, launches, model, params, _ = _kernel_vs_plain(
+        card, "mixtral-8x22b", {"tokens": toks[:, :80]}, steps, 83)
+    W, L = model.cfg.swa, model.cfg.n_layers
+    assert W == 64 and launches == 4 * L
+    _close(kern, plain)
+    _, full = model.prefill(params, {"tokens": toks[:, :80]}, pad_to=83)
+    ring = {"k": torch.zeros_like(full["k"][:, :, :W]),
+            "v": torch.zeros_like(full["v"][:, :, :W]),
+            "kpos": torch.full((W,), -1, dtype=torch.int32, device=card),
+            "pos": torch.tensor(80, dtype=torch.int32)}
+    held = torch.arange(80 - W, 80, device=card)
+    for name in ("k", "v"):
+        ring[name][:, :, held % W] = full[name][:, :, held]
+    ring["kpos"][held % W] = held.to(torch.int32)
+    for tok in steps:
+        lf, full = model.decode_step(params, full, {"tokens": tok})
+        lr, ring = model.decode_step(params, ring, {"tokens": tok})
+        _close(lr, lf, 2e-2)
+    assert sorted(ring["kpos"].tolist()) == list(range(83 - W, 83))
+
+
+def test_reduced_vlm_and_encdec_on_card_match_plain_attention(card):
+    """Reduced qwen2-vl (per-row M-RoPE ids: 16 patches on a 4×4 and a
+    2×8 grid, 24 text tokens) and seamless-m4t (48 frames, a 20-token
+    prompt), bf16, prefill + 3 decode steps through the kernel against
+    the plain attention, teacher-forced."""
+    g = torch.Generator(card).manual_seed(3)
+    toks = torch.randint(4, 512, (2, 27), generator=g, device=card,
+                         dtype=torch.int32)
+    steps = [toks[:, 24 + t:25 + t] for t in range(3)]
+    rows = []
+    for h, w in ((4, 4), (2, 8)):
+        r = torch.arange(h * w, device=card)
+        img = torch.stack([torch.zeros_like(r), r // w, r % w], -1)
+        txt = (max(h, w) + torch.arange(24, device=card))[:, None].expand(
+            24, 3)
+        rows.append(torch.cat([img, txt]))
+    ids = torch.stack(rows).to(torch.int32)
+    nxt = ids[:, -1, 0] + 1
+    batch = {"tokens": toks[:, :24], "positions": ids,
+             "patches": torch.randn(2, 16, 128, generator=g, device=card)
+             .bfloat16()}
+    kern, plain, launches, model, _, _ = _kernel_vs_plain(
+        card, "qwen2-vl-72b", batch, steps, 43,
+        lambda t: {"positions": (nxt + t)[:, None, None].expand(2, 1, 3)
+                   .contiguous()})
+    assert launches == 4 * model.cfg.n_layers
+    _close(kern, plain)
+    batch = {"tokens": toks[:, :20],
+             "frames": torch.randn(2, 48, 128, generator=g, device=card)
+             .bfloat16()}
+    steps = [toks[:, 20 + t:21 + t] for t in range(3)]
+    kern, plain, launches, model, _, cache = _kernel_vs_plain(
+        card, "seamless-m4t-medium", batch, steps, 23)
+    assert launches == model.cfg.n_layers + 4 * 2 * model.n_dec
+    assert cache["cross_k"].shape[2] == 48
+    _close(kern, plain)

@@ -373,3 +373,22 @@ def test_combine_planned_bitmap_equals_sorted_and_jax(trees, seed, sizes):
     for q, (got, want) in enumerate(zip(clustered[0], plain)):
         assert counts[0, q] == len(want[0])
         assert all((a == b).all() for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_key_route_entry_points_match_their_set_references(case):
+    """`intersect_keys` and `combine_keys` (the plain route here) against
+    `intersect_keys_ref` and `combine_keys_ref`, the same function by set
+    operations on the leaf keys, with neither ranks nor bitmaps."""
+    from repro_torch.kernels.intersect.ref import (combine_keys_ref,
+                                                   intersect_keys_ref)
+    rows, progs, n_docs = edge_case(case)
+    if progs is None:
+        got = tx.intersect_keys(rows, n_docs=n_docs, device="cpu")
+        want = intersect_keys_ref(rows, n_docs)
+    else:
+        G = 2 if len(rows) % 2 == 0 else 1
+        got = tx.combine_keys(rows, progs, groups=G, device="cpu")
+        want = combine_keys_ref(rows, progs, groups=G)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), case
