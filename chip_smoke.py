@@ -22,9 +22,16 @@ in {96, 8192}, with and without an initial state, then the fused scan
 over the same grid with and without the D skip, in bf16 and float32,
 B_ and C_ strided views, dt drawn as the model draws it with keys pushed
 into and below the range of denormal exp(dt·A); y and final state within
-1e-5 of their largest |value|). Then it drives ten paths at a real
-size, each with the launch counts zeroed just before it and read just
-after:
+1e-5 of their largest |value|; `int8_edge`: the int8 decode kernel
+against `attention_int8_ref` on `kernels.attention.cases.int8_cases`
+(empty slots, an unsorted ring, a window, positions per row, g = 1, 8
+and 48, ragged T, a single valid key, every key masked), bf16 and
+float32 queries, within 1e-2 of the output's scale; `attn_bwd_edge`: the
+attention backward against `attention_bwd_ref` on `bwd_cases` (causal,
+window, positions per row, g = 1, 8 and 48, dh 64 and 128, ragged S, S =
+1), dq, dk and dv within 1e-4 (float32) and 2e-2 (bf16) of their joint
+scale). Then it drives twelve paths at a real size, each with the launch
+counts zeroed just before it and read just after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
   `Builder` → `Searcher` on the card → `query_batch` of 256 queries, top
@@ -119,7 +126,22 @@ after:
 Each of the three: exact attention launch counts, each launched shape
 against the plain attention, and the logits through the kernel against
 the same model through the plain attention, teacher-forced, within 3e-2
-of their scale.
+of their scale;
+- int8 decode (`lm_int8`): `qwen3-32b` as the opt decode variant gives it
+  (`launch.steps.apply_variant(..., "decode_32k", "opt")`: the int8 KV
+  cache) at the `lm` path's depth and traffic: exactly one bf16 prefill
+  and 32 int8 decode launches a layer; logits vs the plain int8
+  attention within 3e-2 and vs the bf16 cache within 0.1 of their scale
+  (the JAX package's own bound), decode ms a token, cache bytes;
+- training (`train`): `launch/train.py`'s flow on `qwen3-32b` at its
+  published widths cut to 4 of 64 layers (3.51 B parameters): the logs
+  index, its keyword-filtered `IndexedCorpusLoader` (2 × 4096 tokens),
+  20 steps of `training.run` (AdamW, async checkpoints every 10 steps
+  into host memory): exactly 2 forward (one the remat's recompute) and 1
+  backward attention launch a layer and step, the loss falling; a fresh
+  run from other weights resumes from the step-10 checkpoint and must
+  give steps 11-20's losses bit for bit; one step's loss and gradients
+  through the backward kernel vs plain autograd on a 1-layer cut.
 
 Last, each kernel is timed at the shapes its path gave it (attention
 also at the windowed prefill, the per-row-position prefill beside the
@@ -131,7 +153,10 @@ copies and the universe's sort timed beside them, and the bitmap kernel
 each route replaced at the same (rows, L, W); the wkv kernels also by the
 profiler's device time, the kernel alone) beside the plain version, one
 PyTorch library call where there is one, and the least time the card
-needs for the same work; both scan kernels, the fused one at the Jamba
+needs for the same work; the int8 decode kernel at decode_32k's shape
+(B 128, T 32768) beside the bf16 decode kernel and SDPA on the same cache
+in bf16, and the attention backward at the train path's shape beside
+SDPA's forward and backward through autograd; both scan kernels, the fused one at the Jamba
 path's shapes and the unfused one at the same (B, S, D, N), also by the
 profiler's device time.
 
@@ -298,6 +323,38 @@ ADMIN_SHARD, ADMIN_APPEND = 0, 4000
 RAG_ARCH, RAG_LAYERS, RAG_TOKENS, RAG_DOCS = "granite-20b", 8, 16, 8
 RAG_QUERIES = ("error fetch", "received AND exception",
                "stored OR terminating")
+
+
+# int8 decode (`lm_int8`): qwen3-32b as the opt decode variant gives it
+# (`apply_variant(..., "decode_32k", "opt")`: the int8 KV cache) at the
+# `lm` path's depth and traffic. Kernel vs plain within INT8_TOL of the
+# output's scale: one step of a quantized probability (up to 1/127 of
+# it), and in bf16 one rounding of the output (2^-8) more; the path's logits
+# vs the plain int8 attention within LM_TOL; vs the bf16 cache's logits
+# within INT8_VS_BF16_TOL of their scale, the JAX package's own bound
+# (tests/test_opt_variants.py).
+INT8_TOL = {"float32": 1e-2, "bfloat16": 2e-2}
+INT8_VS_BF16_TOL = 0.1
+INT8_SOURCE = "src/repro_torch/kernels/attention/csrc/decode_int8.cu"
+BWD_SOURCE = "src/repro_torch/kernels/attention/csrc/attention_bwd.cu"
+PORT_ONLY = "none: port only (the JAX package computes it with XLA, {})"
+# the attention backward vs its plain version, of the gradients' joint
+# scale: float32 sums in another order; bf16 one rounding of each output
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Training (`train`): launch/train.py's flow on qwen3-32b at its published
+# widths cut to TRAIN_LAYERS of 64 (3.51 B parameters; bf16 weights and
+# gradients and float32 moments, about 42 GB), TRAIN_BATCH rows of
+# train_4k's TRAIN_SEQ tokens from the logs index's keyword-filtered
+# loader, TRAIN_STEPS steps, async checkpoints every TRAIN_CKPT_EVERY
+# into host memory; then a fresh run resumes from the step-10 checkpoint.
+# One step's loss and gradients through flash_bwd vs plain autograd on a
+# GRAD_CHECK_LAYERS-layer cut (the plain (B, H, S, S) scores of more
+# layers do not fit beside it): the loss within GRAD_LOSS_TOL and each
+# leaf's ||g_kernel - g_plain|| within GRAD_LEAF_TOL of ||g_plain|| (bf16
+# weights and activations; the two attentions round at other places).
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-32b", 4, 2, 4096
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_QUERY, TRAIN_LR = 20, 10, "block", 3e-4
+GRAD_CHECK_LAYERS, GRAD_LOSS_TOL, GRAD_LEAF_TOL = 1, 1e-2, 5e-2
 
 
 def emit(obj) -> None:
@@ -1859,6 +1916,70 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
     return errs
 
 
+def int8_edge_phase(ta, device) -> dict[str, float]:
+    """`flash_decode_int8` vs `attention_int8_ref` on the int8 edge cases
+    (`kernels.attention.cases.int8_cases`), bf16 and float32 queries:
+    within INT8_TOL[dtype] of the output's scale."""
+    import torch
+    from repro_torch.kernels.attention.cases import int8_cases, int8_inputs
+    errs = {}
+    cases = int8_cases(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        errs[key] = 0.0
+        for i, (name, shape, kw) in enumerate(cases):
+            q, k8, v8, ks, vs = int8_inputs(shape, i, device, dtype)
+            got = ta.attention_int8(q, k8, v8, ks, vs, device=device, **kw)
+            want = ta.attention_int8(q, k8, v8, ks, vs, device=device,
+                                     impl="ref", **kw)
+            torch.cuda.synchronize()
+            rel = float((got.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-12)
+            if not (got.dtype == dtype and rel <= INT8_TOL[key]):
+                raise AssertionError(f"flash_decode_int8 {name} {key}: "
+                                     f"{rel} of the scale (> "
+                                     f"{INT8_TOL[key]})")
+            errs[key] = max(errs[key], rel)
+    emit({"phase": "int8_edge", "cases": 2 * len(cases),
+          "names": [c[0] for c in cases],
+          "max_err_over_scale": errs, "tolerance": INT8_TOL})
+    return errs
+
+
+def attn_bwd_edge_phase(ta, device) -> dict[str, float]:
+    """`flash_bwd` vs `attention_bwd_ref` on the backward edge cases
+    (`kernels.attention.cases.bwd_cases`: causal, window, positions per
+    row, g = 1, 8 and 48, dh 64 and 128, S ragged and S = 1), float32 and
+    bf16: the largest error of dq, dk and dv over their joint scale,
+    within BWD_TOL."""
+    import torch
+    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    errs = {}
+    cases = bwd_cases(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        errs[key] = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        for i, (name, shape, kw) in enumerate(cases):
+            q, k, v, do = bwd_inputs(shape, i, device, dtype)
+            out = ta.attention(q, k, v, device=device, **kw)
+            got = ta.attention_bwd(q, k, v, out, do, device=device, **kw)
+            want = ta.attention_bwd(q, k, v, out, do, device=device,
+                                    impl="ref", **kw)
+            torch.cuda.synchronize()
+            scale = max(float(w.float().abs().max()) for w in want)
+            for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+                rel = float((g.float() - w.float()).abs().max()) / scale
+                if not (g.dtype == dtype and rel <= BWD_TOL[key]):
+                    raise AssertionError(f"flash_bwd {name} {key} {grad}: "
+                                         f"{rel} of the gradients' scale "
+                                         f"(> {BWD_TOL[key]})")
+                errs[key][grad] = max(errs[key][grad], rel)
+    emit({"phase": "attn_bwd_edge", "cases": 2 * len(cases),
+          "names": [c[0] for c in cases], "max_err_over_scale": errs,
+          "tolerance": BWD_TOL})
+    return {key: max(e.values()) for key, e in errs.items()}
+
+
 def teacher_forced(model, params, prompt, tokens):
     """Prefill + decode fed `tokens` (B, n): logits (n + 1, B, vocab)."""
     import torch
@@ -3365,6 +3486,448 @@ def scan_timing_phase(ts, device, seed: int, shapes: dict,
                                     "shapes": unfused_shapes}}}
 
 
+# ------------------------------------------------------- int8 decode path
+def lm_int8_phase(args, device) -> dict:
+    """qwen3-32b with the int8 KV cache (the opt decode variant) at the
+    `lm` path's depth and traffic: `decode_loop` through the kernels
+    (exactly one bf16 prefill and LM_TOKENS int8 decode launches a
+    layer), then teacher-forced logits vs the plain int8 attention and vs
+    the bf16 cache (the same weights and tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.launch.steps import apply_variant
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import TransformerModel
+
+    published = get_config(LM_ARCH)
+    cfg, profile, _ = apply_variant(published, "decode_32k", "opt")
+    if not cfg.kv_quant:
+        raise AssertionError("the opt decode variant lost the int8 cache")
+    cfg = cfg.with_(n_layers=args.lm_layers)
+    model = build_model(cfg)
+    params, init_s = new_params(model, args.seed, device)
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        4, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    decode_loop(model, params, prompt[:, :64], 2)          # warm-up
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_loop(model, params, prompt, LM_TOKENS)
+    launches = dict(ta.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode_int8": cfg.n_layers * LM_TOKENS, "flash_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"the int8 path launched {launches}, expected "
+                             f"{want}")
+    if out.logits.shape != (LM_BATCH, cfg.vocab) \
+            or not torch.isfinite(out.logits).all():
+        raise AssertionError("the int8 path gave malformed logits")
+    kern = teacher_forced(model, params, prompt, out.tokens)
+    plain = teacher_forced(TransformerModel(cfg, attn_impl="ref"), params,
+                           prompt, out.tokens)
+    versus = logits_versus(kern, plain)
+    bf16 = teacher_forced(TransformerModel(cfg.with_(kv_quant=False)),
+                          params, prompt, out.tokens)
+    vs_bf16 = logits_versus(kern, bf16)
+    vs_bf16["tolerance"] = INT8_VS_BF16_TOL
+    T = LM_PROMPT + LM_TOKENS
+    int8_bytes = 2 * cfg.n_layers * LM_BATCH * T * cfg.n_kv * (cfg.dh + 2)
+    bf16_bytes = 2 * cfg.n_layers * LM_BATCH * T * cfg.n_kv * cfg.dh * 2
+    emit({"phase": "lm_int8", **model_fields(cfg, published, params, init_s),
+          "variant": "opt", "cell": "decode_32k", "profile": profile,
+          "kv_quant": cfg.kv_quant, "batch": LM_BATCH, "prompt": LM_PROMPT,
+          "new_tokens": LM_TOKENS, "prefill_s": out.prefill_s,
+          "decode_s": out.decode_s,
+          "decode_ms_per_token": 1e3 * out.decode_s / LM_TOKENS,
+          "kv_cache_bytes": int8_bytes, "kv_cache_bytes_bf16": bf16_bytes,
+          "kv_cache_ratio": int8_bytes / bf16_bytes,
+          "peak_device_bytes": peak_bytes, "launches": launches,
+          "vs_plain_attention": versus, "vs_bf16_cache": vs_bf16})
+    if not versus["max_err_over_max_logit"] <= LM_TOL:
+        raise AssertionError(f"int8 path logits vs plain: {versus}")
+    if not (vs_bf16["max_err_over_max_logit"] <= INT8_VS_BF16_TOL):
+        raise AssertionError(f"int8 path logits vs the bf16 cache: {vs_bf16}")
+    return {"launches": launches, "errs": versus["max_err_over_max_logit"]}
+
+
+# ------------------------------------------------------------- training
+def _host_mb() -> dict:
+    """This process's resident and peak resident host memory, MB."""
+    out = {}
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith(("VmRSS", "VmHWM")):
+            out[line.split(":")[0]] = int(line.split()[1]) // 1024
+    return out
+
+
+def _grad_check(cfg, batch, device, seed: int) -> dict:
+    """One step's loss and gradients on a GRAD_CHECK_LAYERS-layer cut of
+    `cfg`: attention through flash_attention + flash_bwd vs plain
+    autograd through attention_ref, the same weights and batch."""
+    import torch
+
+    from repro_torch.kernels import attention as ta
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import TransformerModel
+    from repro_torch.training.checkpoint import _paths
+
+    cut = cfg.with_(n_layers=GRAD_CHECK_LAYERS)
+    model = build_model(cut)
+    params, _ = new_params(model, seed, device)
+    leaves = tree_leaves(params)
+    names = [n for n, _ in _paths(params)]
+    out = {}
+    for impl, m in (("cuda", model), ("ref", TransformerModel(
+            cut, attn_impl="ref"))):
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        ta.reset_launches()
+        loss = m.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        out[impl] = (float(loss.detach()), [g.float() for g in grads],
+                     dict(ta.LAUNCHES))
+        del loss, grads
+        torch.cuda.empty_cache()
+    (lk, gk, nk), (lp, gp, np_) = out["cuda"], out["ref"]
+    if nk["flash_bwd"] != cut.n_layers or np_["flash_bwd"] != 0:
+        raise AssertionError(f"grad check launches {nk} / {np_}")
+    per_leaf = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for n, a, b in zip(names, gk, gp)}
+    per_leaf_max = {n: float((a - b).abs().max() / b.abs().max()
+                             .clamp_min(1e-30))
+                    for n, a, b in zip(names, gk, gp)}
+    return {"layers": cut.n_layers, "loss_kernel": lk, "loss_plain": lp,
+            "loss_rel": abs(lk - lp) / abs(lp), "launches": nk,
+            "leaf_norm_rel": per_leaf, "leaf_max_rel": per_leaf_max,
+            "tolerance": {"loss": GRAD_LOSS_TOL, "leaf": GRAD_LEAF_TOL}}
+
+
+def train_profile(model, state, batch, device) -> dict:
+    """One more train step on `state` under torch.profiler: the card's
+    busy time against the host's wall, and the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import OptimizerConfig, make_train_step
+    step = make_train_step(model, OptimizerConfig(lr=TRAIN_LR))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, events, by_name = _device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"host_wall_us": wall_us, "device_busy_us": busy_us,
+            "device_idle_share": 1 - busy_us / wall_us if events else None,
+            "device_events": events,
+            "top_kernels_us": [[name[:90], us, n] for name, (us, n) in top]}
+
+
+def train_phase(args, device) -> dict:
+    """`launch/train.py`'s flow on the card: the logs index, the
+    keyword-filtered `IndexedCorpusLoader`, `training.run` (eager steps,
+    flash_bwd, AdamW, async checkpoints every TRAIN_CKPT_EVERY steps)
+    over TRAIN_STEPS steps; then a fresh run (other initial weights)
+    resumes from the step-10 checkpoint and must give the same losses;
+    then the kernel-vs-plain gradient check."""
+    import gc
+    import shutil
+    import statistics as stats
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.train import logs_store, make_loader, train
+    from repro_torch.models import param_count
+    from repro_torch.storage import InMemoryBlobStore
+    from repro_torch.training import CheckpointConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    published = get_config(TRAIN_ARCH)
+    cfg = published.with_(n_layers=TRAIN_LAYERS)
+    workdir = tempfile.mkdtemp(prefix="train-", dir=ROOT / "build")
+    t0 = time.perf_counter()
+    store = logs_store(workdir)
+    loader = make_loader(store, cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_QUERY,
+                         device)
+    setup_s = time.perf_counter() - t0
+    ckpts = InMemoryBlobStore()
+    ckpt_cfg = CheckpointConfig(keep_last_k=2)
+
+    # ---- the main path: counts zeroed before, read after -------------
+    ta.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, whole = train(cfg, store, loader, steps=TRAIN_STEPS,
+                            lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
+                            device=device, log_every=1,
+                            ckpt_config=ckpt_cfg, ckpt_store=ckpts,
+                            seed=args.seed)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ta.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+    n_params = param_count(state["params"])
+    host_after = _host_mb()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd": TRAIN_LAYERS * TRAIN_STEPS, "flash_decode_int8": 0}
+    if launches != want:
+        raise AssertionError(f"the train path launched {launches}, expected "
+                             f"{want} (forward, remat recompute, backward "
+                             "per layer and step)")
+    steps = sorted(int(n.split("step-")[1][:10]) for n in
+                   ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
+    if steps != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+        raise AssertionError(f"checkpoints at {steps}")
+    for name in ckpts.list(f"ckpt/step-{TRAIN_STEPS:010d}"):
+        ckpts.delete(name)            # the run is cut after step 10
+
+    t0 = time.perf_counter()
+    model, state, resumed = train(cfg, store, loader, steps=TRAIN_STEPS,
+                                  lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
+                                  device=device, log_every=1,
+                                  ckpt_config=ckpt_cfg, ckpt_store=ckpts,
+                                  seed=args.seed + 1)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    profile = train_profile(model, state, loader.batch(TRAIN_STEPS), device)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail = whole.losses[TRAIN_CKPT_EVERY:]
+    diff = max(abs(a - b) for a, b in zip(tail, resumed.losses))
+    grad = _grad_check(cfg, {k: torch.as_tensor(v, device=device) for k, v
+                             in loader.batch(0).items()}, device, args.seed)
+    shutil.rmtree(workdir, ignore_errors=True)     # the logs index's blobs
+    step_s = stats.median(whole.seconds[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
+          "layers_published": published.n_layers, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "query": TRAIN_QUERY, "lr": TRAIN_LR, "remat": cfg.remat,
+          "ce_chunk": cfg.ce_chunk, "setup_s": setup_s, "wall_s": wall_s,
+          "losses": whole.losses, "first_loss": whole.losses[0],
+          "last_loss": whole.losses[-1], "grad_norms": whole.grad_norms,
+          "step_ms_median": 1e3 * step_s, "step_s": whole.seconds,
+          "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
+          "host_mb_after_run": host_after, "launches": launches,
+          "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
+          "resumed_losses": resumed.losses,
+          "resume_max_abs_diff": diff, "resume_bitwise": diff == 0.0,
+          "grad_check": grad, "step_profile": profile,
+          "host_mb": _host_mb()})
+    if not whole.losses[-1] < whole.losses[0]:
+        raise AssertionError(f"the loss did not fall: {whole.losses}")
+    if resumed.resumed_from != TRAIN_CKPT_EVERY or \
+            resumed.steps != list(range(TRAIN_CKPT_EVERY + 1,
+                                        TRAIN_STEPS + 1)):
+        raise AssertionError(f"resume ran steps {resumed.steps}")
+    if diff != 0.0:
+        raise AssertionError(f"resumed losses differ by {diff}: {tail} vs "
+                             f"{resumed.losses}")
+    if not (grad["loss_rel"] <= GRAD_LOSS_TOL and max(
+            grad["leaf_norm_rel"].values()) <= GRAD_LEAF_TOL):
+        raise AssertionError(f"gradients through flash_bwd vs plain: {grad}")
+    return {"launches": launches,
+            "grad_err": max(grad["leaf_norm_rel"].values())}
+
+
+# --------------------------------------------- timing of the new kernels
+def bwd_bound(B, S, H, KV, dh, nbytes_el) -> tuple:
+    """Least card time (ms) of the causal backward at (B, S, H/KV, dh):
+    5 products of 2·dh flops per allowed (query, key) pair and head (the
+    scores again, dP, dV, dK, dQ) over the bf16 rate, against q, k, v, o,
+    dO read and dq, dk, dv written once; the larger, and which."""
+    pairs = B * S * (S + 1) // 2
+    flops = 10 * dh * H * pairs
+    nbytes = nbytes_el * dh * (4 * B * S * H + 4 * B * S * KV)
+    rate = BF16_FLOPS_PER_S if nbytes_el == 2 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def bwd_timing_phase(ta, device, seed: int, launches: dict,
+                     edge_err: dict, train: dict) -> dict:
+    """flash_bwd at the train path's shape (TRAIN_BATCH, TRAIN_SEQ, 64/8,
+    128) bf16 causal: the bare launch, the plain version and SDPA's
+    forward + backward through autograd (the library's yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    cfg_h, cfg_kv, dh = 64, 8, 128
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg_h, cfg_kv, dh)
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    q, k, v, do = bwd_inputs(shape, seed, device, torch.bfloat16)
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=device)
+    kw = {"causal": True, "q_positions": pos, "kv_positions": pos}
+    out = ta.attention(q, k, v, device=device, **kw)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    scratch = torch.empty(2, TRAIN_BATCH * TRAIN_SEQ * cfg_h,
+                          dtype=torch.float32, device=device)
+    kernel_ms = cuda_ms(lambda: ta.launch_bwd(q, k, v, out, do, dq, dk, dv,
+                                              True, None, pos, pos, scratch),
+                        flush, iters=10, warmup=2)
+    want = ta.attention_bwd(q, k, v, out, do, device=device, impl="ref",
+                            **kw)
+    scale = max(float(w.float().abs().max()) for w in want)
+    err = max(float((g.float() - w.float()).abs().max()) / scale
+              for g, w in zip((dq, dk, dv), want))
+    del want
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: ta.attention_bwd(q, k, v, out, do,
+                                                device=device, impl="ref",
+                                                **kw), flush, iters=3,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    library_ms = cuda_ms(sdpa, flush, iters=10, warmup=2)
+    bound_ms, bound_by, flops, nbytes = bwd_bound(
+        TRAIN_BATCH, TRAIN_SEQ, cfg_h, cfg_kv, dh, 2)
+    if not err <= BWD_TOL["bfloat16"]:
+        raise AssertionError(f"flash_bwd at the train shape: {err}")
+    return {"name": "flash_bwd", "route": "cuda", "source": BWD_SOURCE,
+            "replaces": PORT_ONLY.format("jax.grad of "
+                                         "src/repro/models/blocks.py:76"),
+            "launches": launches["flash_bwd"],
+            "launches_by_path": {"train": launches["flash_bwd"]},
+            "max_abs_err": max(max(edge_err.values()), err,
+                               train["grad_err"]),
+            "max_err_by_check": {"attn_bwd_edge": edge_err,
+                                 "train_shape": err,
+                                 "train_grad_leaf_norm_rel":
+                                     train["grad_err"]},
+            "tolerance": BWD_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention forward + backward "
+                       "(is_causal, enable_gqa) through autograd",
+            "share_of_bound": bound_ms / kernel_ms,
+            "shape": {"B": TRAIN_BATCH, "S": TRAIN_SEQ, "H": cfg_h,
+                      "KV": cfg_kv, "dh": dh, "dtype": "bfloat16",
+                      "causal": True}}
+
+
+def int8_bound(B, S, T, H, KV, dh, q_bytes) -> tuple:
+    """Least card time (ms) of int8 decode attention: K and V int8 and
+    their bf16 scales read once, q read and o written once, against 4·dh
+    int8 operations a (row, key) over the int8 tensor-core rate."""
+    nbytes = 2 * B * T * KV * (dh + 2) + 2 * q_bytes * B * S * H * dh
+    ops = 4 * dh * B * S * H * T
+    t_ops, t_bytes = ops / 1979e12, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def int8_timing_phase(ta, device, seed: int, launches: dict,
+                      errs: dict) -> dict:
+    """flash_decode_int8 at decode_32k's shape (B 128, T 32768, 64/8 heads
+    of 128; 8.6 GB of int8 K/V), against its bytes bound, its plain
+    version, and the bf16 decode kernel (and SDPA) on the same cache
+    dequantized to bf16 (17.2 GB)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as tk
+    B, T, H, KV, dh = 128, 32768, 64, 8, 128
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    q = torch.randn(B, 1, H, dh, generator=gen, device=device).bfloat16()
+    k8 = torch.randint(-127, 128, (B, T, KV, dh), generator=gen,
+                       device=device, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (B, T, KV, dh), generator=gen,
+                       device=device, dtype=torch.int8)
+    ks = (torch.rand(B, T, KV, generator=gen, device=device) * 0.02
+          + 0.01).bfloat16()
+    vs = (torch.rand(B, T, KV, generator=gen, device=device) * 0.02
+          + 0.01).bfloat16()
+    qpos = torch.tensor([T - 1], dtype=torch.int32, device=device)
+    kpos = torch.arange(T, dtype=torch.int32, device=device)
+    kw = {"causal": True, "q_positions": qpos, "kv_positions": kpos}
+    out = torch.empty_like(q)
+    scratch = tk.int8_scratch(q, k8)
+    kernel_ms = cuda_ms(lambda: ta.launch_int8(q, k8, v8, ks, vs, out, True,
+                                               None, qpos, kpos, scratch),
+                        flush, iters=10, warmup=2)
+    want = ta.attention_int8(q, k8, v8, ks, vs, device=device, impl="ref",
+                             **kw)
+    err = float((out.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+    plain_ms = cuda_ms(lambda: ta.attention_int8(
+        q, k8, v8, ks, vs, device=device, impl="ref", **kw), flush, iters=3,
+        warmup=1)
+    del want
+    kb = (k8.to(torch.bfloat16) * ks[..., None])
+    del k8
+    vb = (v8.to(torch.bfloat16) * vs[..., None])
+    del v8
+    torch.cuda.empty_cache()
+    ob = torch.empty_like(q)
+    bf16_ms = cuda_ms(lambda: ta.launch(q, kb, vb, ob, True, None, qpos,
+                                        kpos), flush, iters=10, warmup=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kb, vb))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True), flush, iters=10, warmup=2)
+    int8_vs_bf16 = float((out.float() - ob.float()).abs().max()) / float(
+        ob.float().abs().max())
+    bound_ms, bound_by, ops, nbytes = int8_bound(B, 1, T, H, KV, dh, 2)
+    bf16_bound = 1e3 * (2 * B * T * KV * dh * 2 + 4 * B * H * dh) \
+        / HBM_BYTES_PER_S
+    del kb, vb
+    torch.cuda.empty_cache()
+    if not err <= INT8_TOL["bfloat16"]:
+        raise AssertionError(f"flash_decode_int8 at decode_32k: {err}")
+    return {"name": "flash_decode_int8", "route": "cuda",
+            "source": INT8_SOURCE,
+            "replaces": PORT_ONLY.format(
+                "src/repro/models/blocks.py:112-147"),
+            "launches": launches["flash_decode_int8"],
+            "launches_by_path": {"lm_int8": launches["flash_decode_int8"]},
+            "max_abs_err": max(max(errs.values()), err),
+            "max_err_by_check": {"int8_edge": errs, "decode_32k": err},
+            "tolerance": INT8_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "operations": ops,
+            "bytes": nbytes, "library_ms": None,
+            "library": "none computes int8 attention with these scales",
+            "share_of_bound": bound_ms / kernel_ms,
+            "n_split": tk.plan_int8(B, T, KV)[0],
+            "bf16_cache": {"flash_decode_bf16_ms": bf16_ms,
+                           "sdpa_ms": sdpa_ms, "bound_ms": bf16_bound,
+                           "int8_vs_bf16_max_err_over_scale": int8_vs_bf16},
+            "shape": {"B": B, "S": 1, "T": T, "H": H, "KV": KV, "dh": dh,
+                      "q_dtype": "bfloat16"}}
+
+
 def build_phase(libraries) -> None:
     """One nvcc per kernel library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3429,6 +3992,8 @@ def main() -> int:
     attn_errs = attn_edge_phase(ta, device, args.seed)
     wkv_errs = wkv_edge_phase(tr, device, args.seed)
     scan_errs = scan_edge_phase(ts, device, args.seed)
+    int8_errs = int8_edge_phase(ta, device)
+    bwd_errs = attn_bwd_edge_phase(ta, device)
     main = main_phase(args, device)
     serving = serving_phase(args, device, main)
     admin = cluster_admin_phase(args, device, main, serving)
@@ -3457,14 +4022,24 @@ def main() -> int:
     vlm = vlm_phase(args, device)
     encdec = encdec_phase(args, device)
     attn_paths_timing(ta, device, args.seed, attn, mixtral, vlm, encdec)
-    # the attention kernel runs on six paths: its launches and its
+    lm_int8 = lm_int8_phase(args, device)
+    kernels.append(int8_timing_phase(ta, device, args.seed,
+                                     lm_int8["launches"], int8_errs))
+    train = train_phase(args, device)
+    kernels.append(bwd_timing_phase(ta, device, args.seed, train["launches"],
+                                    bwd_errs, train))
+    # the attention kernel runs on eight paths: its launches and its
     # errors against the plain version are summed over all
     attn["launches_by_path"] = {"lm": attn["launches"],
                                 "jamba": jamba["attn_launches"],
                                 "rag": rag["launches"],
                                 "mixtral": mixtral["launches"],
                                 "vlm": vlm["launches"],
-                                "encdec": encdec["launches"]}
+                                "encdec": encdec["launches"],
+                                "lm_int8": lm_int8["launches"][
+                                    "flash_attention"],
+                                "train": train["launches"][
+                                    "flash_attention"]}
     attn["launches"] = sum(attn["launches_by_path"].values())
     for errs_of_path in (jamba["attn_errs"], rag["errs"], mixtral["errs"],
                          vlm["errs"], encdec["errs"]):

@@ -2,8 +2,9 @@
 
   intersect/  — IoU Sketch L-way bitmap AND + popcount and the
                 AND/OR/ANDNOT program evaluator (the query combine)
-  attention/  — forward flash attention with positions and GQA (the
-                LM's prefill and decode attention)
+  attention/  — flash attention with positions and GQA (the LM's
+                prefill and decode attention), its backward (training),
+                and decode attention against an int8 KV cache
   rwkv/       — the RWKV-6 wkv recurrence with an initial and a final
                 state (rwkv6-3b's prefill and decode)
   ssm/        — the Mamba selective (diagonal) scan with an initial and

@@ -1,5 +1,6 @@
-"""The hand-written CUDA flash-attention kernel (`csrc/attention.cu`):
-ctypes binding, argument checks and a launch counter.
+"""The hand-written CUDA attention kernels (`csrc/attention.cu`, and
+`csrc/decode_int8.cu` and `csrc/attention_bwd.cu` in the same library):
+ctypes bindings, argument checks and launch counters.
 
 `flash_attention` takes CUDA tensors in the model's layout — q (B, S, H,
 dh), k and v (B, T, KV, dh), one dtype (bfloat16 or float32) — and
@@ -20,6 +21,13 @@ decode kernel's partial results go to a float32 workspace and its
 per-(batch, KV head) tickets to an int32 array that each launch leaves
 at zero; both are held per (device, stream) and grown as shapes need, so
 launches on one stream share them in order.
+
+`flash_decode_int8` is decode attention against an int8 KV cache with
+bf16 per-(b, t, kv head) scales (three launches: per-split softmax
+stats, then p8·v8 per split, then the sum of the splits);
+`flash_bwd` the backward of the forward kernels' function (three
+launches: Δ and the log-sum-exp, dK/dV, dQ). Each counts its calls in
+`LAUNCHES` under its own name.
 """
 
 from __future__ import annotations
@@ -44,6 +52,16 @@ def _declare(handle: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 12 + [vp] * 3
     handle.flash_attention_launch.restype = i
+    # flash_decode_int8_launch(q, k, v, k_scale, v_scale, o, q_pos, kv_pos,
+    # q_pos batch stride, kv_pos batch stride, B, S, T, H, KV, dh, causal,
+    # window, q bf16, split_keys, stats, part, rowps, stream)
+    handle.flash_decode_int8_launch.argtypes = [vp] * 8 + [i] * 12 + [vp] * 4
+    handle.flash_decode_int8_launch.restype = i
+    # flash_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, delta, q_pos,
+    # kv_pos, q_pos batch stride, kv_pos batch stride, B, S, T, H, KV, dh,
+    # causal, window, bf16, stream)
+    handle.flash_bwd_launch.argtypes = [vp] * 12 + [i] * 11 + [vp]
+    handle.flash_bwd_launch.restype = i
 
 
 LIBRARY = Library("attention", Path(__file__).resolve().parent / "csrc",
@@ -60,12 +78,19 @@ DECODE_MAX_SPLITS = 64
 # a split count under two waves (8, 256 blocks) is not taken (PERF.md)
 SMS, DECODE_WAVES = 132, 2.5
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+# int8 decode: rows (query position, head of a KV group) per (b, kvh)
+# (decode_int8.cu: I_ROWS), keys per tile (I_BN) and at most this many
+# splits of the keys
+INT8_ROWS, INT8_TILE, INT8_MAX_SPLITS = 64, 64, 64
+
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_decode_int8": 0,
+                            "flash_bwd": 0}
 LAUNCH_SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     LAUNCH_SHAPES.clear()
 
 
@@ -92,21 +117,10 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be bfloat16 or all float32; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    for name, p, n in (("q_positions", q_positions, S),
-                       ("kv_positions", kv_positions, T)):
-        if p is not None and (p.shape not in ((n,), (B, n))
-                              or p.dtype != torch.int32
-                              or p.device != q.device
-                              or not p.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous int32 ({n},) or "
-                             f"({B}, {n}) on q's device")
+    _check_positions(q, k, q_positions, kv_positions)
     if window is not None and not 1 <= window <= _MAX_INT:
         raise ValueError(f"window must be in [1, 2**31), not {window}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device.type != "cuda" or x.device != q.device \
-                or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             "tensor on q's CUDA device")
+    _check_cuda({"q": q, "k": k, "v": v})
 
 
 def plan(B: int, S: int, T: int, H: int, KV: int) -> tuple[str, int, int]:
@@ -194,4 +208,175 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if tickets is None else tickets.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def _check_positions(q, k, q_positions, kv_positions) -> None:
+    B, S = q.shape[:2]
+    T = k.shape[1]
+    for name, p, n in (("q_positions", q_positions, S),
+                       ("kv_positions", kv_positions, T)):
+        if p is not None and (p.shape not in ((n,), (B, n))
+                              or p.dtype != torch.int32
+                              or p.device != q.device
+                              or not p.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 ({n},) or "
+                             f"({B}, {n}) on q's device")
+
+
+def _check_cuda(tensors: dict, align: int = 16) -> None:
+    """Each tensor contiguous, `align`-byte aligned, on the first one's
+    CUDA device."""
+    dev = next(iter(tensors.values())).device
+    for name, x in tensors.items():
+        if x.device.type != "cuda" or x.device != dev \
+                or not x.is_contiguous() or x.data_ptr() % align:
+            raise ValueError(f"{name} must be a contiguous, {align}-byte "
+                             "aligned tensor on q's CUDA device")
+
+
+def plan_int8(B: int, T: int, KV: int) -> tuple[int, int]:
+    """flash_decode_int8's (n_split, keys per split): enough splits for
+    DECODE_WAVES blocks per SM, no more than T has tiles or
+    INT8_MAX_SPLITS, none empty."""
+    want = math.ceil(DECODE_WAVES * SMS / (B * KV))
+    n = max(1, min(want, math.ceil(T / INT8_TILE), INT8_MAX_SPLITS))
+    keys = math.ceil(T / n)
+    return math.ceil(T / keys), keys
+
+
+def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      q_positions: torch.Tensor | None = None,
+                      kv_positions: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Attention of q (B, S, H, dh), bf16 or float32, with S·H/KV <= 64,
+    against int8 k, v (B, T, KV, dh) and their bf16 scales (B, T, KV), on
+    the card; returns (B, S, H, dh) in q's dtype. Raises on what the
+    kernel does not take and when a launch fails."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
+        raise ValueError(f"q must be (B, S, H, dh), k and v (B, T, KV, dh) "
+                         f"and the scales (B, T, KV); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(k_scale.shape)}")
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != dh or H % KV or min(B, S, T) < 1:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if S * (H // KV) > INT8_ROWS:
+        raise ValueError(f"{S * (H // KV)} rows per KV head; the int8 decode "
+                         f"kernel takes at most {INT8_ROWS}")
+    if dh not in HEAD_DIMS or B > _MAX_GRID_YZ or KV > _MAX_GRID_YZ \
+            or B * T * KV * dh > 2**62:
+        raise ValueError(f"shapes {tuple(q.shape)}/{tuple(k.shape)} are not "
+                         "ones the int8 decode kernel takes")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k.dtype != torch.int8 or v.dtype != torch.int8 \
+            or k_scale.dtype != torch.bfloat16 \
+            or v_scale.dtype != torch.bfloat16:
+        raise TypeError("q must be bfloat16 or float32, k and v int8 and "
+                        f"the scales bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {k_scale.dtype}, {v_scale.dtype}")
+    if window is not None and not 1 <= window <= _MAX_INT:
+        raise ValueError(f"window must be in [1, 2**31), not {window}")
+    _check_cuda({"q": q, "k": k, "v": v})          # 16-byte loads of k
+    _check_cuda({"q": q, "k_scale": k_scale, "v_scale": v_scale}, align=2)
+    _check_positions(q, k, q_positions, kv_positions)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        launch_int8(q, k, v, k_scale, v_scale, out, causal, window,
+                    q_positions, kv_positions)
+    LAUNCHES["flash_decode_int8"] += 1
+    return out
+
+
+def launch_int8(q, k, v, k_scale, v_scale, out, causal, window,
+                q_positions, kv_positions, scratch=None) -> None:
+    """Bare int8 decode launch on the current stream into `out`; the
+    scratch (stats, part, rowps) is allocated unless given, as
+    `int8_scratch` makes it."""
+    lib = LIBRARY.lib()
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    _, keys = plan_int8(B, T, KV)
+    stats, part, rowps = scratch or int8_scratch(q, k)
+    rc = lib.flash_decode_int8_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(),
+        None if q_positions is None else q_positions.data_ptr(),
+        None if kv_positions is None else kv_positions.data_ptr(),
+        _batch_stride(q_positions), _batch_stride(kv_positions),
+        B, S, T, H, KV, dh, int(causal), window or 0,
+        int(q.dtype == torch.bfloat16), keys, stats.data_ptr(),
+        part.data_ptr(), rowps.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_decode_int8: CUDA kernel launch failed "
+                           f"with cudaError {rc}")
+
+
+def int8_scratch(q, k) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 decode kernel's scratch for these shapes: per-split
+    softmax stats (float32), per-split int32 partial outputs and the
+    rows' (max, sum, ps)."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    n_split, _ = plan_int8(B, T, KV)
+    R = S * (H // KV)
+    return (torch.empty(B * KV * n_split * R * 3, dtype=torch.float32,
+                        device=q.device),
+            torch.empty(B * KV * n_split * R * dh, dtype=torch.int32,
+                        device=q.device),
+            torch.empty(B * KV * R * 3, dtype=torch.float32, device=q.device))
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+              window: int | None = None,
+              q_positions: torch.Tensor | None = None,
+              kv_positions: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of `flash_attention(q, k, v, ...)` at
+    output `out` for the output's gradient `dout`, on the card, in the
+    inputs' dtype. Raises on what the kernel does not take and when a
+    launch fails."""
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}; "
+                         f"got {tuple(out.shape)} {out.dtype}, "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    _check(q, k, v, q_positions, kv_positions, window)
+    _check_cuda({"q": q, "out": out, "dout": dout})
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    with torch.cuda.device(q.device):
+        launch_bwd(q, k, v, out, dout, dq, dk, dv, causal, window,
+                   q_positions, kv_positions)
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+def launch_bwd(q, k, v, out, dout, dq, dk, dv, causal, window, q_positions,
+               kv_positions, scratch=None) -> None:
+    """Bare backward launch on the current stream into dq, dk, dv; the
+    float32 log-sum-exp and Δ scratch (B·S·H each) is allocated unless
+    given."""
+    lib = LIBRARY.lib()
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if scratch is None:
+        scratch = torch.empty(2, B * S * H, dtype=torch.float32,
+                              device=q.device)
+    rc = lib.flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(),
+        None if q_positions is None else q_positions.data_ptr(),
+        None if kv_positions is None else kv_positions.data_ptr(),
+        _batch_stride(q_positions), _batch_stride(kv_positions),
+        B, S, T, H, KV, dh, int(causal), window or 0,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_bwd: CUDA kernel launch failed with "
                            f"cudaError {rc}")

@@ -8,8 +8,10 @@ and TILE_BITS ± 1 keys (TILE_BITS = 32 · MAX_TILE_W, one full tile) and
 identity universes of 1, 33 and TILE_BITS + 1 doc ids; a row whose
 postings fill one tile (every lane of a warp on one word's atomic); a
 row with postings in 2 tiles of 12; ANDNOT and identity-padded
-programs; keys with blob keys just below 2**23 (keys just below 2**63).
-Made from fixed seeds with NumPy; imports only NumPy and `ops`'
+programs; keys with blob keys just below 2**23 (keys just below 2**63);
+leaves whose keys repeat (posting keys and doc ids, a row of one such
+leaf), which the route takes once each, as the bitmap does. Made from
+fixed seeds with NumPy; imports only NumPy and `ops`'
 constants.
 
 `numpy_sets` and `host_lengths` are the NumPy reference all three hold
@@ -95,6 +97,19 @@ def edge_case(name: str) -> tuple[list, list | None, int | None]:
         rows = [[subset(rng, u, 0.5), subset(rng, u, 0.5)],
                 [subset(rng, u, 0.4), subset(rng, u, 0.9)]]
         return rows, [[(AND, 0, 1)], [(ANDNOT, 1, 0)]], None
+    if name == "repeated_keys":
+        u = posting_keys(rng, 3000)
+        a, b = subset(rng, u, 0.5), subset(rng, u, 0.5)
+        twice = np.sort(np.concatenate([a, subset(rng, a, 0.3)]))
+        rows = [[twice, b], [b, twice], [twice], [np.repeat(b, 3), twice]]
+        progs = [[(AND, 0, 1)], [(ANDNOT, 0, 1)], [], [(OR, 0, 1)]]
+        return rows, progs, None
+    if name == "repeated_ids":
+        ids = np.arange(TILE_BITS + 1, dtype=np.uint32)
+        a = subset(rng, ids, 0.7)
+        rows = [[np.sort(np.concatenate([a, a[::5]])), subset(rng, ids, 0.8)],
+                [np.repeat(a, 2)]]
+        return rows, None, TILE_BITS + 1
     raise KeyError(name)
 
 
@@ -102,16 +117,18 @@ EDGE_CASES = ["empty_leaf", "universe_1", "universe_31", "universe_32",
               "universe_33", f"universe_{TILE_BITS - 1}",
               f"universe_{TILE_BITS + 1}", "identity_1", "identity_33",
               f"identity_{TILE_BITS + 1}", "one_tile", "sparse_tiles",
-              "andnot_identity", "high_blob"]
+              "andnot_identity", "high_blob", "repeated_keys",
+              "repeated_ids"]
 
 
 def numpy_sets(rows: list, progs: list | None) -> list[np.ndarray]:
     """Each row's result by NumPy set operations on its uint64 keys:
     the AND of all its leaves (`progs` None), or its program's last
-    slot (leaves first, then one slot per step)."""
+    slot (leaves first, then one slot per step). A key that repeats in
+    a leaf is one member of its set."""
     out = []
     for q, row in enumerate(rows):
-        slots = [np.asarray(a).astype(np.uint64) for a in row]
+        slots = [np.unique(np.asarray(a).astype(np.uint64)) for a in row]
         if progs is None:
             out.append(reduce(np.intersect1d, slots))
             continue
@@ -127,8 +144,8 @@ def numpy_sets(rows: list, progs: list | None) -> list[np.ndarray]:
 def host_lengths(found: np.ndarray, row: list, lengths: list,
                  ) -> np.ndarray:
     """The planner's rule for a row's result keys `found`: each key's
-    length from the last of the row's leaves that holds it, 0 if none
-    does."""
+    length from the last of the row's leaves that holds it (from its
+    first place there, where the key repeats), 0 if none does."""
     out = np.zeros(len(found), dtype=np.uint64)
     for keys, ln in zip(row, lengths):
         keys = np.asarray(keys, dtype=np.uint64)

@@ -382,9 +382,13 @@ def rank_postings(rows: list[list], n_docs: int | None = None,
                   lengths: list[list] | None = None) -> Ranked:
     """Rank every row's leaves into one sorted universe on `device`.
 
-    Each leaf is a sorted, unique array of non-negative integer keys
-    (uint64 posting keys, or document ids); anything else raises
-    ValueError, as does a key >= 2**63. The distinct leaves (by
+    Each leaf is a sorted array of non-negative integer keys (uint64
+    posting keys, or document ids); a leaf whose keys fall raises
+    ValueError, as does a key >= 2**63. A key that repeats inside its
+    leaf is kept once, with the length of its first occurrence: the
+    bitmap route sets its bit once, and a posting list built from a
+    corpus that holds one document twice repeats its key (ROADMAP §3,
+    the duplicate-document fault). The distinct leaves (by
     identity) are concatenated and shipped once; `torch.unique` sorts
     them into the universe and `torch.searchsorted` ranks each leaf.
     With `n_docs`, leaves are document ids below it and rank as
@@ -426,23 +430,32 @@ def rank_postings(rows: list[list], n_docs: int | None = None,
         raise ValueError(f"{n} posting keys exceed the kernels' int32 ranks")
     keys = torch.from_numpy(np.concatenate(distinct) if distinct
                             else np.empty(0, np.int64)).to(dev)
-    # one read-back for the three checks: each leaf strictly increasing
-    # (pairs that straddle two leaves excepted), keys in [0, 2**63), and
-    # document ids below n_docs
-    falls = keys[1:] <= keys[:-1]
+    # one read-back for the four checks: each leaf non-decreasing (pairs
+    # that straddle two leaves excepted), keys in [0, 2**63), document
+    # ids below n_docs, and whether a key repeats inside its leaf
     cuts = offsets[1:-1]
-    cuts = cuts[(cuts > 0) & (cuts < n)] - 1
-    falls[torch.from_numpy(cuts).to(dev)] = False
-    flags = [(keys < 0).any(), falls.any()]
+    cuts = torch.from_numpy(cuts[(cuts > 0) & (cuts < n)] - 1).to(dev)
+    falls, repeats = keys[1:] < keys[:-1], keys[1:] == keys[:-1]
+    falls[cuts] = False
+    repeats[cuts] = False
+    flags = [(keys < 0).any(), falls.any(), repeats.any()]
     if n_docs is not None:
         flags.append((keys >= n_docs).any())
     flags = torch.stack(flags).tolist()
     if flags[0]:               # first: a uint64 key >= 2**63 also "falls"
         raise ValueError("posting keys must lie in [0, 2**63)")
     if flags[1]:
-        raise ValueError("each leaf's keys must be sorted and unique")
-    if n_docs is not None and flags[2]:
+        raise ValueError("each leaf's keys must be sorted")
+    if n_docs is not None and flags[3]:
         raise ValueError(f"document ids must be below n_docs={n_docs}")
+    keep = None
+    if flags[2]:               # keep each repeated key's first occurrence
+        keep = torch.cat([torch.ones(min(n, 1), dtype=torch.bool,
+                                     device=dev), ~repeats])
+        keys = keys[keep]
+        kept = torch.cumsum(keep, 0, dtype=torch.int64).cpu().numpy()
+        offsets = np.concatenate([[0], kept])[offsets]
+        n = int(offsets[-1])
     if n_docs is None:
         universe = torch.unique(keys)
         ranks = torch.searchsorted(universe, keys, out_int32=True)
@@ -455,6 +468,8 @@ def rank_postings(rows: list[list], n_docs: int | None = None,
     doc_lengths = None if lengths is None else torch.from_numpy(
         np.concatenate(distinct_len) if distinct_len
         else np.empty(0, np.int64)).to(dev)
+    if doc_lengths is not None and keep is not None:
+        doc_lengths = doc_lengths[keep]
     return Ranked(ranks, torch.from_numpy(bounds.astype(np.int32)).to(dev),
                   universe, n_bits, offsets, doc_lengths)
 

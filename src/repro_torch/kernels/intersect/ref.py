@@ -160,7 +160,7 @@ def _set_keys(rows: list, programs: list | None,
     int64 keys row after row, each row ascending; (rows,) int64 counts)."""
     found = []
     for q, row in enumerate(rows):
-        slots = [np.asarray(a).astype(np.uint64) for a in row]
+        slots = [np.unique(np.asarray(a).astype(np.uint64)) for a in row]
         if programs is None:
             found.append(reduce(np.intersect1d, slots) if slots
                          else np.empty(0, np.uint64))

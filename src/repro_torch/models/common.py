@@ -51,6 +51,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves: list):
+    """A tree shaped as `tree` whose leaves, in `tree_leaves` order, are
+    `leaves`."""
+    it = iter(leaves)
+
+    def take(node):
+        if isinstance(node, dict):
+            taken = {k: take(node[k]) for k in sorted(node)}
+            return {k: taken[k] for k in node}
+        return next(it)
+    return take(tree)
+
+
 def stack_tree(tree, n: int):
     return tree_map(lambda d: stacked(d, n), tree)
 

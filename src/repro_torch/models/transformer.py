@@ -27,29 +27,47 @@ prefill, (B, 1, 3) at decode; queries sit at the temporal ids
 (positions[..., 0], one row of positions a batch row). As in the JAX
 model, the prefill cache's `kpos` is batch row 0's temporal ids and a
 decode step writes the scalar `pos`, not the token's M-RoPE id, into
-`kpos` (ROADMAP §3). Not ported yet: the int8 KV cache (ROADMAP queue
-1, item 7) and the training loss (item 9).
+`kpos` (ROADMAP §3).
+
+With `cfg.kv_quant` (the opt decode variant) the cache holds int8 K/V
+and per-(b, t, kv head) bf16 scales {"k_scale", "v_scale": (L, B, T,
+KV)}, quantized by `_quantize_kv` as the JAX model does: prefill attends
+in the model's dtype and only stores the quantized cache; `decode_step`
+quantizes the new token's K/V into its slot and attends with the int8
+attention (`flash_decode_int8` on a card).
+
+`loss_fn` is the training forward: embeddings, the layers (each under
+`torch.utils.checkpoint` unless `cfg.remat` is "none", as JAX's
+`maybe_remat`), the final norm and the chunked cross-entropy. On a card
+its attention is differentiated by the `flash_bwd` kernel.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks
 from .common import Desc, stack_tree, tree_map
-
-_LATER = "not ported yet (ROADMAP queue 1, item 7)"
+from .losses import chunked_cross_entropy
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the JAX transformer this port lacks."""
+    """Raise for a config this model does not run."""
     if cfg.kind not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name} is kind {cfg.kind!r}, not a "
                          "decoder-only transformer")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is {_LATER}")
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, KV, dh) → (int8 values, per-(b, t, kv) bf16 scales): the
+    scale is computed and divided by in float32, and stored as bf16."""
+    x32 = x.float()
+    scale = x32.abs().amax(-1) / 127.0 + 1e-9
+    x8 = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return x8.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def _layer_desc(cfg: ModelConfig) -> dict:
@@ -87,26 +105,34 @@ class TransformerModel:
         cfg = self.cfg
         T = min(cache_len, cfg.swa) if cfg.swa else cache_len
         kv_shape = (cfg.n_layers, batch, T, cfg.n_kv, cfg.dh)
-        return {
-            "k": Desc(kv_shape, init="zeros"),
-            "v": Desc(kv_shape, init="zeros"),
+        kv_dtype = torch.int8 if cfg.kv_quant else torch.bfloat16
+        out = {
+            "k": Desc(kv_shape, init="zeros", dtype=kv_dtype),
+            "v": Desc(kv_shape, init="zeros", dtype=kv_dtype),
             # -1 marks an empty slot (masked out by the attention)
             "kpos": Desc((T,), init="full", scale=-1, dtype=torch.int32),
             "pos": Desc((), init="zeros", dtype=torch.int32),
         }
+        if cfg.kv_quant:
+            out["k_scale"] = Desc(kv_shape[:4], init="ones")
+            out["v_scale"] = Desc(kv_shape[:4], init="ones")
+        return out
 
     # ---------------------------------------------------------------- layers
     def _layer(self, x, lp, cos, sin, kv_fn):
         """One pre-norm block. `kv_fn(k, v)` returns the keys/values to
-        attend to and their positions, and the query positions."""
+        attend to, the query and key positions, and, for the int8 cache,
+        the keys' and values' scales."""
         cfg = self.cfg
         h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = blocks.qkv_project(h, lp["attn"], cfg)
         q = blocks.apply_rope(q, cos, sin)
         k = blocks.apply_rope(k, cos, sin)
-        k_all, v_all, q_pos, kv_pos = kv_fn(k, v)
+        k_all, v_all, q_pos, kv_pos, *scales = kv_fn(k, v)
+        k_scale, v_scale = scales or (None, None)
         attn = attention(q, k_all, v_all, causal=True, window=cfg.swa,
                          q_positions=q_pos, kv_positions=kv_pos,
+                         k_scale=k_scale, v_scale=v_scale,
                          impl=self.attn_impl, device=q.device)
         x = x + blocks.attn_out(attn, lp["attn"])
         h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -119,7 +145,8 @@ class TransformerModel:
         of its tokens, its M-RoPE ids (B, S, 3) come from the batch; else
         arange(S)."""
         embed = params["embed"]
-        x = embed[torch.as_tensor(batch["tokens"], device=embed.device)]
+        x = torch.nn.functional.embedding(
+            torch.as_tensor(batch["tokens"], device=embed.device), embed)
         if self.cfg.kind == "vlm":
             patches = torch.as_tensor(batch["patches"], device=embed.device)
             x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -145,6 +172,37 @@ class TransformerModel:
         x = blocks.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return (x[:, -1] @ params["lm_head"].T).float()
 
+    # ------------------------------------------------------------ training
+    def _backbone(self, params, x, positions):
+        """The layers over the whole sequence, then the final norm; each
+        layer is recomputed in backward unless `cfg.remat` is "none"."""
+        cfg = self.cfg
+        cos, sin = self._cos_sin(positions)
+        q_pos = self._q_pos(positions)
+
+        def kv_fn(k, v):
+            return k, v, q_pos, q_pos
+
+        def layer(x, lp):
+            return self._layer(x, lp, cos, sin, kv_fn)
+
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda w: w[i], params["layers"])
+            if cfg.remat != "none" and torch.is_grad_enabled():
+                x = checkpoint(layer, x, lp, use_reentrant=False)
+            else:
+                x = layer(x, lp)
+        return blocks.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of `batch` ({"tokens", "labels"
+        (B, S), -1 = ignore; a VLM's "patches" and "positions"}), float32
+        scalar."""
+        x, positions = self._embed(params, batch)
+        x = self._backbone(params, x, positions)
+        return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
+                                     chunk=self.cfg.ce_chunk)
+
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch, pad_to: int | None = None):
         """Full-prompt forward; returns (last-position logits (B, vocab)
@@ -157,13 +215,22 @@ class TransformerModel:
         cos, sin = self._cos_sin(positions)
         q_pos = self._q_pos(positions)
         shape = (cfg.n_layers, B, T, cfg.n_kv, cfg.dh)
-        ks = torch.zeros(shape, dtype=torch.bfloat16, device=x.device)
+        ks = torch.zeros(shape, device=x.device,
+                         dtype=torch.int8 if cfg.kv_quant else torch.bfloat16)
         vs = torch.zeros_like(ks)
+        if cfg.kv_quant:             # padded slots keep scale 0, as JAX's
+            kscs = torch.zeros(shape[:4], dtype=torch.bfloat16,
+                               device=x.device)
+            vscs = torch.zeros_like(kscs)
 
         for i in range(cfg.n_layers):
             def kv_fn(k, v, i=i):
-                ks[i, :, :S] = k.to(torch.bfloat16)
-                vs[i, :, :S] = v.to(torch.bfloat16)
+                if cfg.kv_quant:     # attention stays in k's dtype
+                    ks[i, :, :S], kscs[i, :, :S] = _quantize_kv(k)
+                    vs[i, :, :S], vscs[i, :, :S] = _quantize_kv(v)
+                else:
+                    ks[i, :, :S] = k.to(torch.bfloat16)
+                    vs[i, :, :S] = v.to(torch.bfloat16)
                 return k, v, q_pos, q_pos
             lp = tree_map(lambda w: w[i], params["layers"])
             x = self._layer(x, lp, cos, sin, kv_fn)
@@ -173,6 +240,8 @@ class TransformerModel:
         kpos[:S] = q_pos[0] if q_pos.dim() == 2 else q_pos
         cache = {"k": ks, "v": vs, "kpos": kpos,
                  "pos": torch.tensor(S, dtype=torch.int32)}
+        if cfg.kv_quant:
+            cache["k_scale"], cache["v_scale"] = kscs, vscs
         return self._logits(params, x), cache
 
     # ---------------------------------------------------------------- decode
@@ -186,6 +255,8 @@ class TransformerModel:
         tokens = torch.as_tensor(batch["tokens"], device=embed.device)
         x = embed[tokens]                                  # (B, 1, D)
         ks, vs = cache["k"], cache["v"]
+        if cfg.kv_quant:
+            kscs, vscs = cache["k_scale"], cache["v_scale"]
         T = ks.shape[2]
         slot = pos % T if cfg.swa else min(pos, T - 1)   # rolling: pos % T
         kpos = cache["kpos"].clone()
@@ -200,6 +271,12 @@ class TransformerModel:
 
         for i in range(cfg.n_layers):
             def kv_fn(k, v, i=i):
+                if cfg.kv_quant:
+                    k8, ksc = _quantize_kv(k)
+                    v8, vsc = _quantize_kv(v)
+                    ks[i, :, slot], vs[i, :, slot] = k8[:, 0], v8[:, 0]
+                    kscs[i, :, slot], vscs[i, :, slot] = ksc[:, 0], vsc[:, 0]
+                    return ks[i], vs[i], q_pos, kpos, kscs[i], vscs[i]
                 ks[i, :, slot] = k[:, 0].to(ks.dtype)
                 vs[i, :, slot] = v[:, 0].to(vs.dtype)
                 return ks[i], vs[i], q_pos, kpos
@@ -208,4 +285,6 @@ class TransformerModel:
 
         new_cache = {"k": ks, "v": vs, "kpos": kpos,
                      "pos": torch.tensor(pos + 1, dtype=torch.int32)}
+        if cfg.kv_quant:
+            new_cache["k_scale"], new_cache["v_scale"] = kscs, vscs
         return self._logits(params, x), new_cache

@@ -327,3 +327,133 @@ def test_kernel_wrapper_takes_per_row_positions_and_refuses_others():
             ta.kernel._check(q, kv, kv,
                              torch.zeros(qp, dtype=torch.int32),
                              torch.zeros(kp, dtype=torch.int32), None)
+
+
+# ----------------------------------------------- int8 KV cache attention
+def _jax_int8(q, k8, v8, ks, vs, kw):
+    """JAX's `blockwise_attention` with k_scale/v_scale on the same
+    numbers (the scales as the same bf16 values)."""
+    pos = {n: jnp.asarray(kw[n].numpy()) for n in ("q_positions",
+                                                    "kv_positions")}
+    return np.asarray(blockwise_attention(
+        jnp.asarray(q.float().numpy()).astype(
+            jnp.bfloat16 if q.dtype == torch.bfloat16 else jnp.float32),
+        jnp.asarray(k8.numpy()), jnp.asarray(v8.numpy()),
+        causal=kw.get("causal", True), window=kw.get("window"), chunk=512,
+        rules=NULL_RULES,
+        k_scale=jnp.asarray(ks.float().numpy()).astype(jnp.bfloat16),
+        v_scale=jnp.asarray(vs.float().numpy()).astype(jnp.bfloat16),
+        **pos).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(8))
+def test_attention_int8_ref_matches_blockwise_attention(case, dtype):
+    """`attention_int8_ref` (and the entry point on the CPU) against JAX's
+    int8 path on every int8 edge case. Tolerance 1e-2 of the output's
+    scale: the scores are the same float32 products in the same order,
+    but the softmax's exp and sum may differ by an ulp, which moves a
+    p / ps that lies within an ulp of a rounding boundary by one step
+    (ps · v8, at most 1/127 of the row's largest p · v_scale times |v8|).
+    In float32 q, most cases agree to 1e-6."""
+    from repro_torch.kernels.attention.cases import int8_cases, int8_inputs
+    name, shape, kw = int8_cases("cpu")[case]
+    kw = {"causal": True, **kw}
+    q, k8, v8, ks, vs = int8_inputs(shape, case, "cpu",
+                                    getattr(torch, dtype))
+    want = _jax_int8(q, k8, v8, ks, vs, kw)
+    got = ta.attention_int8(q, k8, v8, ks, vs, device="cpu", **kw)
+    assert torch.equal(got, ta.attention_int8_ref(q, k8, v8, ks, vs, **kw))
+    assert torch.equal(got, ta.attention(q, k8, v8, k_scale=ks, v_scale=vs,
+                                         device="cpu", **kw))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    scale = max(np.abs(want).max(), 1e-6)
+    assert np.abs(got.float().numpy() - want).max() / scale < 1e-2, name
+
+
+def test_attention_int8_ref_at_several_queries_and_without_positions():
+    """S > 1 rows per KV head and end-aligned default positions, as JAX's
+    int8 path computes them (float32, 1e-5 of the scale)."""
+    from repro_torch.kernels.attention.cases import int8_inputs
+    q, k8, v8, ks, vs = int8_inputs((2, 5, 70, 8, 2, 32), 3, "cpu",
+                                    torch.float32)
+    kw = {"q_positions": torch.arange(65, 70, dtype=torch.int32),
+          "kv_positions": torch.arange(70, dtype=torch.int32)}
+    want = _jax_int8(q, k8, v8, ks, vs, {"window": 20, **kw})
+    got = ta.attention_int8_ref(q, k8, v8, ks, vs, window=20)
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 1e-5
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels.attention import kernel as tk
+    from repro_torch.kernels.attention.cases import int8_inputs
+    q, k8, v8, ks, vs = int8_inputs((1, 1, 64, 8, 8, 64), 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.flash_decode_int8(q, k8, v8, ks, vs)
+    with pytest.raises(TypeError, match="int8"):
+        tk.flash_decode_int8(q, k8.float(), v8, ks, vs)
+    big = int8_inputs((1, 9, 64, 8, 1, 64), 0, "cpu")
+    with pytest.raises(ValueError, match="at most 64"):
+        tk.flash_decode_int8(*big)
+    with pytest.raises(ValueError, match="impl"):
+        ta.attention_int8(q, k8, v8, ks, vs, impl="pallas", device="cpu")
+    assert tk.plan_int8(128, 32768, 8) == (1, 32768)
+    n, keys = tk.plan_int8(1, 4097, 1)
+    assert n * keys >= 4097 and (n - 1) * keys < 4097 and n <= 64
+
+
+# ------------------------------------------------- attention backward
+@pytest.mark.parametrize("case", range(7))
+def test_attention_bwd_ref_matches_jax_vjp(case):
+    """`attention_bwd_ref` against `jax.vjp` of `blockwise_attention` on
+    every backward edge case, float32, 1e-4 of the three gradients'
+    joint scale (sums in other orders)."""
+    import jax
+    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    name, (B, S, H, KV, dh), kw = bwd_cases("cpu")[case]
+    q, k, v, do = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32)
+    pos = kw.get("q_positions")
+    pos = np.arange(S, dtype=np.int32) if pos is None else pos.numpy()
+    out, vjp = jax.vjp(lambda q_, k_, v_: blockwise_attention(
+        q_, k_, v_, q_positions=jnp.asarray(pos), kv_positions=jnp.asarray(
+            pos), causal=kw["causal"], window=kw.get("window"), chunk=512,
+        rules=NULL_RULES), *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do.numpy()))
+    got = ta.attention_bwd(q, k, v, torch.from_numpy(np.array(out)), do,
+                           device="cpu", **kw)
+    scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
+    for g, w in zip(got, want):
+        assert np.abs(g.numpy() - np.asarray(w)).max() / scale < 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(7))
+def test_attention_bwd_ref_matches_autograd_of_attention_ref(case, dtype):
+    """The explicit formulas against autograd through `attention_ref` (the
+    CPU path of `attention`): 2e-5 of the joint scale in float32; in bf16
+    each gradient is rounded to bf16 once on both sides, 1e-2."""
+    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    name, shape, kw = bwd_cases("cpu")[case]
+    q, k, v, do = bwd_inputs(shape, case, "cpu", getattr(torch, dtype))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ta.attention(*leaves, device="cpu", **kw)
+    assert out.grad_fn is not None
+    want = torch.autograd.grad(out, leaves, do)
+    got = ta.attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    scale = max(float(w.float().abs().max()) for w in want)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) / scale < tol, name
+
+
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels.attention import kernel as tk
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    q, k, v, do = bwd_inputs((1, 8, 4, 2, 64), 0, "cpu", torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.flash_bwd(q, k, v, q, do)
+    with pytest.raises(ValueError, match="out and dout"):
+        tk.flash_bwd(q, k, v, q[:, :4], do)
+    with pytest.raises(ValueError, match="impl"):
+        ta.attention_bwd(q, k, v, q, do, impl="triton", device="cpu")

@@ -11,7 +11,11 @@ the plain version; the wkv kernel to 1e-4 of the largest |value| of its
 output and of its final state, the JAX package's wkv tolerance; the
 selective scans, unfused and fused, to 1e-5 of the largest |value| of y
 and of its final state, since only the order of y's sums differs from the
-plain version.
+plain version. The int8 decode kernel is held to 1e-2 (float32) and 2e-2
+(bf16) of its output's scale (one step of a quantized probability, and a
+bf16 rounding, see its test) and the
+attention backward to 1e-4 (float32) and 2e-2 (bf16) of its gradients'
+scale.
 """
 
 import numpy as np
@@ -1028,3 +1032,118 @@ def test_reduced_vlm_and_encdec_on_card_match_plain_attention(card):
     assert launches == model.cfg.n_layers + 4 * 2 * model.n_dec
     assert cache["cross_k"].shape[2] == 48
     _close(kern, plain)
+
+
+# -------------------------------------------- int8 decode and backward
+def _rel(got, want):
+    scale = max(float(want.float().abs().max()), 1e-12)
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(8))
+def test_flash_decode_int8_matches_plain_on_card(card, case, dtype):
+    """`flash_decode_int8` against `attention_int8_ref` on the card on the
+    int8 edge cases, within 1e-2 of the output's scale in float32 and
+    2e-2 in bf16: the integer products and the scores' float32 products
+    agree, but an exp or a softmax sum one ulp apart can move a p / ps on
+    a rounding boundary by one step of ps · v8 (up to 1/127 of the
+    scale), and a bf16 output rounds once more (2^-8)."""
+    from repro_torch.kernels.attention.cases import int8_cases, int8_inputs
+    name, shape, kw = int8_cases(card)[case]
+    q, k8, v8, ks, vs = int8_inputs(shape, case, card, dtype)
+    ta.reset_launches()
+    got = ta.attention_int8(q, k8, v8, ks, vs, device=card, **kw)
+    want = ta.attention_int8(q, k8, v8, ks, vs, device=card, impl="ref",
+                             **kw)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_decode_int8"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got, want) < (1e-2 if dtype == torch.float32 else 2e-2), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(7))
+def test_flash_bwd_matches_plain_on_card(card, case, dtype):
+    """`flash_bwd` against `attention_bwd_ref` (TF32 off) on the backward
+    edge cases, each gradient within 1e-4 (float32) or 2e-2 (bf16, one
+    rounding of each output) of the three gradients' joint scale."""
+    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    name, shape, kw = bwd_cases(card)[case]
+    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    out = ta.attention(q, k, v, device=card, **kw)
+    ta.reset_launches()
+    got = ta.attention_bwd(q, k, v, out, do, device=card, **kw)
+    want = ta.attention_bwd(q, k, v, out, do, device=card, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_bwd"] == 1
+    scale = max(float(w.float().abs().max()) for w in want)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) / scale < tol, name
+
+
+def test_attention_on_card_keeps_the_autograd_graph(card):
+    """Any attention input on the card that requires grad gives an output
+    with a grad_fn, and its gradients come from `flash_bwd`; without
+    grad the forward kernel alone runs."""
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    q, k, v, do = bwd_inputs((2, 70, 8, 2, 64), 3, card, torch.bfloat16)
+    for which in range(3):
+        leaves = [x.clone().requires_grad_(i == which)
+                  for i, x in enumerate((q, k, v))]
+        ta.reset_launches()
+        out = ta.attention(*leaves, device=card)
+        assert out.grad_fn is not None, which
+        out.backward(do)
+        assert ta.LAUNCHES["flash_bwd"] == 1
+        assert leaves[which].grad is not None
+    with torch.no_grad():
+        assert ta.attention(q.requires_grad_(), k, v,
+                            device=card).grad_fn is None
+
+
+def test_reduced_training_resumes_on_card_with_the_same_losses(card):
+    """The reduced qwen3-32b trained 6 steps on the card, and again killed
+    after its checkpoint at step 3 and resumed from fresh parameters:
+    the same losses at steps 4-6 and the same parameters, bit for bit
+    (every kernel on the path is deterministic: no float atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.storage import InMemoryBlobStore
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      TrainLoopConfig, run)
+
+    cfg = get_config("qwen3-32b", reduced=True)
+    model = build_model(cfg)
+
+    class Batches:
+        def batches(self, start, n):
+            for step in range(start, start + n):
+                rng = np.random.default_rng(step)
+                toks = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (2, 65)).astype(np.int32))
+                yield step, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fresh(seed):
+        return init_params(model.param_desc(),
+                           torch.Generator(device=card).manual_seed(seed),
+                           card)
+
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=6)
+    loop = dict(checkpoint_every=3, log_every=1)
+    ta.reset_launches()
+    whole, wlog = run(model, fresh(0), Batches(), None,
+                      TrainLoopConfig(total_steps=6, **loop), opt)
+    assert ta.LAUNCHES["flash_bwd"] == 6 * cfg.n_layers
+    ckpt = CheckpointManager(InMemoryBlobStore())
+    _, first = run(model, fresh(0), Batches(), ckpt,
+                   TrainLoopConfig(total_steps=3, **loop), opt)
+    state, second = run(model, fresh(1), Batches(), ckpt,
+                        TrainLoopConfig(total_steps=6, **loop), opt)
+    assert second.resumed_from == 3
+    assert first.losses + second.losses == wlog.losses
+    for a, b in zip(tree_leaves(whole), tree_leaves(state)):
+        assert torch.equal(a, b)

@@ -225,6 +225,12 @@ def test_cuda_without_a_card_raises():
             call()
 
 
+# each library's CUDA sources, built into one shared library
+SOURCES = {"intersect": ["intersect.cu"],
+           "attention": ["attention.cu", "attention_bwd.cu",
+                         "decode_int8.cu"]}
+
+
 @pytest.mark.parametrize("package", ["intersect", "attention"])
 def test_kernel_build_needs_nvcc_and_reuses_a_built_library(tmp_path,
                                                             monkeypatch,
@@ -240,7 +246,7 @@ def test_kernel_build_needs_nvcc_and_reuses_a_built_library(tmp_path,
         library.build()
     built = library.library_path()
     assert built.parent == tmp_path and built.name.startswith(f"lib{package}-")
-    assert [p.name for p in library.sources()] == [f"{package}.cu"]
+    assert [p.name for p in library.sources()] == SOURCES[package]
     built.write_bytes(b"")          # same sources and flags: no rebuild
     assert library.build() == built
     assert library.build_info["seconds"] == 0.0

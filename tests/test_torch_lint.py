@@ -217,7 +217,7 @@ def test_kernel_parity_holds_every_entry_point_of_the_port():
             n.name for n in ctx.tree.body if getattr(n, "name", "_")[0] != "_"
             and n.name in reach and rule._takes_impl(n))
     assert found == {
-        "attention": ["attention"],
+        "attention": ["attention", "attention_bwd", "attention_int8"],
         "intersect": ["combine_batch", "combine_cluster", "combine_keys",
                       "intersect", "intersect_batch", "intersect_keys"],
         "rwkv": ["wkv"],

@@ -156,8 +156,8 @@ def test_shared_leaves_are_ranked_once():
     (np.array([1, 2**63], dtype=np.uint64), r"\[0, 2\*\*63\)"),
     (np.array([2**64 - 1], dtype=np.uint64), r"\[0, 2\*\*63\)"),
     (np.array([-3, 4], dtype=np.int64), r"\[0, 2\*\*63\)"),
-    (np.array([5, 3, 9], dtype=np.uint64), "sorted and unique"),
-    (np.array([3, 3, 9], dtype=np.uint64), "sorted and unique"),
+    (np.array([5, 3, 9], dtype=np.uint64), "must be sorted"),
+    (np.array([3, 9, 9, 4], dtype=np.uint64), "must be sorted"),
 ])
 def test_the_helper_refuses_bad_leaves(leaf, err):
     ok = np.array([0, 7], dtype=np.uint64)
@@ -168,6 +168,32 @@ def test_the_helper_refuses_bad_leaves(leaf, err):
                                          device="cpu")):
         with pytest.raises(ValueError, match=err):
             call()
+
+
+@pytest.mark.parametrize("n_docs", [None, 20])
+def test_repeated_keys_count_once_with_their_first_length(n_docs):
+    """A key that repeats in its leaf (a corpus that holds one document
+    twice) is one result, as the bitmap route gives, with the length of
+    its first place; the ranks stay unique within each leaf."""
+    a = np.array([2, 5, 5, 5, 9, 11, 11], dtype=np.uint64)
+    b = np.array([5, 9, 9, 11], dtype=np.uint64)
+    la = np.array([1, 2, 3, 4, 5, 6, 7], dtype=np.uint64)
+    lb = np.array([8, 9, 10, 11], dtype=np.uint64)
+    ranked = tx.rank_postings([[a, b]], n_docs, device="cpu",
+                              lengths=[[la, lb]])
+    assert ranked.ranks.tolist() == ([0, 1, 2, 3, 1, 2, 3] if n_docs is None
+                                     else [2, 5, 9, 11, 5, 9, 11])
+    assert ranked.bounds.tolist() == [[[0, 4], [4, 7]]]
+    assert ranked.lengths.tolist() == [1, 2, 5, 6, 8, 9, 11]
+    keys, counts, key_len = tx.combine_keys(
+        [[a, b], [a]], [[(OR, 0, 1)], []], device="cpu",
+        lengths=[[la, lb], [la]])
+    assert keys.tolist() == [2, 5, 9, 11, 2, 5, 9, 11]
+    assert counts.tolist() == [4, 4]
+    assert key_len.tolist() == [1, 8, 9, 11, 1, 2, 5, 6]
+    keys, counts = tx.intersect_keys([[a, b], [a, a]], n_docs=n_docs,
+                                     device="cpu")
+    assert keys.tolist() == [5, 9, 11, 2, 5, 9, 11]
 
 
 def test_leaves_that_straddle_each_other_are_not_unsorted():
@@ -216,7 +242,7 @@ def test_key_route_on_the_cpu_launches_nothing_and_empty_batches():
 
 @pytest.mark.parametrize("case", ["empty_leaf", "universe_33",
                                   "andnot_identity", "high_blob",
-                                  "one_tile"])
+                                  "one_tile", "repeated_keys"])
 def test_key_lengths_follow_the_last_leaf_holding_each_key(case):
     rows, progs, _ = edge_case(case)
     rng = np.random.default_rng(11)

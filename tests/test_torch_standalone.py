@@ -84,6 +84,20 @@ assert out.tokens.shape == (2, 2) and torch.isfinite(out.logits).all()
 x = torch.rand(1, 5, 2, 32)
 o, s = tr.wkv(x, x, x, x, x[0, 0], device="cpu")
 assert o.shape == x.shape and s.shape == (1, 2, 32, 32)
+cfg = get_config("qwen3-32b", reduced=True).with_(kv_quant=True)
+model = build_model(cfg)
+params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                     "cpu")
+out = decode_loop(model, params, torch.randint(4, cfg.vocab, (2, 9)), 2)
+assert out.tokens.shape == (2, 2) and torch.isfinite(out.logits).all()
+
+import tempfile
+import repro_torch.training, repro_torch.launch.steps
+with tempfile.TemporaryDirectory() as workdir:
+    sys.argv = ["train", "--device", "cpu", "--reduced", "--steps", "2",
+                "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+                "--workdir", workdir]
+    runpy.run_module("repro_torch.launch.train", run_name="__main__")
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -94,8 +108,9 @@ print("standalone ok", [len(r.refs) for r in bitmap])
 def test_port_builds_and_queries_with_jax_repro_msgpack_blocked():
     """Index path, the serving tier (a 2-shard cluster behind
     `SearchService`, a `Frontend`, the fused path, `serve --mode
-    search`), then configs, models, attention, the serve loop, and
-    RWKV's model and wkv."""
+    search`), then configs, models, attention, the serve loop, RWKV's
+    model and wkv, the int8 KV cache, and `repro_torch.training` through
+    `python -m repro_torch.launch.train`."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
                           cwd=REPO, capture_output=True, text=True,

@@ -237,16 +237,131 @@ def test_init_params_follows_the_jax_init_rules(jax_side):
     assert cache["kpos"].tolist() == [-1] * 9 and int(cache["pos"]) == 0
 
 
-def test_only_the_int8_kv_cache_still_raises():
-    """Every architecture of the registry builds, full size and reduced;
-    the int8 KV cache is the one part still to port."""
+def test_every_arch_builds_and_the_int8_kv_cache_too():
+    """Every architecture of the registry builds, full size and reduced,
+    and so does every transformer with the int8 KV cache; its cache
+    holds int8 K/V and bf16 scales of ones, as JAX's `cache_desc`."""
     from repro_torch.configs import ARCHS
     for arch in ARCHS:
         build_model(get_config(arch, reduced=True))
         build_model(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        build_model(get_config("qwen3-32b", reduced=True).with_(
-            kv_quant=True))
+    model = build_model(get_config("qwen3-32b", reduced=True).with_(
+        kv_quant=True))
+    jmodel = jax_build_model(jax_get_config("qwen3-32b", reduced=True)
+                             .with_(kv_quant=True))
+    cache = init_params(model.cache_desc(2, 9), torch.Generator(), "cpu")
+    jdesc = jmodel.cache_desc(2, 9)
+    assert sorted(cache) == sorted(jdesc)
+    for name, t in cache.items():
+        assert tuple(t.shape) == tuple(jdesc[name].shape), name
+        assert str(t.dtype).removeprefix("torch.") == \
+            jnp.dtype(jdesc[name].dtype).name, name
+    assert cache["k"].dtype == torch.int8 and not cache["k"].any()
+    assert torch.equal(cache["k_scale"], torch.ones(2, 2, 9, 2,
+                                                    dtype=torch.bfloat16))
+
+
+def test_quantize_kv_is_bit_equal_to_jax():
+    """`_quantize_kv` on equal inputs: the same int8 values and the same
+    bf16 scales, bit for bit, float32 and bf16 inputs, with rows of zeros
+    and values on the rounding boundaries."""
+    from repro.models.transformer import _quantize_kv as jax_quantize
+    from repro_torch.models.transformer import _quantize_kv
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 3, (2, 33, 4, 32)).astype(np.float32)
+    x[0, 0] = 0.0
+    x[1, 1, :, :4] = [127.0, 0.5, -0.5, 1.5]
+    for dtype in (np.float32, jnp.bfloat16):
+        jx = jnp.asarray(x).astype(dtype)
+        j8, js = jax_quantize(jx)
+        t8, ts = _quantize_kv(tensor_from_numpy(np.asarray(jx), "cpu"))
+        assert t8.dtype == torch.int8 and ts.dtype == torch.bfloat16
+        assert np.array_equal(t8.numpy(), np.asarray(j8))
+        assert np.array_equal(ts.view(torch.int16).numpy(),
+                              np.asarray(js).view(np.int16))
+
+
+def _vlm_batches(cfg, rng, S_img=12, S_txt=28, extra=EXTRA):
+    """A VLM prefill batch (patches, tokens, M-RoPE ids per row) and its
+    decode steps' tokens and (B, 1, 3) ids."""
+    S_all = S_img + S_txt
+    ids = np.zeros((B, S_all, 3), np.int32)
+    for b in range(B):
+        ids[b, :S_img, 0] = 0
+        ids[b, :S_img, 1] = np.arange(S_img) // 4
+        ids[b, :S_img, 2] = np.arange(S_img) % 4
+        ids[b, S_img:] = (np.arange(S_txt) + 4 + b)[:, None]
+    pre = {"patches": rng.normal(0, 1, (B, S_img, cfg.d_model)).astype(
+               np.float32),
+           "tokens": rng.integers(4, cfg.vocab, (B, S_txt)).astype(np.int32),
+           "positions": ids}
+    steps = [{"tokens": rng.integers(4, cfg.vocab, (B, 1)).astype(np.int32),
+              "positions": np.repeat(ids[:, -1:] + 1 + t, 1, axis=1)}
+             for t in range(extra)]
+    return S_all, pre, steps
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "qwen2-vl-72b"])
+def test_int8_kv_cache_prefill_and_decode_match_jax(arch):
+    """`kv_quant=True` (the opt decode variant) on the reduced dense model
+    and the VLM, float32 weights: prefill logits within 1e-3 of the
+    scale (prefill attends in float32 on both sides and only stores the
+    quantized cache), three decode steps through the int8 attention
+    within 1e-2 (a K/V value within an ulp of a rounding boundary may
+    quantize to the neighbouring int8, and one p8 step moves the output
+    by 1/127 of a row's largest p · v_scale); `kpos`, `pos` equal, the
+    int8 cache equal but for at most 1 in 10^3 values one step apart,
+    the scales within a bf16 ulp."""
+    cfg = jax_get_config(arch, reduced=True).with_(kv_quant=True)
+    jmodel = jax_build_model(cfg)
+    jparams = _cast_jax(jax_init_params(jmodel.param_desc(),
+                                        jax.random.PRNGKey(5)), "float32")
+    rng = np.random.default_rng(6)
+    if cfg.kind == "vlm":
+        S_all, pre, steps = _vlm_batches(cfg, rng)
+    else:
+        S_all = S
+        toks = rng.integers(4, cfg.vocab, (B, S + EXTRA)).astype(np.int32)
+        pre = {"tokens": toks[:, :S]}
+        steps = [{"tokens": toks[:, S + t:S + t + 1]} for t in range(EXTRA)]
+    pad = S_all + EXTRA
+    logits, cache = jax.jit(lambda p, b: jmodel.prefill(
+        p, b, NULL_RULES, pad_to=pad))(
+        jparams, {k: jnp.asarray(v) for k, v in pre.items()})
+    want = [(np.asarray(logits), jax.tree.map(np.asarray, cache))]
+    dec = jax.jit(lambda p, c, b: jmodel.decode_step(p, c, b, NULL_RULES))
+    for b in steps:
+        logits, cache = dec(jparams, cache,
+                            {k: jnp.asarray(v) for k, v in b.items()})
+        want.append((np.asarray(logits), jax.tree.map(np.asarray, cache)))
+
+    model = build_model(get_config(arch, reduced=True).with_(kv_quant=True))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    lt, ct = model.prefill(params, {k: torch.from_numpy(v)
+                                    for k, v in pre.items()}, pad_to=pad)
+    got = [(lt, {k: v.clone() for k, v in ct.items()})]
+    for b in steps:
+        lt, ct = model.decode_step(params, ct, {k: torch.from_numpy(v)
+                                                for k, v in b.items()})
+        got.append((lt, {k: v.clone() for k, v in ct.items()}))
+
+    for step, ((lj, cj), (lt, ct)) in enumerate(zip(want, got)):
+        scale = max(float(np.abs(lj).max()), 1.0)
+        tol = 1e-2 if step else 1e-3
+        assert float(np.abs(lt.numpy() - lj).max()) <= tol * scale, step
+        assert sorted(ct) == sorted(cj)
+        assert np.array_equal(ct["kpos"].numpy(), cj["kpos"])
+        assert int(ct["pos"]) == int(cj["pos"])
+        for name in ("k", "v"):
+            assert ct[name].dtype == torch.int8
+            diff = np.abs(ct[name].numpy().astype(np.int32)
+                          - cj[name].astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, name
+        for name in ("k_scale", "v_scale"):
+            assert ct[name].dtype == torch.bfloat16
+            sj = np.asarray(cj[name], np.float32)
+            assert np.allclose(ct[name].float().numpy(), sj, rtol=2**-7,
+                               atol=0), name
 
 
 def test_rwkv_builds_and_its_training_loss_raises():
