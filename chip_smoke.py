@@ -29,8 +29,11 @@ and 48, ragged T, a single valid key, every key masked), bf16 and
 float32 queries, within 1e-2 of the output's scale; `attn_bwd_edge`: the
 attention backward against `attention_bwd_ref` on `bwd_cases` (causal,
 window, positions per row, g = 1, 8 and 48, dh 64 and 128, ragged S, S =
-1), dq, dk and dv within 1e-4 (float32) and 2e-2 (bf16) of their joint
-scale). Then it drives twelve paths at a real size, each with the launch
+1, several 128-row items with S not a multiple of 64, a window narrower
+than a tile, g = 8 at dh 64 with positions per row), dq, dk and dv
+within 1e-4 (float32: the FMA route) and 2e-2 (bf16: the tensor-core
+route) of their joint scale, each dtype on the route `plan_bwd` names).
+Then it drives twelve paths at a real size, each with the launch
 counts zeroed just before it and read just after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
@@ -138,7 +141,8 @@ of their scale;
   index, its keyword-filtered `IndexedCorpusLoader` (2 × 4096 tokens),
   20 steps of `training.run` (AdamW, async checkpoints every 10 steps
   into host memory): exactly 2 forward (one the remat's recompute) and 1
-  backward attention launch a layer and step, the loss falling; a fresh
+  backward attention launch a layer and step, every backward launch on
+  the tensor-core route (`BWD_ROUTES`), the loss falling; a fresh
   run from other weights resumes from the step-10 checkpoint and must
   give steps 11-20's losses bit for bit; one step's loss and gradients
   through the backward kernel vs plain autograd on a 1-layer cut.
@@ -155,8 +159,11 @@ profiler's device time, the kernel alone) beside the plain version, one
 PyTorch library call where there is one, and the least time the card
 needs for the same work; the int8 decode kernel at decode_32k's shape
 (B 128, T 32768) beside the bf16 decode kernel and SDPA on the same cache
-in bf16, and the attention backward at the train path's shape beside
-SDPA's forward and backward through autograd; both scan kernels, the fused one at the Jamba
+in bf16, and the attention backward at the train path's shape on both
+routes (the tensor-core one with the forward's log-sum-exp, the FMA one
+recomputing it) beside SDPA's backward alone and its forward and
+backward through autograd, and the forward there with and without the
+log-sum-exp write; both scan kernels, the fused one at the Jamba
 path's shapes and the unfused one at the same (B, S, D, N), also by the
 profiler's device time.
 
@@ -219,10 +226,10 @@ FUSED_CANDIDATES = 1_500_000
 FUSED_FULL_MAX = 1000
 
 REPLACES = {
-    "intersect": "src/repro/kernels/intersect/kernel.py:65",
-    "intersect_batch": "src/repro/kernels/intersect/kernel.py:220",
-    "combine_batch": "src/repro/kernels/intersect/kernel.py:127",
-    "combine_cluster": "src/repro/kernels/intersect/kernel.py:184",
+    "intersect": "src/repro/kernels/intersect/kernel.py:66",
+    "intersect_batch": "src/repro/kernels/intersect/kernel.py:221",
+    "combine_batch": "src/repro/kernels/intersect/kernel.py:128",
+    "combine_cluster": "src/repro/kernels/intersect/kernel.py:185",
 }
 SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
 # The index path's key route, by the bitmap entry point it took over from
@@ -336,7 +343,10 @@ RAG_QUERIES = ("error fetch", "received AND exception",
 INT8_TOL = {"float32": 1e-2, "bfloat16": 2e-2}
 INT8_VS_BF16_TOL = 0.1
 INT8_SOURCE = "src/repro_torch/kernels/attention/csrc/decode_int8.cu"
-BWD_SOURCE = "src/repro_torch/kernels/attention/csrc/attention_bwd.cu"
+# the backward's two routes (kernels.attention.plan_bwd): bf16 at dh 64
+# and 128 on the tensor cores (the train path's), float32 and dh 32 on FMAs
+BWD_SOURCE = "src/repro_torch/kernels/attention/csrc/attention_bwd_tc.cu"
+BWD_FMA_SOURCE = "src/repro_torch/kernels/attention/csrc/attention_bwd.cu"
 PORT_ONLY = "none: port only (the JAX package computes it with XLA, {})"
 # the attention backward vs its plain version, of the gradients' joint
 # scale: float32 sums in another order; bf16 one rounding of each output
@@ -1949,33 +1959,56 @@ def int8_edge_phase(ta, device) -> dict[str, float]:
 def attn_bwd_edge_phase(ta, device) -> dict[str, float]:
     """`flash_bwd` vs `attention_bwd_ref` on the backward edge cases
     (`kernels.attention.cases.bwd_cases`: causal, window, positions per
-    row, g = 1, 8 and 48, dh 64 and 128, S ragged and S = 1), float32 and
-    bf16: the largest error of dq, dk and dv over their joint scale,
-    within BWD_TOL."""
+    row, g = 1, 8 and 48, dh 32, 64 and 128, S ragged and S = 1), float32
+    and bf16: the largest error of dq, dk and dv over their joint scale,
+    within BWD_TOL. Each case runs with the log-sum-exp recomputed by the
+    pre-pass and, where the forward kernel writes it (`forward_lse`: bf16
+    prefill, as on the train path), once more with the forward's."""
     import torch
     from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
-    errs = {}
+    errs, routes, handed = {}, {}, {}
     cases = bwd_cases(device)
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).removeprefix("torch.")
         errs[key] = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        handed[key] = []
+        ta.reset_launches()
         for i, (name, shape, kw) in enumerate(cases):
             q, k, v, do = bwd_inputs(shape, i, device, dtype)
             out = ta.attention(q, k, v, device=device, **kw)
-            got = ta.attention_bwd(q, k, v, out, do, device=device, **kw)
+            runs = [ta.attention_bwd(q, k, v, out, do, device=device, **kw)]
             want = ta.attention_bwd(q, k, v, out, do, device=device,
                                     impl="ref", **kw)
+            if ta.forward_lse(q, k):
+                lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                                  device=device)
+                out_l = ta.flash_attention(q, k, v, lse=lse, **kw)
+                if not torch.equal(out_l, out):
+                    raise AssertionError(f"flash_attention {name} {key}: "
+                                         "the output moved with lse=")
+                runs.append(ta.flash_bwd(q, k, v, out, do, lse=lse, **kw))
+                handed[key].append(name)
             torch.cuda.synchronize()
             scale = max(float(w.float().abs().max()) for w in want)
-            for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-                rel = float((g.float() - w.float()).abs().max()) / scale
-                if not (g.dtype == dtype and rel <= BWD_TOL[key]):
-                    raise AssertionError(f"flash_bwd {name} {key} {grad}: "
-                                         f"{rel} of the gradients' scale "
-                                         f"(> {BWD_TOL[key]})")
-                errs[key][grad] = max(errs[key][grad], rel)
+            for got, how in zip(runs, ("recomputed", "forward's")):
+                for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+                    rel = float((g.float() - w.float()).abs().max()) / scale
+                    if not (g.dtype == dtype and rel <= BWD_TOL[key]):
+                        raise AssertionError(
+                            f"flash_bwd {name} {key} {grad} ({how} lse): "
+                            f"{rel} of the gradients' scale "
+                            f"(> {BWD_TOL[key]})")
+                    errs[key][grad] = max(errs[key][grad], rel)
+        routes[key] = dict(ta.BWD_ROUTES)
+        want = {ta.plan_bwd(dtype, shape[4]) for _, shape, _ in cases}
+        if set(routes[key]) != want or sum(routes[key].values()) != \
+                len(cases) + len(handed[key]):
+            raise AssertionError(f"flash_bwd {key} routes {routes[key]}")
+    if not handed["bfloat16"] or handed["float32"]:
+        raise AssertionError(f"forward lse handed over in {handed}")
     emit({"phase": "attn_bwd_edge", "cases": 2 * len(cases),
           "names": [c[0] for c in cases], "max_err_over_scale": errs,
+          "routes": routes, "forward_lse_cases": handed,
           "tolerance": BWD_TOL})
     return {key: max(e.values()) for key, e in errs.items()}
 
@@ -2191,6 +2224,13 @@ def attn_time_shape(ta, flush, gen, name: str, key: tuple, kw: dict,
     out = torch.empty_like(q)
     kernel_ms = cuda_ms(lambda: ta.launch(q, k, v, out, causal, window,
                                           qpos, kpos), flush)
+    # the prefill kernel also writing the rows' log-sum-exp, as the train
+    # path's forward runs it
+    lse_ms = None
+    if ta.forward_lse(q, k):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+        lse_ms = cuda_ms(lambda: ta.launch(q, k, v, out, causal, window,
+                                           qpos, kpos, lse), flush)
     plain_ms = cuda_ms(lambda: ta.attention_ref(q, k, v, **kw), flush)
     # the library yardstick: one SDPA call, (B, H, S, dh) views; causal
     # where the positions are the shared arange(S) of a prefill, no mask
@@ -2228,7 +2268,8 @@ def attn_time_shape(ta, flush, gen, name: str, key: tuple, kw: dict,
         "positions": "per row" if qpos.dim() == 2 or kpos.dim() == 2
         else "shared",
         "kernel": kernel, "n_split": n_split,
-        "launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+        "launches": launches, "ms": kernel_ms, "ms_with_lse": lse_ms,
+        "plain_ms": plain_ms,
         "library_ms": library_ms, "library": "scaled_dot_product_attention"
         f"(enable_gqa=True, mask {mask})", "library_max_abs_diff": sdpa_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
@@ -3631,10 +3672,17 @@ def train_profile(model, state, batch, device) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     busy_us, events, by_name = _device_time(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    # the attention kernels of the step, however small: the backward's
+    # three (bwd_pre, bwd_dkdv*, bwd_dq*) and the forward's
+    attn = {name[:90]: [us, n] for name, (us, n) in by_name.items()
+            if "bwd_" in name or "flash_" in name}
     return {"host_wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1 - busy_us / wall_us if events else None,
             "device_events": events,
-            "top_kernels_us": [[name[:90], us, n] for name, (us, n) in top]}
+            "top_kernels_us": [[name[:90], us, n] for name, (us, n) in top],
+            "attention_kernels_us": attn,
+            "flash_bwd_us": sum(us for name, (us, _) in attn.items()
+                                if "bwd_" in name)}
 
 
 def train_phase(args, device) -> dict:
@@ -3683,6 +3731,7 @@ def train_phase(args, device) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(ta.LAUNCHES)
+    bwd_routes = dict(ta.BWD_ROUTES)
     peak_bytes = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------
     n_params = param_count(state["params"])
@@ -3696,6 +3745,9 @@ def train_phase(args, device) -> dict:
         raise AssertionError(f"the train path launched {launches}, expected "
                              f"{want} (forward, remat recompute, backward "
                              "per layer and step)")
+    if bwd_routes != {"tc": want["flash_bwd"]}:
+        raise AssertionError(f"the train path's backward took the routes "
+                             f"{bwd_routes}, not the tensor cores' alone")
     steps = sorted(int(n.split("step-")[1][:10]) for n in
                    ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
     if steps != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
@@ -3732,6 +3784,7 @@ def train_phase(args, device) -> dict:
           "step_ms_median": 1e3 * step_s, "step_s": whole.seconds,
           "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
           "host_mb_after_run": host_after, "launches": launches,
+          "bwd_routes": bwd_routes,
           "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
           "resumed_losses": resumed.losses,
           "resume_max_abs_diff": diff, "resume_bitwise": diff == 0.0,
@@ -3749,7 +3802,7 @@ def train_phase(args, device) -> dict:
     if not (grad["loss_rel"] <= GRAD_LOSS_TOL and max(
             grad["leaf_norm_rel"].values()) <= GRAD_LEAF_TOL):
         raise AssertionError(f"gradients through flash_bwd vs plain: {grad}")
-    return {"launches": launches,
+    return {"launches": launches, "bwd_routes": bwd_routes,
             "grad_err": max(grad["leaf_norm_rel"].values())}
 
 
@@ -3771,8 +3824,13 @@ def bwd_bound(B, S, H, KV, dh, nbytes_el) -> tuple:
 def bwd_timing_phase(ta, device, seed: int, launches: dict,
                      edge_err: dict, train: dict) -> dict:
     """flash_bwd at the train path's shape (TRAIN_BATCH, TRAIN_SEQ, 64/8,
-    128) bf16 causal: the bare launch, the plain version and SDPA's
-    forward + backward through autograd (the library's yardstick)."""
+    128) bf16 causal, in one call: the tensor-core route with the
+    forward's log-sum-exp (as the train path runs it), the FMA route
+    (its pre-pass recomputing the log-sum-exp, as without the forward's),
+    the plain version, SDPA's backward alone (its forward run once
+    outside the timed window) and SDPA's forward + backward; and the
+    forward kernel at that shape with and without the log-sum-exp
+    write."""
     import torch
     import torch.nn.functional as F
 
@@ -3783,18 +3841,29 @@ def bwd_timing_phase(ta, device, seed: int, launches: dict,
     q, k, v, do = bwd_inputs(shape, seed, device, torch.bfloat16)
     pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=device)
     kw = {"causal": True, "q_positions": pos, "kv_positions": pos}
-    out = ta.attention(q, k, v, device=device, **kw)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    scratch = torch.empty(2, TRAIN_BATCH * TRAIN_SEQ * cfg_h,
-                          dtype=torch.float32, device=device)
-    kernel_ms = cuda_ms(lambda: ta.launch_bwd(q, k, v, out, do, dq, dk, dv,
-                                              True, None, pos, pos, scratch),
-                        flush, iters=10, warmup=2)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    out = ta.flash_attention(q, k, v, lse=lse, **kw)
+    fwd_ms = cuda_ms(lambda: ta.launch(q, k, v, out, True, None, pos, pos),
+                     flush, iters=10, warmup=2)
+    fwd_lse_ms = cuda_ms(lambda: ta.launch(q, k, v, out, True, None, pos,
+                                           pos, lse), flush, iters=10,
+                         warmup=2)
     want = ta.attention_bwd(q, k, v, out, do, device=device, impl="ref",
                             **kw)
     scale = max(float(w.float().abs().max()) for w in want)
-    err = max(float((g.float() - w.float()).abs().max()) / scale
-              for g, w in zip((dq, dk, dv), want))
+    scratch = torch.empty(2, TRAIN_BATCH * TRAIN_SEQ * cfg_h,
+                          dtype=torch.float32, device=device)
+    timed, err = {}, {}
+    for route, given in (("tc", lse), ("fma", None)):
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        timed[route] = cuda_ms(
+            lambda: ta.launch_bwd(q, k, v, out, do, dq, dk, dv, True, None,
+                                  pos, pos, scratch, lse=given,
+                                  route=route),
+            flush, iters=10, warmup=2)
+        err[route] = max(float((g.float() - w.float()).abs().max()) / scale
+                         for g, w in zip((dq, dk, dv), want))
+        del dq, dk, dv
     del want
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: ta.attention_bwd(q, k, v, out, do,
@@ -3811,28 +3880,50 @@ def bwd_timing_phase(ta, device, seed: int, launches: dict,
                                            enable_gqa=True)
         torch.autograd.grad(o, (qt, kt, vt), dot)
 
-    library_ms = cuda_ms(sdpa, flush, iters=10, warmup=2)
+    library_fwd_bwd_ms = cuda_ms(sdpa, flush, iters=10, warmup=2)
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True), flush, iters=10,
+        warmup=2)
+    del o_sdpa
     bound_ms, bound_by, flops, nbytes = bwd_bound(
         TRAIN_BATCH, TRAIN_SEQ, cfg_h, cfg_kv, dh, 2)
-    if not err <= BWD_TOL["bfloat16"]:
-        raise AssertionError(f"flash_bwd at the train shape: {err}")
+    for route in timed:
+        if not err[route] <= BWD_TOL["bfloat16"]:
+            raise AssertionError(f"flash_bwd ({route}) at the train shape: "
+                                 f"{err[route]}")
+    train_routes = train["bwd_routes"]
     return {"name": "flash_bwd", "route": "cuda", "source": BWD_SOURCE,
             "replaces": PORT_ONLY.format("jax.grad of "
                                          "src/repro/models/blocks.py:76"),
             "launches": launches["flash_bwd"],
             "launches_by_path": {"train": launches["flash_bwd"]},
-            "max_abs_err": max(max(edge_err.values()), err,
+            "routes": {
+                "tc": {"source": BWD_SOURCE, "takes": "bf16, dh 64 and 128",
+                       "launches": train_routes.get("tc", 0),
+                       "ms": timed["tc"], "with": "the forward's lse"},
+                "fma": {"source": BWD_FMA_SOURCE,
+                        "takes": "float32, dh 32",
+                        "launches": train_routes.get("fma", 0),
+                        "ms": timed["fma"],
+                        "with": "the lse recomputed by its pre-pass"}},
+            "max_abs_err": max(max(edge_err.values()), *err.values(),
                                train["grad_err"]),
             "max_err_by_check": {"attn_bwd_edge": edge_err,
                                  "train_shape": err,
                                  "train_grad_leaf_norm_rel":
                                      train["grad_err"]},
-            "tolerance": BWD_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention forward + backward "
-                       "(is_causal, enable_gqa) through autograd",
-            "share_of_bound": bound_ms / kernel_ms,
+            "tolerance": BWD_TOL, "ms": timed["tc"], "fma_ms": timed["fma"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention's backward alone "
+                       "(is_causal, enable_gqa): autograd.grad with the "
+                       "graph kept, its forward run once outside",
+            "library_fwd_bwd_ms": library_fwd_bwd_ms,
+            "share_of_bound": bound_ms / timed["tc"],
+            "forward_ms": {"without_lse": fwd_ms, "with_lse": fwd_lse_ms},
             "shape": {"B": TRAIN_BATCH, "S": TRAIN_SEQ, "H": cfg_h,
                       "KV": cfg_kv, "dh": dh, "dtype": "bfloat16",
                       "causal": True}}

@@ -11,7 +11,9 @@ imports TREE's own `chip_smoke.py` and `src/`, builds TREE's attention
 library, and runs TREE's `attn_timing_phase` at the `lm` phase's
 shapes (qwen3-32b: B = 4, 64 heads over 8 KV heads of 128; a causal
 prefill of 2000 positions and a decode step against 2032 slots), with
-the launch counts of 8 layers. Prints the JSON lines; needs a CUDA card.
+the launch counts of 8 layers; `ms_with_lse` is the prefill kernel
+also writing the rows' log-sum-exp (None for a tree whose kernel
+cannot). Prints the JSON lines; needs a CUDA card.
 """
 
 import os
@@ -39,8 +41,9 @@ def main() -> int:
     entry = cs.attn_timing_phase(ta, torch.device("cuda", 0), 0, LM_SHAPES,
                                  {"float32": 0.0, "bfloat16": 0.0})
     cs.emit({"tree": tree, "attention": {
-        kind: {key: shape[key] for key in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "max_abs_err")}
+        kind: {key: shape.get(key) for key in (
+            "ms", "ms_with_lse", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")}
         for kind, shape in entry["shapes"].items()}})
     return 0
 

@@ -3,7 +3,8 @@ it with ctypes.
 
 Each source directory compiles to one shared library with a plain C
 interface (no PyTorch headers, so nvcc takes seconds), named by the
-library's name and a hash of its own sources and flags under `build/` at
+library's name and a hash of its own sources, the headers beside them
+(`*.cuh`) and flags under `build/` at
 the checkout's root; a later process with the same sources reuses it.
 Nothing here runs at import time.
 """
@@ -59,7 +60,7 @@ class Library:
     def library_path(self) -> Path:
         """Where the library for the current sources and flags lives."""
         digest = hashlib.sha1(" ".join(self.flags).encode())
-        for src in self.sources():
+        for src in self.sources() + sorted(self.csrc.glob("*.cuh")):
             digest.update(src.read_bytes())
         return _BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:12]}.so"
 

@@ -131,8 +131,16 @@ def int8_inputs(shape, seed: int, device, dtype=torch.bfloat16):
 def bwd_cases(device) -> list:
     """(name, (B, S, H, KV, dh), keywords) of training attention (S = T):
     causal, a window, positions per batch row, GQA groups of 1, 8 and
-    48, dh 64 and 128, S not a multiple of the 32-row tile, and S = 1."""
+    48, dh 64 and 128, S not a multiple of the 32-row tile, and S = 1;
+    then the tensor-core route's edges (its items of 128 keys or query
+    positions, its tiles of 64): causal over several items with S not a
+    multiple of 64, a window narrower than a tile (whole tiles skipped,
+    the tiles it crosses masked), and g = 8 at dh 64 with positions per
+    row over several items; last dh 32, which the FMA route takes in
+    bf16 too, from the bf16 prefill kernel's log-sum-exp under
+    autograd."""
     rows = torch.stack([torch.arange(77) + 5 * b for b in range(2)])
+    rows300 = torch.stack([torch.arange(300) + 7 * b for b in range(2)])
     return [
         ("causal", (2, 96, 8, 1, 64), {"causal": True}),
         ("causal_g8_ragged", (1, 77, 64, 8, 128), {"causal": True}),
@@ -143,6 +151,14 @@ def bwd_cases(device) -> list:
         ("mqa_g48", (1, 40, 48, 1, 128), {"causal": True}),
         ("noncausal", (1, 50, 4, 4, 64), {"causal": False}),
         ("one_token", (3, 1, 8, 8, 64), {"causal": True}),
+        ("causal_items_ragged", (1, 1000, 16, 2, 128), {"causal": True}),
+        ("window_narrow", (1, 700, 8, 1, 64), {"causal": True,
+                                                "window": 100}),
+        ("g8_dh64_rows", (2, 300, 16, 2, 64),
+         {"causal": True, "q_positions": _i32(rows300, device),
+          "kv_positions": _i32(rows300, device)}),
+        ("dh32_window", (2, 200, 16, 2, 32), {"causal": True,
+                                              "window": 90}),
     ]
 
 

@@ -78,7 +78,10 @@
 //     softmax (exp2 with the scale folded into one FFMA; masks only on
 //     tiles that straddle the diagonal, the window edge, empty slots or
 //     the tail) while P·V runs. p is rounded to bf16 once: both errors
-//     are in PERF.md.
+//     are in PERF.md. Given an lse buffer (training's forward), the
+//     epilogue also writes each row's log-sum-exp, (m + log2 l)·ln 2 from
+//     the running max and sum at hand, for the backward
+//     (attention_bwd_tc.cu); serving passes none.
 //   f32 — flash_fwd_f32: plain FMAs (the tensor cores have no fp32 mode
 //     that meets a 2e-5 tolerance; TF32 keeps about 10 bits). 32 rows,
 //     16-key tiles, four threads per row; every shared array is padded to
@@ -91,10 +94,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float MASKED = -1e30f;     // score of a masked pair, as on the TPU
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Args {
     const void* q;
@@ -106,6 +112,7 @@ struct Args {
     int qpos_bs, kpos_bs;            // batch strides of qpos / kpos; 0: shared
     int B, S, T, H, KV, causal, window;   // window <= 0: none
     float scale;                     // 1 / sqrt(dh)
+    float* lse;                      // (B, S, H) or null: prefill only
 };
 
 __device__ __forceinline__ int q_position(const Args& a, int b, int s) {
@@ -163,29 +170,7 @@ __device__ void block_q_range(const Args& a, int b, int g, int r0, int r1,
     __syncthreads();
 }
 
-// The largest value over the four threads that share a row.
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
 
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
-    return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (x0, x1) as one bf16 pair; x0 in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16x2(float x0, float x1) {
-    return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
-}
 
 // (x0, x1) as bf16 pairs hi and lo with hi + lo = (x0, x1) to ~16 bits;
 // x0 goes to the low half, the lower column of an mma fragment.
@@ -227,12 +212,6 @@ __device__ __forceinline__ void load_q_fragments(
     }
 }
 
-// 2^x to about 22 bits (one MUFU instruction; 0 far below the range).
-__device__ __forceinline__ float fast_exp2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
 
 // Raw scores q·k of one thread's two rows (e >> 1 picks row A or B;
 // element e of n-tile j is key j·8 + 2·tig + (e & 1)) into probabilities,
@@ -579,166 +558,6 @@ flash_decode_bf16(const Args a, const int split_keys, float* __restrict__ ws,
 }
 
 // ------------------------------------------------------ bf16 prefill
-// d (64 x 32, fp32) += a (64 x 16 bf16, registers) . b (16 x 32 bf16, shared
-// memory at descriptor b); TRANS = 1 reads b N-major. scale_d = 0 drops d.
-template <int TRANS>
-__device__ __forceinline__ void wgmma_m64n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0,%1,%2,%3,%4,%5,%6,%7,"
-        "%8,%9,%10,%11,%12,%13,%14,%15"
-        "}, {%16,%17,%18,%19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TRANS));
-}
-
-// d (64 x 64, fp32) += a (64 x 16 bf16, registers) . b (16 x 64 bf16, shared
-// memory at descriptor b); TRANS = 1 reads b N-major. scale_d = 0 drops d.
-template <int TRANS>
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0,%1,%2,%3,%4,%5,%6,%7,"
-        "%8,%9,%10,%11,%12,%13,%14,%15,"
-        "%16,%17,%18,%19,%20,%21,%22,%23,"
-        "%24,%25,%26,%27,%28,%29,%30,%31"
-        "}, {%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TRANS));
-}
-
-// d (64 x 128, fp32) += a (64 x 16 bf16, registers) . b (16 x 128 bf16, shared
-// memory at descriptor b); TRANS = 1 reads b N-major. scale_d = 0 drops d.
-template <int TRANS>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0,%1,%2,%3,%4,%5,%6,%7,"
-        "%8,%9,%10,%11,%12,%13,%14,%15,"
-        "%16,%17,%18,%19,%20,%21,%22,%23,"
-        "%24,%25,%26,%27,%28,%29,%30,%31,"
-        "%32,%33,%34,%35,%36,%37,%38,%39,"
-        "%40,%41,%42,%43,%44,%45,%46,%47,"
-        "%48,%49,%50,%51,%52,%53,%54,%55,"
-        "%56,%57,%58,%59,%60,%61,%62,%63"
-        "}, {%64,%65,%66,%67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TRANS));
-}
-
-template <int N, int TRANS>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
-                                      uint64_t b, int scale_d) {
-    if constexpr (N == 32) wgmma_m64n32<TRANS>(d, a, b, scale_d);
-    else if constexpr (N == 64) wgmma_m64n64<TRANS>(d, a, b, scale_d);
-    else wgmma_m64n128<TRANS>(d, a, b, scale_d);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving uses of wgmma's registers across the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, swizzle layout (1: 128-byte, 2: 64-byte).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t swizzle) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) |
-           (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-           (uint64_t)((sbo >> 4) & 0x3FFF) << 32 |
-           (uint64_t)swizzle << 62;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@!p bra WAIT;\n"
-        "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// One box of a 4D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
-        : "memory");
-}
 
 constexpr int P_BM = 128;           // rows per block: two warpgroups of 64
 constexpr int P_BN = 128;           // keys per tile
@@ -779,9 +598,6 @@ __device__ __forceinline__ int q_chunk(int row, int c) {
     return c ^ (row & (DH / 8 < 8 ? DH / 8 - 1 : 7));
 }
 
-__device__ __forceinline__ void group_sync(int id) {   // one warpgroup
-    asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
-}
 
 template <int DH>
 __global__ void __launch_bounds__(P_THREADS, 1)
@@ -1068,11 +884,19 @@ flash_prefill_bf16(const __grid_constant__ CUtensorMap kmap,
 
         // rows whose max never rose above MASKED saw no key: zeros
         __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
-        float inv[2];
+        float inv[2], lse[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const float sum = quad_sum(l[h]);
             inv[h] = m[h] == MASKED ? 0.f : 1.f / fmaxf(sum, 1e-30f);
+            // the natural log-sum-exp of the row's scaled scores (m and
+            // the sum are in base 2); +inf for a row with no key
+            lse[h] = m[h] == MASKED ? INFINITY
+                                    : (m[h] + log2f(sum)) * LN2;
+        }
+        if (a.lse && tig == 0) {             // one thread of the four a row
+            if (okA) a.lse[row_offset(a, b, kvh, g, rA, 1)] = lse[0];
+            if (okB) a.lse[row_offset(a, b, kvh, g, rB, 1)] = lse[1];
         }
         if (okA) {
             __nv_bfloat16* oa = o + row_offset(a, b, kvh, g, rA, DH) + tig * 2;
@@ -1210,18 +1034,6 @@ flash_fwd_f32(const Args a) {
 }
 
 // ------------------------------------------------------------------ host
-// Sets a kernel's dynamic shared memory limit once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned& ready) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess || (dev < 32 && (ready >> dev & 1u))) return err;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err == cudaSuccess && dev < 32) ready |= 1u << dev;
-    return err;
-}
 
 template <int DH, int MT>
 cudaError_t launch_decode_mt(const Args& a, dim3 grid, int split_keys,
@@ -1250,55 +1062,13 @@ cudaError_t launch_decode(const Args& a, int split_keys, float* ws,
     return launch_decode_mt<DH, 4>(a, grid, split_keys, ws, tickets, st);
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links no libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found =
-            cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found);
-#endif
-        if (found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
-// K or V (B, T, KV, dh) as a 4D map {dh, KV, T, B} with boxes {CH, 1, P_BN,
-// 1}: one box is P_BN keys of one KV head, zero past T.
+// K or V (B, T, KV, dh) as a 4D map with boxes of P_BN keys of one KV
+// head and CH columns, zero past T.
 template <int DH>
 bool kv_map(CUtensorMap* map, const void* base, const Args& a) {
-    using Tl = PrefillTile<DH>;
-    const EncodeTiled encode = encode_tiled();
-    if (!encode) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)a.KV,
-                                (cuuint64_t)a.T, (cuuint64_t)a.B};
-    const cuuint64_t strides[3] = {(cuuint64_t)DH * 2,
-                                   (cuuint64_t)a.KV * DH * 2,
-                                   (cuuint64_t)a.T * a.KV * DH * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)Tl::CH, 1, (cuuint32_t)P_BN, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  Tl::SWIZZLE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                   : CU_TENSOR_MAP_SWIZZLE_64B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return rows_map(map, base, a.B, a.T, a.KV, DH, P_BN,
+                    PrefillTile<DH>::CH);
 }
 
 template <int DH>
@@ -1348,20 +1118,24 @@ extern "C" {
 // the decode kernel over ⌈T / split_keys⌉ splits of split_keys keys (at
 // most 64 splits, S·H/KV <= 64 rows) with ws, float32
 // [B·KV·splits·S·(H/KV)·(dh + 2)], and tickets, int32 [B·KV] zeros (left
-// zero); split_keys = 0 runs the prefill kernel. Returns the launch's
+// zero); split_keys = 0 runs the prefill kernel, which also writes each
+// row's natural log-sum-exp of its scaled scores (+inf for a row with no
+// allowed key) into lse, float32 [B·S·H], when lse is not null (the
+// backward's; the other kernels take no lse). Returns the launch's
 // cudaError_t (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const int* qpos, const int* kpos,
                            int qpos_bs, int kpos_bs, int B, int S, int T,
                            int H, int KV, int dh, int causal, int window,
                            int bf16, int split_keys, void* ws, void* tickets,
-                           void* stream) {
+                           void* lse, void* stream) {
     if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 ||
         (dh != 32 && dh != 64 && dh != 128) || split_keys < 0 ||
-        qpos_bs < 0 || kpos_bs < 0)
+        qpos_bs < 0 || kpos_bs < 0 || (lse && (!bf16 || split_keys > 0)))
         return (int)cudaErrorInvalidValue;
     const Args a{q, k, v, o, qpos, kpos, qpos_bs, kpos_bs, B, S, T, H, KV,
-                 causal, window, (float)(1.0 / sqrt((double)dh))};
+                 causal, window, (float)(1.0 / sqrt((double)dh)),
+                 static_cast<float*>(lse)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* w = static_cast<float*>(ws);
     int* t = static_cast<int*>(tickets);

@@ -1,8 +1,12 @@
-// Flash attention backward on Hopper (sm_90a). Plain C interface, loaded
-// with ctypes by ../../_build.py beside attention.cu; the wrapper, its
-// launch counter and the torch.autograd.Function that pairs it with the
-// forward kernel live in ../kernel.py and ../ops.py, the plain PyTorch
-// version in ../ref.py (`attention_bwd_ref`).
+// Flash attention backward on Hopper (sm_90a), plain float32 FMAs: the
+// route for float32 and for dh 32 (`plan_bwd` in ../kernel.py); bf16 at
+// dh 64 and 128 runs the tensor-core kernels of attention_bwd_tc.cu, which
+// call this file's pre-pass (`flash_bwd_pre_launch`). TF32 would not meet
+// float32's 1e-4, the reason the forward keeps `flash_fwd_f32`. Plain C
+// interface, loaded with ctypes by ../../_build.py beside attention.cu; the
+// wrapper, its launch counters and the torch.autograd.Function that pairs
+// it with the forward kernel live in ../kernel.py and ../ops.py, the plain
+// PyTorch version in ../ref.py (`attention_bwd_ref`).
 //
 // Replaces no Pallas kernel: the JAX package has no backward kernel, and
 // differentiates `blockwise_attention` (src/repro/models/blocks.py:76)
@@ -31,8 +35,8 @@
 // scores (and of dP), 4 keys x 4 columns of dK and dV, 4 rows x 4
 // columns of dQ, so one 16-byte shared load feeds 4 to 8 FMAs.
 //   bwd_pre: one block a (b, head, 32-query tile): Δ, and each row's
-//     log-sum-exp recomputed over its allowed keys (the forward kernel is
-//     left as it is).
+//     log-sum-exp recomputed over its allowed keys unless the forward's is
+//     given (lse_ready: the bf16 prefill kernel writes it).
 //   bwd_dkdv: one block a (b, KV head, 32-key tile): loops over the g heads
 //     and over the 32-query tiles whose positions can see the tile,
 //     recomputes P and dS in shared memory, and accumulates dK and dV in
@@ -40,8 +44,7 @@
 //   bwd_dq: one block a (b, head, 32-query tile): loops over the key tiles
 //     it can see, accumulates dQ.
 // Tiles that no pair may attend to are skipped from the tiles' position
-// ranges, so positions need not be sorted. Tensor cores (mma.sync or
-// wgmma on bf16) are later work; the kernel's time stands in PERF.md.
+// ranges, so positions need not be sorted.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,6 +75,7 @@ struct BwdArgs {
     int qpos_bs, kpos_bs;
     int B, S, T, H, KV, causal, window;
     float scale;                     // 1 / sqrt(dh)
+    int lse_ready;                   // lse holds the forward's
 };
 
 // four consecutive elements as floats (8-byte bf16 or 16-byte float loads)
@@ -272,18 +276,19 @@ bwd_pre(const BwdArgs a) {
     const int kvh = h / (a.H / a.KV);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    // Δ: a warp a row
+    // Δ: a warp a row, four columns a lane
     for (int r = warp; r < BM; r += B_THREADS / 32) {
         const int s = s0 + r;
         if (s >= a.S) continue;
         const size_t base = (((size_t)b * a.S + s) * a.H + h) * DH;
         float x = 0.f;
-        for (int d = lane; d < DH; d += 32)
-            x = fmaf(ld(static_cast<const T*>(a.dout), base + d),
-                     ld(static_cast<const T*>(a.o), base + d), x);
+        for (int d = 4 * lane; d < DH; d += 128)
+            x = dot4(ld4(static_cast<const T*>(a.dout), base + d),
+                     ld4(static_cast<const T*>(a.o), base + d), x);
         x = warp_sum(x);
         if (lane == 0) a.delta[((size_t)b * a.S + s) * a.H + h] = x;
     }
+    if (a.lse_ready) return;
 
     load_rows<DH>(a, static_cast<const T*>(a.q), Qs, b, h, s0);
     if (threadIdx.x < BM) qp_s[threadIdx.x] = q_position(a, b, s0 + threadIdx.x);
@@ -510,20 +515,27 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <int DH, typename T>
+cudaError_t launch_pre(const BwdArgs& a, cudaStream_t st) {
+    const size_t pre_smem = (size_t)(BM + BN) * (DH + 4) * sizeof(float);
+    cudaError_t err = allow_smem(bwd_pre<DH, T>, pre_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 qgrid((a.S + BM - 1) / BM, a.H, a.B);
+    bwd_pre<DH, T><<<qgrid, B_THREADS, pre_smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+template <int DH, typename T>
 cudaError_t launch_typed(const BwdArgs& a, cudaStream_t st) {
     constexpr int PD = DH + 4;
-    const size_t pre_smem = (size_t)(BM + BN) * PD * sizeof(float);
     const size_t kv_smem = ((size_t)(2 * BM + 2 * BN) * PD + 2 * BM * PS)
                            * sizeof(float);
     const size_t q_smem = ((size_t)(2 * BM + 2 * BN) * PD + BN * (BM + 4))
                           * sizeof(float);
-    cudaError_t err = allow_smem(bwd_pre<DH, T>, pre_smem);
+    cudaError_t err = launch_pre<DH, T>(a, st);
     if (err == cudaSuccess) err = allow_smem(bwd_dkdv<DH, T>, kv_smem);
     if (err == cudaSuccess) err = allow_smem(bwd_dq<DH, T>, q_smem);
     if (err != cudaSuccess) return err;
     const dim3 qgrid((a.S + BM - 1) / BM, a.H, a.B);
-    bwd_pre<DH, T><<<qgrid, B_THREADS, pre_smem, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 kgrid((a.T + BN - 1) / BN, a.KV, a.B);
     bwd_dkdv<DH, T><<<kgrid, B_THREADS, kv_smem, st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -532,9 +544,35 @@ cudaError_t launch_typed(const BwdArgs& a, cudaStream_t st) {
 }
 
 template <int DH>
-cudaError_t launch_dh(const BwdArgs& a, bool bf16, cudaStream_t st) {
+cudaError_t launch_dh(const BwdArgs& a, bool bf16, bool pre_only,
+                      cudaStream_t st) {
+    if (pre_only)
+        return bf16 ? launch_pre<DH, __nv_bfloat16>(a, st)
+                    : launch_pre<DH, float>(a, st);
     return bf16 ? launch_typed<DH, __nv_bfloat16>(a, st)
                 : launch_typed<DH, float>(a, st);
+}
+
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, void* dq, void* dk, void* dv, void* lse,
+           void* delta, const int* qpos, const int* kpos, int qpos_bs,
+           int kpos_bs, int B, int S, int T, int H, int KV, int dh,
+           int causal, int window, int bf16, int lse_ready, bool pre_only,
+           void* stream) {
+    if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || !lse ||
+        !delta || qpos_bs < 0 || kpos_bs < 0 || B > 65535 || H > 65535 ||
+        (dh != 32 && dh != 64 && dh != 128))
+        return (int)cudaErrorInvalidValue;
+    const BwdArgs a{q, k, v, o, dout, dq, dk, dv,
+                    static_cast<float*>(lse), static_cast<float*>(delta),
+                    qpos, kpos, qpos_bs, kpos_bs, B, S, T, H, KV, causal,
+                    window, (float)(1.0 / sqrt((double)dh)), lse_ready != 0};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dh) {
+        case 32: return (int)launch_dh<32>(a, bf16 != 0, pre_only, st);
+        case 64: return (int)launch_dh<64>(a, bf16 != 0, pre_only, st);
+        default: return (int)launch_dh<128>(a, bf16 != 0, pre_only, st);
+    }
 }
 
 }  // namespace
@@ -543,29 +581,33 @@ extern "C" {
 
 // q, o, dout, dq (B, S, H, dh); k, v, dk, dv (B, T, KV, dh); contiguous, all
 // bf16 (bf16 = 1) or all float32; dh 32, 64 or 128. lse, delta float32
-// [B·S·H] scratch. qpos (S,)/(B, S), kpos (T,)/(B, T) int32 or null with
-// batch strides (0: one row shared). window <= 0 means none. Returns the
-// launches' cudaError_t (0 on success).
+// [B·S·H]: lse holds the forward's log-sum-exp when lse_ready, else the
+// pre-pass computes it there; delta is scratch. qpos (S,)/(B, S), kpos
+// (T,)/(B, T) int32 or null with batch strides (0: one row shared).
+// window <= 0 means none. Returns the launches' cudaError_t (0 on
+// success).
 int flash_bwd_launch(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, void* dq, void* dk,
                      void* dv, void* lse, void* delta, const int* qpos,
                      const int* kpos, int qpos_bs, int kpos_bs, int B, int S,
                      int T, int H, int KV, int dh, int causal, int window,
-                     int bf16, void* stream) {
-    if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || !lse ||
-        !delta || qpos_bs < 0 || kpos_bs < 0 || B > 65535 || H > 65535 ||
-        (dh != 32 && dh != 64 && dh != 128))
-        return (int)cudaErrorInvalidValue;
-    const BwdArgs a{q, k, v, o, dout, dq, dk, dv,
-                    static_cast<float*>(lse), static_cast<float*>(delta),
-                    qpos, kpos, qpos_bs, kpos_bs, B, S, T, H, KV, causal,
-                    window, (float)(1.0 / sqrt((double)dh))};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (dh) {
-        case 32: return (int)launch_dh<32>(a, bf16 != 0, st);
-        case 64: return (int)launch_dh<64>(a, bf16 != 0, st);
-        default: return (int)launch_dh<128>(a, bf16 != 0, st);
-    }
+                     int bf16, int lse_ready, void* stream) {
+    return launch(q, k, v, o, dout, dq, dk, dv, lse, delta, qpos, kpos,
+                  qpos_bs, kpos_bs, B, S, T, H, KV, dh, causal, window, bf16,
+                  lse_ready, false, stream);
+}
+
+// The pre-pass alone (Δ, and the log-sum-exp unless lse_ready), for the
+// tensor-core route (attention_bwd_tc.cu); arguments as above.
+int flash_bwd_pre_launch(const void* q, const void* k, const void* o,
+                         const void* dout, void* lse, void* delta,
+                         const int* qpos, const int* kpos, int qpos_bs,
+                         int kpos_bs, int B, int S, int T, int H, int KV,
+                         int dh, int causal, int window, int bf16,
+                         int lse_ready, void* stream) {
+    return launch(q, k, nullptr, o, dout, nullptr, nullptr, nullptr, lse,
+                  delta, qpos, kpos, qpos_bs, kpos_bs, B, S, T, H, KV, dh,
+                  causal, window, bf16, lse_ready, true, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """The hand-written CUDA attention kernels (`csrc/attention.cu`, and
-`csrc/decode_int8.cu` and `csrc/attention_bwd.cu` in the same library):
-ctypes bindings, argument checks and launch counters.
+`csrc/decode_int8.cu`, `csrc/attention_bwd.cu` and
+`csrc/attention_bwd_tc.cu` in the same library): ctypes bindings,
+argument checks and launch counters.
 
 `flash_attention` takes CUDA tensors in the model's layout — q (B, S, H,
 dh), k and v (B, T, KV, dh), one dtype (bfloat16 or float32) — and
@@ -22,12 +23,19 @@ per-(batch, KV head) tickets to an int32 array that each launch leaves
 at zero; both are held per (device, stream) and grown as shapes need, so
 launches on one stream share them in order.
 
+Given a float32 (B, S, H) `lse`, the prefill kernel also writes each
+row's log-sum-exp there (`forward_lse` says when that kernel runs), which
+spares the backward its recomputation.
+
 `flash_decode_int8` is decode attention against an int8 KV cache with
 bf16 per-(b, t, kv head) scales (three launches: per-split softmax
 stats, then p8·v8 per split, then the sum of the splits);
 `flash_bwd` the backward of the forward kernels' function (three
-launches: Δ and the log-sum-exp, dK/dV, dQ). Each counts its calls in
-`LAUNCHES` under its own name.
+launches: Δ, and the log-sum-exp unless the forward's is given; dK/dV;
+dQ), by one of two routes (`plan_bwd`): bf16 at dh 64 and 128 on the
+tensor cores (`attention_bwd_tc.cu`), float32 and dh 32 on plain FMAs
+(`attention_bwd.cu`). Each kernel counts its calls in `LAUNCHES` under
+its own name, and `BWD_ROUTES` counts the backward's calls by route.
 """
 
 from __future__ import annotations
@@ -48,9 +56,9 @@ _MAX_INT = 2**31 - 1          # the kernel indexes rows with int
 def _declare(handle: ctypes.CDLL) -> None:
     """flash_attention_launch(q, k, v, o, q_pos, kv_pos, q_pos batch
     stride, kv_pos batch stride, B, S, T, H, KV, dh, causal, window, bf16,
-    split_keys, workspace, tickets, stream)."""
+    split_keys, workspace, tickets, lse, stream)."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 12 + [vp] * 3
+    handle.flash_attention_launch.argtypes = [vp] * 6 + [i] * 12 + [vp] * 4
     handle.flash_attention_launch.restype = i
     # flash_decode_int8_launch(q, k, v, k_scale, v_scale, o, q_pos, kv_pos,
     # q_pos batch stride, kv_pos batch stride, B, S, T, H, KV, dh, causal,
@@ -59,9 +67,12 @@ def _declare(handle: ctypes.CDLL) -> None:
     handle.flash_decode_int8_launch.restype = i
     # flash_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, delta, q_pos,
     # kv_pos, q_pos batch stride, kv_pos batch stride, B, S, T, H, KV, dh,
-    # causal, window, bf16, stream)
-    handle.flash_bwd_launch.argtypes = [vp] * 12 + [i] * 11 + [vp]
+    # causal, window, bf16, lse_ready, stream); flash_bwd_tc_launch the
+    # same without bf16
+    handle.flash_bwd_launch.argtypes = [vp] * 12 + [i] * 12 + [vp]
     handle.flash_bwd_launch.restype = i
+    handle.flash_bwd_tc_launch.argtypes = [vp] * 12 + [i] * 11 + [vp]
+    handle.flash_bwd_tc_launch.restype = i
 
 
 LIBRARY = Library("attention", Path(__file__).resolve().parent / "csrc",
@@ -83,15 +94,20 @@ SMS, DECODE_WAVES = 132, 2.5
 # splits of the keys
 INT8_ROWS, INT8_TILE, INT8_MAX_SPLITS = 64, 64, 64
 
+# the backward's routes: bf16 at these head sizes on the tensor cores
+BWD_TC_HEAD_DIMS = (64, 128)
+
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_decode_int8": 0,
                             "flash_bwd": 0}
 LAUNCH_SHAPES: Counter = Counter()
+BWD_ROUTES: Counter = Counter()     # flash_bwd calls by plan_bwd's route
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LAUNCH_SHAPES.clear()
+    BWD_ROUTES.clear()
 
 
 def _check(q, k, v, q_positions, kv_positions, window) -> None:
@@ -155,16 +171,34 @@ def _workspace(device: torch.device, stream: int, floats: int,
     return ws, tk
 
 
+def forward_lse(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Does the forward kernel for these shapes (the bf16 prefill kernel)
+    write the rows' log-sum-exp when given an `lse`?"""
+    B, S, H, _ = q.shape
+    return q.dtype == torch.bfloat16 and \
+        plan(B, S, k.shape[1], H, k.shape[2])[0] == "prefill"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_positions: torch.Tensor | None = None,
-                    kv_positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Forward attention on the card. Raises on what the kernel does not
-    take and when the launch fails; there is no other path."""
+                    kv_positions: torch.Tensor | None = None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward attention on the card; with `lse`, a float32 (B, S, H)
+    tensor, the prefill kernel also writes each row's natural
+    log-sum-exp of its scaled scores there (+inf for a row with no allowed
+    key). Raises on what the kernel does not take (an `lse` where
+    `forward_lse` is false among it) and when the launch fails; there is
+    no other path."""
     _check(q, k, v, q_positions, kv_positions, window)
+    if lse is not None:
+        if not forward_lse(q, k):
+            raise ValueError("only the bf16 prefill kernel writes the "
+                             "log-sum-exp (kernel.forward_lse)")
+        _check_lse(q, lse)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        launch(q, k, v, out, causal, window, q_positions, kv_positions)
+        launch(q, k, v, out, causal, window, q_positions, kv_positions, lse)
     LAUNCHES["flash_attention"] += 1
     B, S, H, dh = q.shape
     LAUNCH_SHAPES[(B, S, k.shape[1], H, k.shape[2], dh,
@@ -179,12 +213,21 @@ def _batch_stride(positions: torch.Tensor | None) -> int:
         else positions.shape[1]
 
 
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 "
+                         f"{tuple(q.shape[:3])} on q's device")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, causal: bool, window: int | None,
            q_positions: torch.Tensor | None,
-           kv_positions: torch.Tensor | None) -> None:
-    """Bare launch on the current stream into preallocated `out`. Raises
-    if the launch itself fails."""
+           kv_positions: torch.Tensor | None,
+           lse: torch.Tensor | None = None) -> None:
+    """Bare launch on the current stream into preallocated `out` (and
+    `lse`, by the prefill kernel only). Raises if the launch itself
+    fails."""
     lib = LIBRARY.lib()
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -205,7 +248,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, S, T, H, KV, dh, int(causal), window or 0,
         int(q.dtype == torch.bfloat16), split_keys,
         None if ws is None else ws.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), stream)
+        None if tickets is None else tickets.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
     if rc:
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed with "
                            f"cudaError {rc}")
@@ -331,16 +375,29 @@ def int8_scratch(q, k) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
             torch.empty(B * KV * R * 3, dtype=torch.float32, device=q.device))
 
 
+def plan_bwd(dtype: torch.dtype, dh: int) -> str:
+    """The backward's route: "tc", the tensor-core kernels
+    (`attention_bwd_tc.cu`), for bf16 at dh 64 and 128; "fma", the plain
+    FMA kernels (`attention_bwd.cu`), for float32 (TF32 would not meet
+    its 1e-4) and dh 32."""
+    if dtype == torch.bfloat16 and dh in BWD_TC_HEAD_DIMS:
+        return "tc"
+    return "fma"
+
+
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
               window: int | None = None,
               q_positions: torch.Tensor | None = None,
-              kv_positions: torch.Tensor | None = None
+              kv_positions: torch.Tensor | None = None,
+              lse: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of `flash_attention(q, k, v, ...)` at
     output `out` for the output's gradient `dout`, on the card, in the
-    inputs' dtype. Raises on what the kernel does not take and when a
-    launch fails."""
+    inputs' dtype, by `plan_bwd`'s route; `lse` is the forward's
+    log-sum-exp (float32 (B, S, H), as `flash_attention(..., lse=)`
+    wrote it) or None, and then the pre-pass computes it. Raises on what
+    the kernels do not take and when a launch fails."""
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}; "
@@ -348,35 +405,51 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(dout.shape)} {dout.dtype}")
     _check(q, k, v, q_positions, kv_positions, window)
     _check_cuda({"q": q, "out": out, "dout": dout})
+    if lse is not None:
+        _check_lse(q, lse)
+    route = plan_bwd(q.dtype, q.shape[3])
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     with torch.cuda.device(q.device):
         launch_bwd(q, k, v, out, dout, dq, dk, dv, causal, window,
-                   q_positions, kv_positions)
+                   q_positions, kv_positions, lse=lse, route=route)
     LAUNCHES["flash_bwd"] += 1
+    BWD_ROUTES[route] += 1
     return dq, dk, dv
 
 
 def launch_bwd(q, k, v, out, dout, dq, dk, dv, causal, window, q_positions,
-               kv_positions, scratch=None) -> None:
-    """Bare backward launch on the current stream into dq, dk, dv; the
-    float32 log-sum-exp and Δ scratch (B·S·H each) is allocated unless
-    given."""
-    lib = LIBRARY.lib()
+               kv_positions, scratch=None, lse=None, route=None) -> None:
+    """Bare backward launch on the current stream into dq, dk, dv by
+    `route` ("tc" or "fma"; `plan_bwd`'s when None, and "tc" raises
+    where that route does not take the dtype or dh). The float32 scratch
+    (2, B·S·H) holds the log-sum-exp and Δ and is allocated unless
+    given; a given `lse` (the forward's) takes the first's place and is
+    not recomputed."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
+    route = route or plan_bwd(q.dtype, dh)
+    if route not in ("tc", "fma") or (route == "tc"
+                                      and plan_bwd(q.dtype, dh) != "tc"):
+        raise ValueError(f"route {route!r} does not take {q.dtype} at dh "
+                         f"{dh}")
+    lib = LIBRARY.lib()
     if scratch is None:
         scratch = torch.empty(2, B * S * H, dtype=torch.float32,
                               device=q.device)
-    rc = lib.flash_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(),
-        None if q_positions is None else q_positions.data_ptr(),
-        None if kv_positions is None else kv_positions.data_ptr(),
-        _batch_stride(q_positions), _batch_stride(kv_positions),
-        B, S, T, H, KV, dh, int(causal), window or 0,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
+    lse_ptr = scratch[0].data_ptr() if lse is None else lse.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse_ptr, scratch[1].data_ptr(),
+            None if q_positions is None else q_positions.data_ptr(),
+            None if kv_positions is None else kv_positions.data_ptr(),
+            _batch_stride(q_positions), _batch_stride(kv_positions),
+            B, S, T, H, KV, dh, int(causal), window or 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "tc":
+        rc = lib.flash_bwd_tc_launch(*args, int(lse is not None), stream)
+    else:
+        rc = lib.flash_bwd_launch(*args, int(q.dtype == torch.bfloat16),
+                                  int(lse is not None), stream)
     if rc:
-        raise RuntimeError(f"flash_bwd: CUDA kernel launch failed with "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_bwd ({route}): CUDA kernel launch failed "
+                           f"with cudaError {rc}")

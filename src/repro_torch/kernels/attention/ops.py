@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..intersect.ops import resolve_device
-from .kernel import flash_attention, flash_bwd, flash_decode_int8
+from .kernel import (flash_attention, flash_bwd, flash_decode_int8,
+                     forward_lse)
 from .ref import attention_bwd_ref, attention_int8_ref, attention_ref
 
 
@@ -35,25 +36,29 @@ def _contig(p):
 
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel forward, `flash_bwd` backward; positions and masks
-    are not differentiated."""
+    are not differentiated. Where the forward runs the prefill kernel
+    (`forward_lse`) it also writes the rows' log-sum-exp, which the
+    backward takes instead of recomputing it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_positions, kv_positions):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                          device=q.device) if forward_lse(q, k) else None
         out = flash_attention(q, k, v, causal=causal, window=window,
                               q_positions=q_positions,
-                              kv_positions=kv_positions)
-        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
+                              kv_positions=kv_positions, lse=lse)
+        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions, lse)
         ctx.masks = (causal, window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, q_positions, kv_positions = ctx.saved_tensors
+        q, k, v, out, q_positions, kv_positions, lse = ctx.saved_tensors
         causal, window = ctx.masks
         dq, dk, dv = flash_bwd(q, k, v, out, dout.contiguous(),
                                causal=causal, window=window,
                                q_positions=q_positions,
-                               kv_positions=kv_positions)
+                               kv_positions=kv_positions, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 

@@ -16,7 +16,9 @@ package's `blockwise_attention` computes it with `k_scale`/`v_scale`
 (quantized q, integer products, scales folded into the scores and into
 p, p quantized per row), which the int8 decode kernel is held against;
 `attention_bwd_ref` is the backward of `attention_ref` by its explicit
-formulas, which the backward kernel is held against.
+formulas, which the backward kernel is held against, and
+`attention_lse_ref` the rows' log-sum-exp that the forward prefill kernel
+writes for it.
 """
 
 from __future__ import annotations
@@ -70,6 +72,23 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     out = out * ok.any(dim=-1).to(out.dtype)[:, :, None, None, None]
     return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      q_positions: torch.Tensor | None = None,
+                      kv_positions: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Each row's natural log-sum-exp of its allowed scaled scores
+    q·k / sqrt(dh), float32 (B, S, H); +inf for a row with no allowed key
+    (its probabilities exp(s - lse) are then all 0)."""
+    B, S, H, dh = q.shape
+    ok = _allowed(B, S, k.shape[1], causal, window, q_positions,
+                  kv_positions, q.device)
+    s = _scores(q, k, ok).masked_fill_(~ok[:, None, None], -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                    # (B, KV, g, S)
+    lse = lse.masked_fill_(~ok.any(dim=-1)[:, None, None], math.inf)
+    return lse.permute(0, 3, 1, 2).reshape(B, S, H)
 
 
 def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

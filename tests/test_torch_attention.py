@@ -19,8 +19,10 @@ from repro.kernels.attention import attention as jax_attention
 from repro.models.blocks import blockwise_attention
 from repro.models.common import NULL_RULES
 from repro_torch.kernels import attention as ta
+from repro_torch.kernels.attention.cases import bwd_cases
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BWD_CASES = range(len(bwd_cases("cpu")))
 
 
 def _inputs(rng, B, S, T, H, KV, dh):
@@ -403,7 +405,7 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 # ------------------------------------------------- attention backward
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", BWD_CASES)
 def test_attention_bwd_ref_matches_jax_vjp(case):
     """`attention_bwd_ref` against `jax.vjp` of `blockwise_attention` on
     every backward edge case, float32, 1e-4 of the three gradients'
@@ -427,7 +429,7 @@ def test_attention_bwd_ref_matches_jax_vjp(case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", BWD_CASES)
 def test_attention_bwd_ref_matches_autograd_of_attention_ref(case, dtype):
     """The explicit formulas against autograd through `attention_ref` (the
     CPU path of `attention`): 2e-5 of the joint scale in float32; in bf16
@@ -457,3 +459,79 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take():
         tk.flash_bwd(q, k, v, q[:, :4], do)
     with pytest.raises(ValueError, match="impl"):
         ta.attention_bwd(q, k, v, q, do, impl="triton", device="cpu")
+
+
+def test_bwd_routes_and_the_forward_lse_are_chosen_openly():
+    """`plan_bwd`: bf16 at dh 64 and 128 on the tensor cores, float32 and
+    dh 32 on FMAs; `forward_lse`: only the bf16 prefill kernel writes the
+    log-sum-exp; a bare launch on a route that does not take the dtype
+    or dh raises before any library is loaded."""
+    from repro_torch.kernels.attention import kernel as tk
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    assert [tk.plan_bwd(torch.bfloat16, dh) for dh in (32, 64, 128)] == \
+        ["fma", "tc", "tc"]
+    assert {tk.plan_bwd(torch.float32, dh) for dh in (32, 64, 128)} == \
+        {"fma"}
+    q, k, _, _ = bwd_inputs((2, 300, 16, 2, 64), 0, "cpu", torch.bfloat16)
+    assert tk.forward_lse(q, k)                       # 2400 rows a KV head
+    assert not tk.forward_lse(q.float(), k.float())   # flash_fwd_f32
+    assert not tk.forward_lse(q[:, :4, :8], k[:, :, :1])  # decode: 32 rows
+    q, k, v, do = bwd_inputs((1, 8, 4, 2, 32), 0, "cpu", torch.bfloat16)
+    for route, dtype in (("tc", torch.float32), ("tc", torch.bfloat16),
+                         ("wgmma", torch.bfloat16)):
+        x = [t.to(dtype) for t in (q, k, v, do)]
+        with pytest.raises(ValueError, match="route"):
+            tk.launch_bwd(*x[:3], x[0], x[3], *x[:3], True, None, None,
+                          None, route=route)
+    tk.reset_launches()
+    tk.BWD_ROUTES["tc"] += 1
+    tk.reset_launches()
+    assert not tk.BWD_ROUTES
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_lse_ref_matches_jax_logsumexp(case):
+    """`attention_lse_ref` (what the prefill kernel writes for the
+    backward) against `jax.nn.logsumexp` of the scores masked as the JAX
+    package's `blockwise_attention` masks them, float32, on every
+    backward edge case: within 1e-5 of max(1, |lse|); +inf exactly where
+    no key is allowed."""
+    import jax
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    name, (B, S, H, KV, dh), kw = bwd_cases("cpu")[case]
+    q, k, _, _ = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32)
+    pos = kw.get("q_positions")
+    pos = np.arange(S, dtype=np.int32) if pos is None else pos.numpy()
+    pos = np.broadcast_to(pos, (B, S))
+    qj = jnp.asarray(q.numpy()).reshape(B, S, KV, H // KV, dh)
+    s = jnp.einsum("bckgd,btkd->bkgct", qj, jnp.asarray(k.numpy()),
+                   preferred_element_type=jnp.float32) / np.sqrt(dh)
+    qp, kp = pos[:, None, None, :, None], pos[:, None, None, None, :]
+    mask = (kp >= 0) & (qp >= kp if kw["causal"] else True)
+    if kw.get("window") is not None:
+        mask &= (qp - kp) < kw["window"]
+    want = jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)
+    want = np.asarray(jnp.transpose(want, (0, 3, 1, 2))).reshape(B, S, H)
+    got = ta.attention_lse_ref(q, k, **kw).numpy()
+    seen = np.broadcast_to(np.asarray(mask).any(-1), (B, KV, H // KV, S))
+    none = ~seen.transpose(0, 3, 1, 2).reshape(B, S, H)
+    assert np.array_equal(np.isposinf(got), none), name
+    err = np.abs(got - want)[~none] / np.maximum(np.abs(want[~none]), 1.0)
+    assert err.max() < 1e-5, name
+
+
+def test_attention_lse_ref_is_inf_on_rows_without_keys():
+    """A row whose keys are all masked (empty slots) has lse = +inf, so
+    its probabilities exp(s - lse) vanish, as the kernels' zeros."""
+    rng = np.random.default_rng(0)
+    q, k, _ = _inputs(rng, 1, 3, 6, 2, 1, 64)
+    kv_positions = torch.tensor([0, 1, 2, -1, -1, -1], dtype=torch.int32)
+    q_positions = torch.tensor([0, 1, 2], dtype=torch.int32)
+    lse = ta.attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               q_positions=q_positions,
+                               kv_positions=kv_positions - 5)
+    assert torch.isinf(lse).all() and (lse > 0).all()
+    lse = ta.attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               q_positions=q_positions,
+                               kv_positions=kv_positions)
+    assert torch.isfinite(lse).all()

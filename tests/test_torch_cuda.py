@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import attention as ta
+from repro_torch.kernels.attention.cases import bwd_cases
 from repro_torch.kernels import intersect as tx
 from repro_torch.kernels import rwkv as tr
 from repro_torch.kernels.intersect import ops as txo
@@ -1062,13 +1063,25 @@ def test_flash_decode_int8_matches_plain_on_card(card, case, dtype):
     assert _rel(got, want) < (1e-2 if dtype == torch.float32 else 2e-2), name
 
 
+_BWD_CASES = range(len(bwd_cases("cpu")))    # counted without a card
+
+
+def _bwd_close(got, want, dtype, name):
+    scale = max(float(w.float().abs().max()) for w in want)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) / scale < tol, name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", _BWD_CASES)
 def test_flash_bwd_matches_plain_on_card(card, case, dtype):
     """`flash_bwd` against `attention_bwd_ref` (TF32 off) on the backward
     edge cases, each gradient within 1e-4 (float32) or 2e-2 (bf16, one
-    rounding of each output) of the three gradients' joint scale."""
-    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    rounding of each output) of the three gradients' joint scale, by
+    the route `plan_bwd` names (the log-sum-exp recomputed)."""
+    from repro_torch.kernels.attention.cases import bwd_inputs
     name, shape, kw = bwd_cases(card)[case]
     q, k, v, do = bwd_inputs(shape, case, card, dtype)
     out = ta.attention(q, k, v, device=card, **kw)
@@ -1077,11 +1090,74 @@ def test_flash_bwd_matches_plain_on_card(card, case, dtype):
     want = ta.attention_bwd(q, k, v, out, do, device=card, impl="ref", **kw)
     torch.cuda.synchronize()
     assert ta.LAUNCHES["flash_bwd"] == 1
-    scale = max(float(w.float().abs().max()) for w in want)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for g, w in zip(got, want):
-        assert g.dtype == dtype and g.shape == w.shape
-        assert float((g.float() - w.float()).abs().max()) / scale < tol, name
+    assert dict(ta.BWD_ROUTES) == {ta.plan_bwd(dtype, shape[4]): 1}
+    _bwd_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_bwd_through_autograd_matches_plain_on_card(card, case, dtype):
+    """The gradients autograd takes through `attention` on the card (the
+    forward kernel, which in bf16 prefill also writes the log-sum-exp the
+    backward then reads) against `attention_bwd_ref` at the forward's
+    output, within the tolerances above."""
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    name, shape, kw = bwd_cases(card)[case]
+    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ta.reset_launches()
+    out = ta.attention(*leaves, device=card, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    want = ta.attention_bwd(q, k, v, out.detach(), do, device=card,
+                            impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_bwd"] == 1
+    _bwd_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [0, 3, 7, 9, 10])
+def test_flash_bwd_is_deterministic_on_card(card, case, dtype):
+    """Two `flash_bwd` calls on the same inputs give the same dq, dk and
+    dv bit for bit, on both routes, with and without the forward's
+    log-sum-exp: no float atomics, every sum in a fixed order."""
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    name, shape, kw = bwd_cases(card)[case]
+    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    lse = None
+    if ta.forward_lse(q, k):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=card)
+    out = ta.flash_attention(q, k, v, lse=lse, **kw)
+    for given in (None,) if lse is None else (None, lse):
+        first = ta.flash_bwd(q, k, v, out, do, lse=given, **kw)
+        second = ta.flash_bwd(q, k, v, out, do, lse=given, **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_attention_lse_matches_plain_on_card(card, case):
+    """The log-sum-exp the bf16 prefill kernel writes beside its output
+    against `attention_lse_ref` on the same bf16 inputs: +inf on the same
+    rows (none allowed), elsewhere within 1e-4 of max(1, |lse|) (float32
+    sums in another order; the output itself is unchanged)."""
+    from repro_torch.kernels.attention.cases import bwd_inputs
+    name, shape, kw = bwd_cases(card)[case]
+    q, k, v, _ = bwd_inputs(shape, case, card, torch.bfloat16)
+    if not ta.forward_lse(q, k):
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            ta.flash_attention(q, k, v, lse=torch.empty(
+                q.shape[:3], dtype=torch.float32, device=card), **kw)
+        return
+    lse = torch.full(q.shape[:3], float("nan"), device=card)
+    out = ta.flash_attention(q, k, v, lse=lse, **kw)
+    want = ta.attention_lse_ref(q, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ta.flash_attention(q, k, v, **kw)), name
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), inf) and not lse.isnan().any()
+    err = (lse - want).abs()[~inf] / want.abs()[~inf].clamp_min(1.0)
+    assert float(err.max()) < 1e-4, name
 
 
 def test_attention_on_card_keeps_the_autograd_graph(card):

@@ -228,7 +228,7 @@ def test_cuda_without_a_card_raises():
 # each library's CUDA sources, built into one shared library
 SOURCES = {"intersect": ["intersect.cu"],
            "attention": ["attention.cu", "attention_bwd.cu",
-                         "decode_int8.cu"]}
+                         "attention_bwd_tc.cu", "decode_int8.cu"]}
 
 
 @pytest.mark.parametrize("package", ["intersect", "attention"])
@@ -250,3 +250,24 @@ def test_kernel_build_needs_nvcc_and_reuses_a_built_library(tmp_path,
     built.write_bytes(b"")          # same sources and flags: no rebuild
     assert library.build() == built
     assert library.build_info["seconds"] == 0.0
+
+
+def test_kernel_library_name_follows_its_headers(tmp_path):
+    """A header beside the sources (`*.cuh`, included, never compiled on
+    its own) is part of the library's hash: editing it names a new
+    library, so a stale build is never loaded."""
+    import shutil
+
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels._build import Library
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ta.LIBRARY.csrc, csrc)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == ["hopper.cuh"]
+    lib = Library("attention", csrc, lambda handle: None)
+    before = lib.library_path()
+    assert before == Library("attention", csrc,
+                             lambda handle: None).library_path()
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert lib.library_path() != before
+    assert [p.name for p in lib.sources()] == SOURCES["attention"]
