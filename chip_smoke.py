@@ -25,8 +25,10 @@ into and below the range of denormal exp(dt·A); y and final state within
 1e-5 of their largest |value|; `int8_edge`: the int8 decode kernel
 against `attention_int8_ref` on `kernels.attention.cases.int8_cases`
 (empty slots, an unsorted ring, a window, positions per row, g = 1, 8
-and 48, ragged T, a single valid key, every key masked), bf16 and
-float32 queries, within 1e-2 of the output's scale; `attn_bwd_edge`: the
+and 48, ragged T, a single valid key, every key masked, 48 rows against
+20,000 keys), bf16 and float32 queries, by each route that takes the
+case (the cluster route where `plan_int8` gives one, the split route
+always), within 1e-2 of the output's scale; `attn_bwd_edge`: the
 attention backward against `attention_bwd_ref` on `bwd_cases` (causal,
 window, positions per row, g = 1, 8 and 48, dh 64 and 128, ragged S, S =
 1, several 128-row items with S not a multiple of 64, a window narrower
@@ -133,7 +135,8 @@ of their scale;
 - int8 decode (`lm_int8`): `qwen3-32b` as the opt decode variant gives it
   (`launch.steps.apply_variant(..., "decode_32k", "opt")`: the int8 KV
   cache) at the `lm` path's depth and traffic: exactly one bf16 prefill
-  and 32 int8 decode launches a layer; logits vs the plain int8
+  and 32 int8 decode launches a layer, every one on the cluster route;
+  logits vs the plain int8
   attention within 3e-2 and vs the bf16 cache within 0.1 of their scale
   (the JAX package's own bound), decode ms a token, cache bytes;
 - training (`train`): `launch/train.py`'s flow on `qwen3-32b` at its
@@ -158,8 +161,9 @@ each route replaced at the same (rows, L, W); the wkv kernels also by the
 profiler's device time, the kernel alone) beside the plain version, one
 PyTorch library call where there is one, and the least time the card
 needs for the same work; the int8 decode kernel at decode_32k's shape
-(B 128, T 32768) beside the bf16 decode kernel and SDPA on the same cache
-in bf16, and the attention backward at the train path's shape on both
+(B 128, T 32768) by both routes beside the bf16 decode kernel and SDPA
+on the same cache in bf16, and at the `lm_int8` path's own shape; the
+attention backward at the train path's shape on both
 routes (the tensor-core one with the forward's log-sum-exp, the FMA one
 recomputing it) beside SDPA's backward alone and its forward and
 backward through autograd, and the forward there with and without the
@@ -1928,31 +1932,45 @@ def attn_edge_phase(ta, device, seed: int) -> dict[str, float]:
 
 def int8_edge_phase(ta, device) -> dict[str, float]:
     """`flash_decode_int8` vs `attention_int8_ref` on the int8 edge cases
-    (`kernels.attention.cases.int8_cases`), bf16 and float32 queries:
+    (`kernels.attention.cases.int8_cases`), bf16 and float32 queries, by
+    each route that takes the case (the bare launch with `route=`):
     within INT8_TOL[dtype] of the output's scale."""
     import torch
+    from repro_torch.kernels.attention import kernel as tk
     from repro_torch.kernels.attention.cases import int8_cases, int8_inputs
-    errs = {}
+    errs, by_route, routes = {}, {}, {}
     cases = int8_cases(device)
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).removeprefix("torch.")
         errs[key] = 0.0
         for i, (name, shape, kw) in enumerate(cases):
+            B, S, T, H, KV, dh = shape
             q, k8, v8, ks, vs = int8_inputs(shape, i, device, dtype)
-            got = ta.attention_int8(q, k8, v8, ks, vs, device=device, **kw)
             want = ta.attention_int8(q, k8, v8, ks, vs, device=device,
                                      impl="ref", **kw)
-            torch.cuda.synchronize()
-            rel = float((got.float() - want.float()).abs().max()) / max(
-                float(want.float().abs().max()), 1e-12)
-            if not (got.dtype == dtype and rel <= INT8_TOL[key]):
-                raise AssertionError(f"flash_decode_int8 {name} {key}: "
-                                     f"{rel} of the scale (> "
-                                     f"{INT8_TOL[key]})")
-            errs[key] = max(errs[key], rel)
+            plan = tk.plan_int8(B, T, KV, S * H // KV, dh)
+            routes[name] = {"planned": list(plan),
+                            "ran": ["cluster", "split"]
+                            if plan[0] == "cluster" else ["split"]}
+            for route in routes[name]["ran"]:
+                got = torch.empty_like(q)
+                ta.launch_int8(q, k8, v8, ks, vs, got, kw.get("causal", True),
+                               kw.get("window"), kw["q_positions"],
+                               kw["kv_positions"], route=route)
+                torch.cuda.synchronize()
+                rel = float((got.float() - want.float()).abs().max()) / max(
+                    float(want.float().abs().max()), 1e-12)
+                if not rel <= INT8_TOL[key]:
+                    raise AssertionError(f"flash_decode_int8 {name} {key} "
+                                         f"({route}): {rel} of the scale "
+                                         f"(> {INT8_TOL[key]})")
+                errs[key] = max(errs[key], rel)
+                by_route[f"{route} {key}"] = max(
+                    by_route.get(f"{route} {key}", 0.0), rel)
     emit({"phase": "int8_edge", "cases": 2 * len(cases),
-          "names": [c[0] for c in cases],
-          "max_err_over_scale": errs, "tolerance": INT8_TOL})
+          "runs": 2 * sum(len(r["ran"]) for r in routes.values()),
+          "routes": routes, "max_err_over_scale": errs,
+          "max_err_by_route": by_route, "tolerance": INT8_TOL})
     return errs
 
 
@@ -3563,11 +3581,13 @@ def lm_int8_phase(args, device) -> dict:
     peak_bytes = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------
 
+    routes = dict(ta.INT8_ROUTES)
     want = {"flash_attention": cfg.n_layers,
             "flash_decode_int8": cfg.n_layers * LM_TOKENS, "flash_bwd": 0}
-    if launches != want:
-        raise AssertionError(f"the int8 path launched {launches}, expected "
-                             f"{want}")
+    if launches != want or routes != {"cluster": cfg.n_layers * LM_TOKENS}:
+        raise AssertionError(f"the int8 path launched {launches} by routes "
+                             f"{routes}, expected {want}, all on the "
+                             "cluster route")
     if out.logits.shape != (LM_BATCH, cfg.vocab) \
             or not torch.isfinite(out.logits).all():
         raise AssertionError("the int8 path gave malformed logits")
@@ -3591,12 +3611,14 @@ def lm_int8_phase(args, device) -> dict:
           "kv_cache_bytes": int8_bytes, "kv_cache_bytes_bf16": bf16_bytes,
           "kv_cache_ratio": int8_bytes / bf16_bytes,
           "peak_device_bytes": peak_bytes, "launches": launches,
-          "vs_plain_attention": versus, "vs_bf16_cache": vs_bf16})
+          "int8_routes": routes, "vs_plain_attention": versus,
+          "vs_bf16_cache": vs_bf16})
     if not versus["max_err_over_max_logit"] <= LM_TOL:
         raise AssertionError(f"int8 path logits vs plain: {versus}")
     if not (vs_bf16["max_err_over_max_logit"] <= INT8_VS_BF16_TOL):
         raise AssertionError(f"int8 path logits vs the bf16 cache: {vs_bf16}")
-    return {"launches": launches, "errs": versus["max_err_over_max_logit"]}
+    return {"launches": launches, "routes": routes,
+            "errs": versus["max_err_over_max_logit"]}
 
 
 # ------------------------------------------------------------- training
@@ -3940,12 +3962,31 @@ def int8_bound(B, S, T, H, KV, dh, q_bytes) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
-def int8_timing_phase(ta, device, seed: int, launches: dict,
+def int8_inputs_random(B, T, H, KV, dh, gen, device) -> tuple:
+    """bf16 q (B, 1, H, dh), random int8 k and v (B, T, KV, dh), their
+    bf16 scales in [0.01, 0.03), and end-aligned causal positions."""
+    import torch
+    q = torch.randn(B, 1, H, dh, generator=gen, device=device).bfloat16()
+    k8, v8 = (torch.randint(-127, 128, (B, T, KV, dh), generator=gen,
+                            device=device, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = ((torch.rand(B, T, KV, generator=gen, device=device) * 0.02
+               + 0.01).bfloat16() for _ in range(2))
+    kw = {"causal": True,
+          "q_positions": torch.tensor([T - 1], dtype=torch.int32,
+                                      device=device),
+          "kv_positions": torch.arange(T, dtype=torch.int32, device=device)}
+    return q, k8, v8, ks, vs, kw
+
+
+def int8_timing_phase(ta, device, seed: int, lm_int8: dict,
                       errs: dict) -> dict:
     """flash_decode_int8 at decode_32k's shape (B 128, T 32768, 64/8 heads
-    of 128; 8.6 GB of int8 K/V), against its bytes bound, its plain
-    version, and the bf16 decode kernel (and SDPA) on the same cache
-    dequantized to bf16 (17.2 GB)."""
+    of 128; 8.7 GB of int8 K/V and scales) by both routes in one call,
+    against its bytes bound, its plain version, and the bf16 decode kernel
+    (and SDPA) on the same cache dequantized to bf16 (17.2 GB); then at
+    the `lm_int8` path's own shape (B LM_BATCH, T LM_PROMPT + LM_TOKENS)
+    on the route its launches took."""
     import torch
     import torch.nn.functional as F
 
@@ -3953,27 +3994,23 @@ def int8_timing_phase(ta, device, seed: int, launches: dict,
     B, T, H, KV, dh = 128, 32768, 64, 8, 128
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
-    q = torch.randn(B, 1, H, dh, generator=gen, device=device).bfloat16()
-    k8 = torch.randint(-127, 128, (B, T, KV, dh), generator=gen,
-                       device=device, dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (B, T, KV, dh), generator=gen,
-                       device=device, dtype=torch.int8)
-    ks = (torch.rand(B, T, KV, generator=gen, device=device) * 0.02
-          + 0.01).bfloat16()
-    vs = (torch.rand(B, T, KV, generator=gen, device=device) * 0.02
-          + 0.01).bfloat16()
-    qpos = torch.tensor([T - 1], dtype=torch.int32, device=device)
-    kpos = torch.arange(T, dtype=torch.int32, device=device)
-    kw = {"causal": True, "q_positions": qpos, "kv_positions": kpos}
-    out = torch.empty_like(q)
-    scratch = tk.int8_scratch(q, k8)
-    kernel_ms = cuda_ms(lambda: ta.launch_int8(q, k8, v8, ks, vs, out, True,
-                                               None, qpos, kpos, scratch),
-                        flush, iters=10, warmup=2)
+    q, k8, v8, ks, vs, kw = int8_inputs_random(B, T, H, KV, dh, gen, device)
+    qpos, kpos = kw["q_positions"], kw["kv_positions"]
+    plan = tk.plan_int8(B, T, KV, H // KV, dh)
+    outs, timed = {}, {}
+    for route in ("split", "cluster", "cluster", "split"):
+        out = torch.empty_like(q)
+        scratch = tk.int8_scratch(q, k8) if route == "split" else None
+        ms = cuda_ms(lambda: ta.launch_int8(q, k8, v8, ks, vs, out, True,
+                                            None, qpos, kpos, scratch,
+                                            route=route),
+                     flush, iters=10, warmup=2)
+        timed.setdefault(route, []).append(ms)
+        outs[route] = out
     want = ta.attention_int8(q, k8, v8, ks, vs, device=device, impl="ref",
                              **kw)
-    err = float((out.float() - want.float()).abs().max()) / float(
-        want.float().abs().max())
+    err = {route: float((out.float() - want.float()).abs().max())
+           / float(want.float().abs().max()) for route, out in outs.items()}
     plain_ms = cuda_ms(lambda: ta.attention_int8(
         q, k8, v8, ks, vs, device=device, impl="ref", **kw), flush, iters=3,
         warmup=1)
@@ -3989,34 +4026,70 @@ def int8_timing_phase(ta, device, seed: int, launches: dict,
     qt, kt, vt = (x.transpose(1, 2) for x in (q, kb, vb))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True), flush, iters=10, warmup=2)
-    int8_vs_bf16 = float((out.float() - ob.float()).abs().max()) / float(
-        ob.float().abs().max())
+    int8_vs_bf16 = float((outs["cluster"].float() - ob.float()).abs().max()
+                         ) / float(ob.float().abs().max())
     bound_ms, bound_by, ops, nbytes = int8_bound(B, 1, T, H, KV, dh, 2)
     bf16_bound = 1e3 * (2 * B * T * KV * dh * 2 + 4 * B * H * dh) \
         / HBM_BYTES_PER_S
-    del kb, vb
+    del kb, vb, qt, kt, vt, outs
     torch.cuda.empty_cache()
-    if not err <= INT8_TOL["bfloat16"]:
-        raise AssertionError(f"flash_decode_int8 at decode_32k: {err}")
+    for route, e in err.items():
+        if not e <= INT8_TOL["bfloat16"]:
+            raise AssertionError(f"flash_decode_int8 ({route}) at "
+                                 f"decode_32k: {e}")
+
+    # the lm_int8 path's shape, on the route its launches took
+    pB, pT = LM_BATCH, LM_PROMPT + LM_TOKENS
+    q, k8, v8, ks, vs, kw = int8_inputs_random(pB, pT, H, KV, dh, gen,
+                                               device)
+    path_plan = tk.plan_int8(pB, pT, KV, H // KV, dh)
+    out = torch.empty_like(q)
+    path_ms = cuda_ms(lambda: ta.launch_int8(
+        q, k8, v8, ks, vs, out, True, None, kw["q_positions"],
+        kw["kv_positions"]), flush, iters=30, warmup=5)
+    want = ta.attention_int8(q, k8, v8, ks, vs, device=device, impl="ref",
+                             **kw)
+    path_err = float((out.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+    path_plain_ms = cuda_ms(lambda: ta.attention_int8(
+        q, k8, v8, ks, vs, device=device, impl="ref", **kw), flush)
+    path_bound = int8_bound(pB, 1, pT, H, KV, dh, 2)
+    if not path_err <= INT8_TOL["bfloat16"]:
+        raise AssertionError(f"flash_decode_int8 at the lm_int8 shape: "
+                             f"{path_err}")
+    launches = lm_int8["launches"]["flash_decode_int8"]
+    ms = statistics.median(timed["cluster"])
     return {"name": "flash_decode_int8", "route": "cuda",
             "source": INT8_SOURCE,
             "replaces": PORT_ONLY.format(
                 "src/repro/models/blocks.py:112-147"),
-            "launches": launches["flash_decode_int8"],
-            "launches_by_path": {"lm_int8": launches["flash_decode_int8"]},
-            "max_abs_err": max(max(errs.values()), err),
-            "max_err_by_check": {"int8_edge": errs, "decode_32k": err},
-            "tolerance": INT8_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            "launches": launches,
+            "launches_by_path": {"lm_int8": launches},
+            "routes": {"lm_int8": lm_int8["routes"],
+                       "decode_32k": plan[0], "lm_int8_shape": path_plan[0]},
+            "max_abs_err": max(max(errs.values()), *err.values(), path_err),
+            "max_err_by_check": {"int8_edge": errs, "decode_32k": err,
+                                 "lm_int8_shape": path_err},
+            "tolerance": INT8_TOL, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "operations": ops,
             "bytes": nbytes, "library_ms": None,
             "library": "none computes int8 attention with these scales",
-            "share_of_bound": bound_ms / kernel_ms,
-            "n_split": tk.plan_int8(B, T, KV)[0],
+            "share_of_bound": bound_ms / ms,
+            "split_ms": statistics.median(timed["split"]),
+            "runs_ms": timed, "cluster_size": plan[1],
+            "keys_per_block": plan[2],
+            "split_plan": list(tk.plan_int8_split(B, T, KV)),
             "bf16_cache": {"flash_decode_bf16_ms": bf16_ms,
                            "sdpa_ms": sdpa_ms, "bound_ms": bf16_bound,
                            "int8_vs_bf16_max_err_over_scale": int8_vs_bf16},
             "shape": {"B": B, "S": 1, "T": T, "H": H, "KV": KV, "dh": dh,
-                      "q_dtype": "bfloat16"}}
+                      "q_dtype": "bfloat16"},
+            "path_shape": {"B": pB, "S": 1, "T": pT, "H": H, "KV": KV,
+                           "dh": dh, "plan": list(path_plan),
+                           "ms": path_ms, "plain_ms": path_plain_ms,
+                           "bound_ms": path_bound[0],
+                           "bound_by": path_bound[1],
+                           "share_of_bound": path_bound[0] / path_ms}}
 
 
 def build_phase(libraries) -> None:
@@ -4114,8 +4187,8 @@ def main() -> int:
     encdec = encdec_phase(args, device)
     attn_paths_timing(ta, device, args.seed, attn, mixtral, vlm, encdec)
     lm_int8 = lm_int8_phase(args, device)
-    kernels.append(int8_timing_phase(ta, device, args.seed,
-                                     lm_int8["launches"], int8_errs))
+    kernels.append(int8_timing_phase(ta, device, args.seed, lm_int8,
+                                     int8_errs))
     train = train_phase(args, device)
     kernels.append(bwd_timing_phase(ta, device, args.seed, train["launches"],
                                     bwd_errs, train))

@@ -2,7 +2,8 @@
 it with ctypes.
 
 Each source directory compiles to one shared library with a plain C
-interface (no PyTorch headers, so nvcc takes seconds), named by the
+interface (no PyTorch headers, so nvcc takes seconds; one nvcc a source,
+started together, then one link), named by the
 library's name and a hash of its own sources, the headers beside them
 (`*.cuh`) and flags under `build/` at
 the checkout's root; a later process with the same sources reuses it.
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable
 
@@ -70,18 +72,37 @@ class Library:
         if lib_path.exists():
             self.build_info.update(seconds=0.0, path=str(lib_path))
             return lib_path
+        nvcc = _nvcc(self.name)
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        sources = self.sources()
+        objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
+                   for src in sources]
+        compile_flags = [f for f in self.flags if f != "-shared"]
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(self.name), *self.flags, "-o", str(tmp),
-                               *map(str, self.sources())],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
-                               f"{self.name}:\n{proc.stdout}{proc.stderr}")
+
+        def run(args: list[str]) -> subprocess.CompletedProcess:
+            proc = subprocess.run([nvcc, *args], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                                   f"{self.name}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            return proc
+
+        try:   # one nvcc a source, all started together, then one link
+            with ThreadPoolExecutor(len(sources)) as pool:
+                procs = list(pool.map(
+                    lambda so: run([*compile_flags, "-c", "-o", str(so[1]),
+                                    str(so[0])]), zip(sources, objects)))
+            run([*self.flags, "-o", str(tmp), *map(str, objects)])
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, lib_path)        # atomic: concurrent builders agree
         self.build_info.update(seconds=time.perf_counter() - t0,
-                               ptxas=proc.stdout + proc.stderr,
+                               ptxas="".join(p.stdout + p.stderr
+                                             for p in procs),
                                path=str(lib_path))
         return lib_path
 

@@ -73,7 +73,9 @@ def int8_cases(device) -> list:
     empty slots, a rolling ring after its wrap (key positions unsorted),
     a window, positions per batch row, GQA groups of 1, 8 and 48, dh 64
     and 128, T not a multiple of the split or the tile, a single valid
-    key, and every key masked."""
+    key, every key masked (all these on both routes of
+    `kernel.plan_int8`), and 48 rows against 20,000 keys, whose scores no
+    cluster holds (the split route only)."""
     ring = torch.empty(300, dtype=torch.long)
     held = torch.arange(777 - 299, 778)
     ring[held % 300] = held
@@ -107,6 +109,9 @@ def int8_cases(device) -> list:
         ("all_masked", (1, 1, 70, 8, 8, 64),
          {"q_positions": _i32([3], device),
           "kv_positions": _i32(torch.arange(70) + 10, device)}),
+        ("mqa_long", (1, 1, 20000, 48, 1, 128),
+         {"q_positions": _i32([19999], device),
+          "kv_positions": _i32(torch.arange(20000), device)}),
     ]
 
 

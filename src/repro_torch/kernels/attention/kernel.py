@@ -28,8 +28,12 @@ row's log-sum-exp there (`forward_lse` says when that kernel runs), which
 spares the backward its recomputation.
 
 `flash_decode_int8` is decode attention against an int8 KV cache with
-bf16 per-(b, t, kv head) scales (three launches: per-split softmax
-stats, then p8·v8 per split, then the sum of the splits);
+bf16 per-(b, t, kv head) scales, by one of two routes (`plan_int8`):
+"cluster", one launch of a thread-block cluster per (batch, KV head)
+that reads K and V once, where the cluster's shared memory holds the
+rows' scores; else "split" (three launches: per-split softmax stats,
+then p8·v8 per split, then the sum of the splits), counted by route in
+`INT8_ROUTES`;
 `flash_bwd` the backward of the forward kernels' function (three
 launches: Δ, and the log-sum-exp unless the forward's is given; dK/dV;
 dQ), by one of two routes (`plan_bwd`): bf16 at dh 64 and 128 on the
@@ -65,6 +69,11 @@ def _declare(handle: ctypes.CDLL) -> None:
     # window, q bf16, split_keys, stats, part, rowps, stream)
     handle.flash_decode_int8_launch.argtypes = [vp] * 8 + [i] * 12 + [vp] * 4
     handle.flash_decode_int8_launch.restype = i
+    # flash_decode_int8_cluster_launch(the same up to q bf16, cluster,
+    # keys a block, stream)
+    handle.flash_decode_int8_cluster_launch.argtypes = [vp] * 8 + [i] * 13 \
+        + [vp]
+    handle.flash_decode_int8_cluster_launch.restype = i
     # flash_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, delta, q_pos,
     # kv_pos, q_pos batch stride, kv_pos batch stride, B, S, T, H, KV, dh,
     # causal, window, bf16, lse_ready, stream); flash_bwd_tc_launch the
@@ -90,9 +99,16 @@ DECODE_MAX_SPLITS = 64
 SMS, DECODE_WAVES = 132, 2.5
 
 # int8 decode: rows (query position, head of a KV group) per (b, kvh)
-# (decode_int8.cu: I_ROWS), keys per tile (I_BN) and at most this many
-# splits of the keys
+# (decode_int8.cu: I_ROWS), keys per tile (I_BN, C_BN) and at most this
+# many splits of the keys on the split route
 INT8_ROWS, INT8_TILE, INT8_MAX_SPLITS = 64, 64, 64
+# the cluster route (decode_int8.cu: C_STAGES, sizeof(CSmall)): its
+# cluster sizes, and a block's shared memory: at most INT8_SMEM_PAIR
+# bytes lets two blocks share an SM (228 KB, 1 KB of it each block's
+# own), INT8_SMEM_MAX is a block's most
+INT8_CLUSTERS = (1, 2, 4, 8, 16)
+INT8_STAGES, INT8_SMALL = 5, 3632
+INT8_SMEM_PAIR, INT8_SMEM_MAX = 115_712, 232_448
 
 # the backward's routes: bf16 at these head sizes on the tensor cores
 BWD_TC_HEAD_DIMS = (64, 128)
@@ -101,6 +117,7 @@ LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_decode_int8": 0,
                             "flash_bwd": 0}
 LAUNCH_SHAPES: Counter = Counter()
 BWD_ROUTES: Counter = Counter()     # flash_bwd calls by plan_bwd's route
+INT8_ROUTES: Counter = Counter()    # flash_decode_int8 calls by route
 
 
 def reset_launches() -> None:
@@ -108,6 +125,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     LAUNCH_SHAPES.clear()
     BWD_ROUTES.clear()
+    INT8_ROUTES.clear()
 
 
 def _check(q, k, v, q_positions, kv_positions, window) -> None:
@@ -279,8 +297,45 @@ def _check_cuda(tensors: dict, align: int = 16) -> None:
                              "aligned tensor on q's CUDA device")
 
 
-def plan_int8(B: int, T: int, KV: int) -> tuple[int, int]:
-    """flash_decode_int8's (n_split, keys per split): enough splits for
+def int8_cluster_smem(R: int, keys: int, dh: int) -> int:
+    """Shared memory (bytes) of a cluster-route block of R rows and `keys`
+    keys (decode_int8.cu: `cluster_layout`): up to 1 KB to reach a
+    1024-byte boundary, the ring of K/V tiles, the scores (rows of P
+    float32, P = 4 mod 32 and at least dh), the keys' bf16 v_scale and
+    the per-row state."""
+    p = -(-max(keys, dh) // 4) * 4
+    p += (4 - p % 32) % 32
+    return (1024 + INT8_STAGES * INT8_TILE * dh + R * p * 4
+            + -(-keys * 2 // 16) * 16 + INT8_SMALL)
+
+
+def plan_int8(B: int, T: int, KV: int, R: int, dh: int
+              ) -> tuple[str, int, int]:
+    """flash_decode_int8's route for R rows per (b, kv head): ("cluster",
+    C, keys a block) or ("split", n_split, keys a split).
+
+    C is the smallest cluster size with B·KV·C blocks for the SMS SMs
+    (no more than T has tiles of keys) whose blocks' shared memory —
+    mostly the rows' scores, R·keys·4 bytes — fits INT8_SMEM_PAIR (two
+    blocks an SM), else INT8_SMEM_MAX; a shape no cluster of 16 holds
+    takes the split route."""
+    if R > INT8_ROWS:
+        raise ValueError(f"{R} rows per KV head; the int8 decode kernel "
+                         f"takes at most {INT8_ROWS}")
+    fill = next((c for c in INT8_CLUSTERS if B * KV * c >= SMS),
+                INT8_CLUSTERS[-1])
+    tiles = max(c for c in INT8_CLUSTERS if c == 1 or c * INT8_TILE <= T)
+    for budget in (INT8_SMEM_PAIR, INT8_SMEM_MAX):
+        for c in INT8_CLUSTERS:
+            keys = math.ceil(T / c)
+            if c >= min(fill, tiles) and \
+                    int8_cluster_smem(R, keys, dh) <= budget:
+                return "cluster", c, keys
+    return ("split", *plan_int8_split(B, T, KV))
+
+
+def plan_int8_split(B: int, T: int, KV: int) -> tuple[int, int]:
+    """The split route's (n_split, keys per split): enough splits for
     DECODE_WAVES blocks per SM, no more than T has tiles or
     INT8_MAX_SPLITS, none empty."""
     want = math.ceil(DECODE_WAVES * SMS / (B * KV))
@@ -297,8 +352,9 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> torch.Tensor:
     """Attention of q (B, S, H, dh), bf16 or float32, with S·H/KV <= 64,
     against int8 k, v (B, T, KV, dh) and their bf16 scales (B, T, KV), on
-    the card; returns (B, S, H, dh) in q's dtype. Raises on what the
-    kernel does not take and when a launch fails."""
+    the card, by `plan_int8`'s route; returns (B, S, H, dh) in q's dtype.
+    Raises on what the kernel does not take and when a launch fails (a
+    cluster the card cannot place among them)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
         raise ValueError(f"q must be (B, S, H, dh), k and v (B, T, KV, dh) "
@@ -328,45 +384,61 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda({"q": q, "k_scale": k_scale, "v_scale": v_scale}, align=2)
     _check_positions(q, k, q_positions, kv_positions)
     out = torch.empty_like(q)
+    route = plan_int8(B, T, KV, S * (H // KV), dh)[0]
     with torch.cuda.device(q.device):
         launch_int8(q, k, v, k_scale, v_scale, out, causal, window,
-                    q_positions, kv_positions)
+                    q_positions, kv_positions, route=route)
     LAUNCHES["flash_decode_int8"] += 1
+    INT8_ROUTES[route] += 1
     return out
 
 
 def launch_int8(q, k, v, k_scale, v_scale, out, causal, window,
-                q_positions, kv_positions, scratch=None) -> None:
-    """Bare int8 decode launch on the current stream into `out`; the
-    scratch (stats, part, rowps) is allocated unless given, as
+                q_positions, kv_positions, scratch=None, route=None) -> None:
+    """Bare int8 decode launch on the current stream into `out` by
+    `route` ("cluster" or "split"; `plan_int8`'s when None; "cluster"
+    raises where `plan_int8` gives the shape no cluster). The split
+    route's scratch (stats, part, rowps) is allocated unless given, as
     `int8_scratch` makes it."""
     lib = LIBRARY.lib()
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
-    _, keys = plan_int8(B, T, KV)
-    stats, part, rowps = scratch or int8_scratch(q, k)
-    rc = lib.flash_decode_int8_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(),
-        None if q_positions is None else q_positions.data_ptr(),
-        None if kv_positions is None else kv_positions.data_ptr(),
-        _batch_stride(q_positions), _batch_stride(kv_positions),
-        B, S, T, H, KV, dh, int(causal), window or 0,
-        int(q.dtype == torch.bfloat16), keys, stats.data_ptr(),
-        part.data_ptr(), rowps.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+    planned, n, keys = plan_int8(B, T, KV, S * (H // KV), dh)
+    route = route or planned
+    if route not in ("cluster", "split") or (route == "cluster"
+                                             and planned != "cluster"):
+        raise ValueError(f"route {route!r} does not take rows "
+                         f"{S * (H // KV)} at T {T}, dh {dh}")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), out.data_ptr(),
+            None if q_positions is None else q_positions.data_ptr(),
+            None if kv_positions is None else kv_positions.data_ptr(),
+            _batch_stride(q_positions), _batch_stride(kv_positions),
+            B, S, T, H, KV, dh, int(causal), window or 0,
+            int(q.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "cluster":
+        rc = lib.flash_decode_int8_cluster_launch(*args, n, keys, stream)
+    else:
+        stats, part, rowps = scratch or int8_scratch(q, k)
+        rc = lib.flash_decode_int8_launch(
+            *args, plan_int8_split(B, T, KV)[1], stats.data_ptr(),
+            part.data_ptr(), rowps.data_ptr(), stream)
     if rc:
-        raise RuntimeError(f"flash_decode_int8: CUDA kernel launch failed "
-                           f"with cudaError {rc}")
+        raise RuntimeError(
+            f"flash_decode_int8 ({route}): CUDA kernel launch failed with "
+            f"cudaError {rc}" + (" (9: no cluster of this size and shared "
+                                 "memory fits on the card)" if rc == 9
+                                 else ""))
 
 
 def int8_scratch(q, k) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The int8 decode kernel's scratch for these shapes: per-split
-    softmax stats (float32), per-split int32 partial outputs and the
-    rows' (max, sum, ps)."""
+    """The split route's scratch for these shapes: per-split softmax
+    stats (float32), per-split int32 partial outputs and the rows' (max,
+    sum, ps)."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
-    n_split, _ = plan_int8(B, T, KV)
+    n_split, _ = plan_int8_split(B, T, KV)
     R = S * (H // KV)
     return (torch.empty(B * KV * n_split * R * 3, dtype=torch.float32,
                         device=q.device),

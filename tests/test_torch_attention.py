@@ -10,6 +10,8 @@ tests: 2e-5 in float32 and 2e-2 in bfloat16 against the Pallas kernel
 (`tests/test_models_smoke.py`).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ from repro.kernels.attention import attention as jax_attention
 from repro.models.blocks import blockwise_attention
 from repro.models.common import NULL_RULES
 from repro_torch.kernels import attention as ta
-from repro_torch.kernels.attention.cases import bwd_cases
+from repro_torch.kernels.attention.cases import bwd_cases, int8_cases
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BWD_CASES = range(len(bwd_cases("cpu")))
@@ -349,7 +351,7 @@ def _jax_int8(q, k8, v8, ks, vs, kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(len(int8_cases("cpu"))))
 def test_attention_int8_ref_matches_blockwise_attention(case, dtype):
     """`attention_int8_ref` (and the entry point on the CPU) against JAX's
     int8 path on every int8 edge case. Tolerance 1e-2 of the output's
@@ -399,9 +401,39 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take():
         tk.flash_decode_int8(*big)
     with pytest.raises(ValueError, match="impl"):
         ta.attention_int8(q, k8, v8, ks, vs, impl="pallas", device="cpu")
-    assert tk.plan_int8(128, 32768, 8) == (1, 32768)
-    n, keys = tk.plan_int8(1, 4097, 1)
-    assert n * keys >= 4097 and (n - 1) * keys < 4097 and n <= 64
+
+
+def _covers(n, keys, T):
+    """n ranges of `keys` keys hold T keys, each key once, none empty."""
+    return n * keys >= T and (n - 1) * keys < T
+
+
+def test_plan_int8_routes():
+    """decode_32k's shape (128, 32768, 8 rows of dh 128) and the lm_int8
+    path's (4, 2032) take the cluster route, the latter with C >= 4 for
+    the SMs; every key lies in one block; each block's shared memory
+    (scores, v_scale, ring) fits the budget; C <= 16; 48 rows against
+    20,000 keys, whose scores no cluster holds, take the split route."""
+    from repro_torch.kernels.attention import kernel as tk
+    assert tk.plan_int8(128, 32768, 8, 8, 128) == ("cluster", 16, 2048)
+    route, c, keys = tk.plan_int8(4, 2032, 8, 8, 128)
+    assert route == "cluster" and c >= 4 and 4 * 8 * c >= tk.SMS
+    route, n, keys = tk.plan_int8(1, 20000, 1, 48, 128)
+    assert route == "split" and _covers(n, keys, 20000) and n <= 64
+    assert 48 * math.ceil(20000 / 16) * 4 > tk.INT8_SMEM_MAX
+    for B, T, KV, R, dh in [(128, 32768, 8, 8, 128), (4, 2032, 8, 8, 128),
+                            (1, 4097, 1, 1, 64), (3, 70, 8, 64, 32),
+                            (2, 333, 1, 48, 128), (1, 13000, 1, 48, 128),
+                            (128, 40000, 8, 8, 128), (1, 1, 1, 1, 32)]:
+        route, c, keys = tk.plan_int8(B, T, KV, R, dh)
+        assert route == "cluster" and c in tk.INT8_CLUSTERS and c <= 16
+        assert _covers(c, keys, T), (B, T, KV, R, dh)
+        assert R * keys * 4 < tk.int8_cluster_smem(R, keys, dh) \
+            <= tk.INT8_SMEM_MAX
+    smem = tk.int8_cluster_smem(8, 2048, 128)
+    assert smem <= tk.INT8_SMEM_PAIR and 8 * 2048 * 4 <= smem
+    with pytest.raises(ValueError, match="at most 64"):
+        tk.plan_int8(1, 64, 1, 65, 64)
 
 
 # ------------------------------------------------- attention backward

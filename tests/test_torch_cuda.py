@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import attention as ta
-from repro_torch.kernels.attention.cases import bwd_cases
+from repro_torch.kernels.attention.cases import bwd_cases, int8_cases
 from repro_torch.kernels import intersect as tx
 from repro_torch.kernels import rwkv as tr
 from repro_torch.kernels.intersect import ops as txo
@@ -1041,8 +1041,11 @@ def _rel(got, want):
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+_INT8_CASES = range(len(int8_cases("cpu")))    # counted without a card
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", _INT8_CASES)
 def test_flash_decode_int8_matches_plain_on_card(card, case, dtype):
     """`flash_decode_int8` against `attention_int8_ref` on the card on the
     int8 edge cases, within 1e-2 of the output's scale in float32 and
@@ -1050,7 +1053,7 @@ def test_flash_decode_int8_matches_plain_on_card(card, case, dtype):
     agree, but an exp or a softmax sum one ulp apart can move a p / ps on
     a rounding boundary by one step of ps · v8 (up to 1/127 of the
     scale), and a bf16 output rounds once more (2^-8)."""
-    from repro_torch.kernels.attention.cases import int8_cases, int8_inputs
+    from repro_torch.kernels.attention.cases import int8_inputs
     name, shape, kw = int8_cases(card)[case]
     q, k8, v8, ks, vs = int8_inputs(shape, case, card, dtype)
     ta.reset_launches()
@@ -1058,9 +1061,47 @@ def test_flash_decode_int8_matches_plain_on_card(card, case, dtype):
     want = ta.attention_int8(q, k8, v8, ks, vs, device=card, impl="ref",
                              **kw)
     torch.cuda.synchronize()
+    B, S, T, H, KV, dh = shape
     assert ta.LAUNCHES["flash_decode_int8"] == 1
+    assert dict(ta.INT8_ROUTES) == {
+        ta.plan_int8(B, T, KV, S * H // KV, dh)[0]: 1}
     assert got.dtype == dtype and got.shape == q.shape
     assert _rel(got, want) < (1e-2 if dtype == torch.float32 else 2e-2), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _INT8_CASES)
+def test_flash_decode_int8_routes_on_card(card, case, dtype):
+    """Each route that takes the case (the bare `launch_int8` with
+    `route=`: the split route every case, the cluster route where
+    `plan_int8` gives one) against `attention_int8_ref` within the
+    tolerances above; the cluster route gives the same bits on a second
+    run (the cluster's sums are in rank order, its int32 sums exact)."""
+    from repro_torch.kernels.attention import kernel as tk
+    from repro_torch.kernels.attention.cases import int8_inputs
+    name, shape, kw = int8_cases(card)[case]
+    B, S, T, H, KV, dh = shape
+    q, k8, v8, ks, vs = int8_inputs(shape, case, card, dtype)
+    want = ta.attention_int8(q, k8, v8, ks, vs, device=card, impl="ref",
+                             **kw)
+    args = (kw.get("causal", True), kw.get("window"), kw["q_positions"],
+            kw["kv_positions"])
+    routes = ["split"]
+    if tk.plan_int8(B, T, KV, S * H // KV, dh)[0] == "cluster":
+        routes.append("cluster")
+    for route in routes:
+        outs = [torch.full_like(q, float("nan")) for _ in range(2)]
+        for out in outs:
+            tk.launch_int8(q, k8, v8, ks, vs, out, *args, route=route)
+        torch.cuda.synchronize()
+        tol = 1e-2 if dtype == torch.float32 else 2e-2
+        assert _rel(outs[0], want) < tol, (name, route)
+        if route == "cluster":
+            assert torch.equal(outs[0], outs[1]), name
+    if "cluster" not in routes:
+        with pytest.raises(ValueError, match="does not take"):
+            tk.launch_int8(q, k8, v8, ks, vs, torch.empty_like(q), *args,
+                           route="cluster")
 
 
 _BWD_CASES = range(len(bwd_cases("cpu")))    # counted without a card
