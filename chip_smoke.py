@@ -34,8 +34,16 @@ window, positions per row, g = 1, 8 and 48, dh 64 and 128, ragged S, S =
 1, several 128-row items with S not a multiple of 64, a window narrower
 than a tile, g = 8 at dh 64 with positions per row), dq, dk and dv
 within 1e-4 (float32: the FMA route) and 2e-2 (bf16: the tensor-core
-route) of their joint scale, each dtype on the route `plan_bwd` names).
-Then it drives twelve paths at a real size, each with the launch
+route) of their joint scale, each dtype on the route `plan_bwd` names;
+also cross attention with S != T and the encoder's non-causal items);
+`wkv_bwd_edge` and `scan_bwd_edge`: the wkv and fused scan backwards
+against `wkv_bwd_ref` and `selective_scan_fused_bwd_ref` on
+`kernels.rwkv.cases` and `kernels.ssm.cases` (initial states and the
+final state's gradient, dh 32/64/128, S = 1 and off the chunk, bf16 and
+float32, decays held at 0 and 1, strided B_ and C_, D omitted, exp's
+denormal range), float32 gradients within 1e-4 of their scale and bf16
+ones one rounding more, every third case twice, bit for bit).
+Then it drives fifteen paths at a real size, each with the launch
 counts zeroed just before it and read just after:
 
 - the index query path: an HDFS-shaped log corpus (`--docs` lines) →
@@ -148,7 +156,19 @@ of their scale;
   the tensor-core route (`BWD_ROUTES`), the loss falling; a fresh
   run from other weights resumes from the step-10 checkpoint and must
   give steps 11-20's losses bit for bit; one step's loss and gradients
-  through the backward kernel vs plain autograd on a 1-layer cut.
+  through the backward kernel vs plain autograd on a 1-layer cut;
+- training RWKV-6, Jamba and the encoder-decoder (`train_rwkv`,
+  `train_jamba`, `train_encdec`), the same flow for 8 steps with
+  checkpoints every 4 and a resume from step 4 (bit for bit): `rwkv6-3b`
+  at its published widths, 8 of 32 layers (2 wkv and 1 `wkv_bwd` launch
+  a layer and step); `jamba-v0.1-52b` at its published widths as one
+  period of 8 layers without experts (2 fused scan and 1 backward launch
+  a Mamba layer and step, 2 attention and 1 `flash_bwd`); and
+  `seamless-m4t-medium` whole with seeded frames of 4096 a row (2 forward
+  and 1 backward launch for each of its 36 attentions a step, all on the
+  tensor cores); each with a gradient check through the kernels vs
+  plain autograd through the plain versions on a cut (1 layer; the same
+  period on 512 tokens; 1 + 1 layers).
 
 Last, each kernel is timed at the shapes its path gave it (attention
 also at the windowed prefill, the per-row-position prefill beside the
@@ -169,7 +189,9 @@ recomputing it) beside SDPA's backward alone and its forward and
 backward through autograd, and the forward there with and without the
 log-sum-exp write; both scan kernels, the fused one at the Jamba
 path's shapes and the unfused one at the same (B, S, D, N), also by the
-profiler's device time.
+profiler's device time; the wkv and fused scan backwards at their
+training paths' shapes, (2, 4096, 40, 64) and (2, 4096, 8192, 16) bf16,
+beside their plain versions and the forward kernel at the same shape.
 
 Every phase prints one JSON line; any failure raises and the script
 exits nonzero. The last lines are the kernels line, the card's name and
@@ -369,6 +391,20 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-32b", 4, 2, 4096
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_QUERY, TRAIN_LR = 20, 10, "block", 3e-4
 GRAD_CHECK_LAYERS, GRAD_LOSS_TOL, GRAD_LEAF_TOL = 1, 1e-2, 5e-2
+# Training RWKV-6, Jamba and the encoder-decoder (`train_rwkv`,
+# `train_jamba`, `train_encdec`): the `train` flow at published widths,
+# TRAIN_BATCH × TRAIN_SEQ tokens, TRAIN_NEW_STEPS steps with checkpoints
+# every TRAIN_NEW_CKPT and a resume from the middle one; rwkv6-3b cut to
+# RWKV_TRAIN_LAYERS of 32 (about 1.0 B parameters, 12 GB with float32
+# moments); jamba-v0.1-52b as one period of 8 layers without experts
+# (about 2.7 B parameters, 33 GB), its gradient check on JAMBA_GRAD_SEQ
+# tokens; seamless-m4t-medium whole with seeded frames of
+# ENCDEC_TRAIN_FRAMES. The backward kernels vs their plain versions
+# within each case module's BWD_TOL of each output's scale.
+TRAIN_NEW_STEPS, TRAIN_NEW_CKPT = 8, 4
+RWKV_TRAIN_LAYERS, JAMBA_GRAD_SEQ, ENCDEC_TRAIN_FRAMES = 8, 512, 4096
+WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv_bwd.cu"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
 
 
 def emit(obj) -> None:
@@ -1977,13 +2013,15 @@ def int8_edge_phase(ta, device) -> dict[str, float]:
 def attn_bwd_edge_phase(ta, device) -> dict[str, float]:
     """`flash_bwd` vs `attention_bwd_ref` on the backward edge cases
     (`kernels.attention.cases.bwd_cases`: causal, window, positions per
-    row, g = 1, 8 and 48, dh 32, 64 and 128, S ragged and S = 1), float32
+    row, g = 1, 8 and 48, dh 32, 64 and 128, S ragged and S = 1, cross
+    attention with S != T, the encoder's non-causal items), float32
     and bf16: the largest error of dq, dk and dv over their joint scale,
     within BWD_TOL. Each case runs with the log-sum-exp recomputed by the
     pre-pass and, where the forward kernel writes it (`forward_lse`: bf16
     prefill, as on the train path), once more with the forward's."""
     import torch
-    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    from repro_torch.kernels.attention.cases import (bwd_cases, bwd_inputs,
+                                                     kv_len)
     errs, routes, handed = {}, {}, {}
     cases = bwd_cases(device)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1992,7 +2030,8 @@ def attn_bwd_edge_phase(ta, device) -> dict[str, float]:
         handed[key] = []
         ta.reset_launches()
         for i, (name, shape, kw) in enumerate(cases):
-            q, k, v, do = bwd_inputs(shape, i, device, dtype)
+            q, k, v, do = bwd_inputs(shape, i, device, dtype,
+                                     T=kv_len(shape, kw))
             out = ta.attention(q, k, v, device=device, **kw)
             runs = [ta.attention_bwd(q, k, v, out, do, device=device, **kw)]
             want = ta.attention_bwd(q, k, v, out, do, device=device,
@@ -3951,6 +3990,530 @@ def bwd_timing_phase(ta, device, seed: int, launches: dict,
                       "causal": True}}
 
 
+# ------------------------- training RWKV-6, Jamba and the encoder-decoder
+def wkv_bwd_bound(B, S, H, dh, nbytes_el) -> tuple:
+    """Least card time (ms) of the wkv backward: r, k, v at their width,
+    w and dout float32 read once, dr, dk, dv at r's width and dw float32
+    written once, u and du; against 14 flops per (b, t, h) and state
+    entry (i, j) over the float32 rate: the state once (k·v and an FMA),
+    G's update (r·dout and an FMA), and one FMA each of dr, dk, dv and
+    dw's sums. The larger, and which it is."""
+    elems = B * S * H * dh
+    nbytes = (6 * nbytes_el + 12) * elems + 8 * H * dh
+    flops = 14 * elems * dh
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def scan_bwd_bound(B, S, D, N, nbytes_el) -> dict:
+    """Least card time (ms) of the fused scan's backward, the largest of
+    three terms: bytes (dt, dy and d(dt) float32, x and dx at x's width
+    per (b, t, d); B_, C_, dB_, dC_ per (b, t, n); A, dA, D, dD) over HBM
+    bandwidth; float32 operations per (b, t, d, n) over the float32 rate:
+    the state once (dt·A, b's two products, the update's two), G (an
+    FMA), da and dA (three), d(dt)'s two terms (four), dx's and dB_'s
+    products and sums (five), dC_'s FMA (two), the carry (one): 24; one
+    ex2 per (b, t, d, n) over the special-function units' rate.
+    `bound_by` is "bytes" or "operations", `term` names the term."""
+    elems = B * S * D * N
+    nbytes = (12 + 2 * nbytes_el) * B * S * D + 4 * nbytes_el * B * S * N \
+        + 8 * D * N + 8 * D
+    flops = 24 * elems
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "float32": flops / F32_FLOPS_PER_S,
+             "sfu": elems / SFU_OPS_PER_S}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": 1e3 * terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "term": term, "terms_ms": {k: 1e3 * v for k, v in terms.items()},
+            "flops": flops, "exp": elems, "bytes": nbytes}
+
+
+def bwd_kernel_check(name: str, got, want, names, tol: dict,
+                     again=None) -> dict[str, float]:
+    """A backward kernel's gradients against its plain version's on the
+    card: each output's largest difference over the plain version's
+    largest |value|, raising above `tol` of the output's dtype; with
+    `again` (a second call's gradients) also raises unless it is the
+    first bit for bit."""
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for what, g, w in zip(names, got, want):
+        if g is None and w is None:
+            continue
+        if g is None or w is None or g.shape != w.shape \
+                or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {what}: {g} vs {w}")
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{name} {what}: not finite")
+        rel = float((g.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+        limit = tol["bfloat16" if g.dtype == torch.bfloat16 else "float32"]
+        if not rel <= limit:
+            raise AssertionError(f"{name} {what}: kernel disagrees with the "
+                                 f"plain version by {rel} of its scale "
+                                 f"(> {limit})")
+        out[what] = rel
+    if again is not None:
+        for what, g, h in zip(names, got, again):
+            if g is not None and not torch.equal(g, h):
+                raise AssertionError(f"{name} {what}: a second call differs")
+    return out
+
+
+def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, device,
+                   seed: int) -> dict:
+    """Every case of `cases_mod.bwd_cases()`, the backward kernel against
+    its plain version within `cases_mod.BWD_TOL` of each output's scale;
+    every third case run twice, bit for bit."""
+    names = (("dr", "dk", "dv", "dw", "du", "ds0") if kind == "wkv_bwd"
+             else ("ddt", "dA", "dB_", "dC_", "dx", "dD", "dh0"))
+    worst: dict[str, float] = {}
+    twice = 0
+    t0 = time.perf_counter()
+    for i, case in enumerate(cases_mod.bwd_cases()):
+        args = cases_mod.bwd_inputs(case, seed + i, device)
+        got = kernel_fn(*args)
+        again = kernel_fn(*args) if i % 3 == 0 else None
+        twice += again is not None
+        errs = bwd_kernel_check(f"{kind} {case[0]}", got, plain_fn(*args),
+                                names, cases_mod.BWD_TOL, again)
+        for what, rel in errs.items():
+            worst[what] = max(worst.get(what, 0.0), rel)
+        del args, got, again
+    emit({"phase": f"{kind}_edge", "cases": len(cases_mod.bwd_cases()),
+          "bitwise_repeats": twice, "max_scaled_err_by_output": worst,
+          "tolerance": cases_mod.BWD_TOL, "wall_s": time.perf_counter() - t0})
+    return worst
+
+
+def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
+                         edge: dict) -> dict:
+    """The wkv backward at the RWKV train path's shape (TRAIN_BATCH,
+    TRAIN_SEQ, 40, 64) bf16 from the model's decays, no state: the bare
+    launch by CUDA events (L2 flushed), the plain version, the error
+    (`max_abs_err`: the largest over the outputs' scales, a bf16 output's
+    one rounding included; `max_abs_err_float32`: the same shape with
+    float32 r, k, v, every output float32)."""
+    import torch
+
+    from repro_torch.kernels.rwkv import cases
+    B, S, H, dh = TRAIN_BATCH, TRAIN_SEQ, 40, 64
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    args = cases.bwd_inputs(("train", (B, S, H, dh), "bfloat16", False,
+                             "model"), seed + 11, device)
+    r, k, v, w, u, _, dout, _ = args
+    plan = tr.plan_bwd(B, S, H, dh)
+    grads = [torch.empty_like(r) for _ in range(3)] + [
+        torch.empty(r.shape, dtype=torch.float32, device=device),
+        torch.empty((H, dh), dtype=torch.float32, device=device)]
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=device)
+
+    def kernel():
+        tr.launch_bwd(r, k, v, w, u, None, dout, None, *grads, None, scratch)
+    ms = cuda_ms(kernel, flush, iters=10, warmup=2)
+    want = tr.wkv_bwd_ref(*args)
+    errs = bwd_kernel_check("wkv_bwd train shape", grads + [None], want,
+                            ("dr", "dk", "dv", "dw", "du", "ds0"),
+                            cases.BWD_TOL)
+    del want
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: tr.wkv_bwd_ref(*args), flush, iters=2,
+                       warmup=0)
+    # the same shape in float32: every output within 1e-4 of its scale
+    args32 = cases.bwd_inputs(("train", (B, S, H, dh), "float32", False,
+                               "model"), seed + 11, device)
+    errs32 = bwd_kernel_check("wkv_bwd train shape float32",
+                              tr.wkv_bwd_cuda(*args32),
+                              tr.wkv_bwd_ref(*args32),
+                              ("dr", "dk", "dv", "dw", "du", "ds0"),
+                              cases.BWD_TOL)
+    del args32
+    torch.cuda.empty_cache()
+    fwd_out = torch.empty(r.shape, dtype=torch.float32, device=device)
+    fwd_state = torch.empty((B, H, dh, dh), dtype=torch.float32,
+                            device=device)
+    fwd_ms = cuda_ms(lambda: tr.launch(r, k, v, w, u, None, fwd_out,
+                                       fwd_state), flush, iters=10, warmup=2)
+    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(B, S, H, dh, 2)
+    return {"name": "wkv_bwd", "route": "cuda", "source": WKV_BWD_SOURCE,
+            "replaces": PORT_ONLY.format("jax.grad of wkv_chunked, "
+                                         "src/repro/models/rwkv6.py:111"),
+            "launches": launches["wkv_bwd"],
+            "launches_by_path": {"train_rwkv": launches["wkv_bwd"]},
+            "max_abs_err": max(*errs.values(), *edge.values()),
+            "max_abs_err_float32": max(errs32.values()),
+            "max_err_by_check": {"wkv_bwd_edge": edge, "train_shape": errs,
+                                 "train_shape_float32": errs32},
+            "tolerance": cases.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "library_ms": None,
+            "library": "none: no PyTorch call computes the wkv backward",
+            "share_of_bound": bound_ms / ms, "forward_ms": fwd_ms,
+            "plan": plan._asdict(),
+            "shape": {"B": B, "S": S, "H": H, "dh": dh, "dtype": "bfloat16",
+                      "s0": False}}
+
+
+def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
+                          edge: dict) -> dict:
+    """The fused scan's backward at the Jamba train path's shape
+    (TRAIN_BATCH, TRAIN_SEQ, 8192, 16) bf16 with the D skip, no state:
+    the bare launch by CUDA events (L2 flushed), the plain version, the
+    error (`max_abs_err` and `max_abs_err_float32` as `wkv_bwd`'s)."""
+    import torch
+
+    from repro_torch.kernels.ssm import cases
+    B, S, D, N = TRAIN_BATCH, TRAIN_SEQ, 8192, 16
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    args = cases.bwd_inputs(("train", (B, S, D, N), "bfloat16", False, True,
+                             False), seed + 12, device)
+    dt, A, B_, C_, x, Dv, _, dy, _ = args
+    plan = ts.plan_fused_bwd(B, S, D, N)
+    f32 = dict(dtype=torch.float32, device=device)
+    grads = [torch.empty((B, S, D), **f32), torch.empty((D, N), **f32),
+             torch.empty((B, S, N), dtype=x.dtype, device=device),
+             torch.empty((B, S, N), dtype=x.dtype, device=device),
+             torch.empty_like(x), torch.empty((D,), **f32)]
+    scratch = torch.empty(plan["scratch_floats"], **f32)
+
+    def kernel():
+        ts.launch_bwd(dt, A, B_, C_, x, Dv, None, dy, None, *grads, None,
+                      scratch)
+    ms = cuda_ms(kernel, flush, iters=10, warmup=2)
+    want = ts.selective_scan_fused_bwd_ref(*args)
+    errs = bwd_kernel_check("scan_bwd train shape", grads + [None], want,
+                            cases.GRADS, cases.BWD_TOL)
+    del want
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: ts.selective_scan_fused_bwd_ref(*args), flush,
+                       iters=2, warmup=0)
+    # the same shape in float32: every output within 1e-4 of its scale
+    args32 = cases.bwd_inputs(("train", (B, S, D, N), "float32", False, True,
+                               False), seed + 12, device)
+    errs32 = bwd_kernel_check("scan_bwd train shape float32",
+                              ts.selective_scan_fused_bwd_cuda(*args32),
+                              ts.selective_scan_fused_bwd_ref(*args32),
+                              cases.GRADS, cases.BWD_TOL)
+    del args32
+    torch.cuda.empty_cache()
+    y = torch.empty((B, S, D), **f32)
+    h_fin = torch.empty((B, D, N), **f32)
+    fwd_ms = cuda_ms(lambda: ts.launch_fused(dt, A, B_, C_, x, Dv, None, y,
+                                             h_fin), flush, iters=10,
+                     warmup=2)
+    bound = scan_bwd_bound(B, S, D, N, 2)
+    return {"name": "scan_bwd", "route": "cuda", "source": SCAN_BWD_SOURCE,
+            "replaces": PORT_ONLY.format("jax.grad of chunked_diag_scan, "
+                                         "src/repro/models/mamba.py:68"),
+            "kernel": "scan_bwd",
+            "launches": launches["selective_scan_fused_bwd"],
+            "launches_by_path": {
+                "train_jamba": launches["selective_scan_fused_bwd"]},
+            "max_abs_err": max(*errs.values(), *edge.values()),
+            "max_abs_err_float32": max(errs32.values()),
+            "max_err_by_check": {"scan_bwd_edge": edge, "train_shape": errs,
+                                 "train_shape_float32": errs32},
+            "tolerance": cases.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
+            **bound, "library_ms": None,
+            "library": "none: no PyTorch call computes the scan's backward",
+            "share_of_bound": bound["bound_ms"] / ms, "forward_ms": fwd_ms,
+            "plan": plan,
+            "shape": {"B": B, "S": S, "D": D, "N": N, "dtype": "bfloat16",
+                      "h0": False, "D_skip": True}}
+
+
+class FramesLoader:
+    """A loader's batches with seeded encoder frames (rows, frames,
+    d_model) bf16 added: one draw a step from `seed`, so a resumed run
+    sees the same frames at the same step."""
+
+    def __init__(self, loader, rows: int, frames: int, d_model: int,
+                 seed: int):
+        self.loader, self.shape, self.seed = loader, (rows, frames,
+                                                      d_model), seed
+
+    def batch(self, step: int) -> dict:
+        import torch
+        gen = torch.Generator().manual_seed(self.seed * 1_000_003 + step)
+        return dict(self.loader.batch(step), frames=torch.randn(
+            self.shape, generator=gen).to(torch.bfloat16))
+
+    def batches(self, start: int, n: int):
+        for step in range(start, start + n):
+            yield step, self.batch(step)
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import rwkv as tr
+    from repro_torch.kernels import ssm as ts
+    return {**ta.LAUNCHES, **tr.LAUNCHES, **ts.LAUNCHES}
+
+
+def _reset_all_launches() -> None:
+    from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import rwkv as tr
+    from repro_torch.kernels import ssm as ts
+    for mod in (ta, tr, ts):
+        mod.reset_launches()
+
+
+def _grad_check_pair(kernel_model, plain_model, batch, device, seed: int,
+                     want: dict) -> dict:
+    """One step's loss and every leaf's gradient through the kernels
+    (`kernel_model`) against plain autograd through the plain versions
+    (`plain_model`), the same seeded weights and batch; the kernel run's
+    launches must be `want` (the rest 0), the plain run's all 0."""
+    import torch
+
+    from repro_torch.kernels import attention as ta
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.checkpoint import _paths
+
+    params, _ = new_params(kernel_model, seed, device)
+    leaves = tree_leaves(params)
+    names = [n for n, _ in _paths(params)]
+    out = {}
+    for impl, m in (("cuda", kernel_model), ("ref", plain_model)):
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        _reset_all_launches()
+        loss = m.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        out[impl] = (float(loss.detach()), [g.float() for g in grads],
+                     {k: v for k, v in _all_launches().items() if v},
+                     dict(ta.BWD_ROUTES))
+        del loss, grads
+        torch.cuda.empty_cache()
+    (lk, gk, nk, rk), (lp, gp, np_, _) = out["cuda"], out["ref"]
+    if nk != want or np_:
+        raise AssertionError(f"grad check launches {nk} (want {want}) / "
+                             f"plain {np_}")
+    per_leaf = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for n, a, b in zip(names, gk, gp)}
+    per_leaf_max = {n: float((a - b).abs().max() / b.abs().max()
+                             .clamp_min(1e-30))
+                    for n, a, b in zip(names, gk, gp)}
+    del params, leaves, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel": abs(lk - lp) / abs(lp), "launches": nk,
+            "bwd_routes": rk, "leaf_norm_rel": per_leaf,
+            "leaf_max_rel": per_leaf_max,
+            "tolerance": {"loss": GRAD_LOSS_TOL, "leaf": GRAD_LEAF_TOL}}
+
+
+def train_arch_phase(args, device, name: str, published, cfg, want: dict,
+                     reduced: list, grad: dict, frames: int = 0) -> dict:
+    """`launch/train.py`'s flow (`train_phase`'s) on `cfg`: the logs
+    index's keyword-filtered loader (with seeded frames when `frames`),
+    TRAIN_NEW_STEPS AdamW steps with async checkpoints every
+    TRAIN_NEW_CKPT, the launch counts `want` per step (the rest 0, every
+    `flash_bwd` on the tensor cores); then a fresh run from other weights
+    resumes from the middle checkpoint and must give the same losses bit
+    for bit; then `grad`'s check (`_grad_check_pair` on its cut and
+    sequence length)."""
+    import gc
+    import shutil
+    import statistics as stats
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.train import logs_store, make_loader, train
+    from repro_torch.models import param_count
+    from repro_torch.storage import InMemoryBlobStore
+    from repro_torch.training import CheckpointConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, every = TRAIN_NEW_STEPS, TRAIN_NEW_CKPT
+    workdir = tempfile.mkdtemp(prefix="train-", dir=ROOT / "build")
+    t0 = time.perf_counter()
+    store = logs_store(workdir)
+    loader = make_loader(store, cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_QUERY,
+                         device)
+    if frames:
+        loader = FramesLoader(loader, TRAIN_BATCH, frames, cfg.d_model,
+                              args.seed)
+    setup_s = time.perf_counter() - t0
+    ckpts = InMemoryBlobStore()
+    ckpt_cfg = CheckpointConfig(keep_last_k=2)
+    want_all = {k: 0 for k in _all_launches()}
+    want_all.update({k: v * steps for k, v in want.items()})
+
+    # ---- the main path: counts zeroed before, read after -------------
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, whole = train(cfg, store, loader, steps=steps, lr=TRAIN_LR,
+                            ckpt_every=every, device=device, log_every=1,
+                            ckpt_config=ckpt_cfg, ckpt_store=ckpts,
+                            seed=args.seed)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _all_launches()
+    bwd_routes = dict(ta.BWD_ROUTES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------
+    n_params = param_count(state["params"])
+    host_after = _host_mb()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != want_all:
+        raise AssertionError(f"{name} launched {launches}, expected "
+                             f"{want_all}")
+    if bwd_routes != ({"tc": want_all["flash_bwd"]}
+                      if want_all["flash_bwd"] else {}):
+        raise AssertionError(f"{name}'s attention backward took the routes "
+                             f"{bwd_routes}, not the tensor cores' alone")
+    saved = sorted(int(n.split("step-")[1][:10]) for n in
+                   ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
+    if saved != [every, steps]:
+        raise AssertionError(f"{name} checkpoints at {saved}")
+    for blob in ckpts.list(f"ckpt/step-{steps:010d}"):
+        ckpts.delete(blob)               # the run is cut after `every`
+    t0 = time.perf_counter()
+    _, state, resumed = train(cfg, store, loader, steps=steps, lr=TRAIN_LR,
+                              ckpt_every=every, device=device, log_every=1,
+                              ckpt_config=ckpt_cfg, ckpt_store=ckpts,
+                              seed=args.seed + 1)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume_launches = _all_launches()
+    del state, ckpts
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail = whole.losses[every:]
+    diff = max(abs(a - b) for a, b in zip(tail, resumed.losses))
+    batch = {k: torch.as_tensor(v, device=device)[:, :grad["seq"]]
+             if k != "frames" else torch.as_tensor(v, device=device)
+             for k, v in loader.batch(0).items()}
+    t0 = time.perf_counter()
+    check = _grad_check_pair(grad["kernel"], grad["plain"], batch, device,
+                             args.seed, grad["want"])
+    check.update(cut=grad["cut"], seq=grad["seq"],
+                 wall_s=time.perf_counter() - t0)
+    shutil.rmtree(workdir, ignore_errors=True)
+    step_s = stats.median(whole.seconds[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": name, "arch": published.name, "layers": cfg.n_layers,
+          "dec_layers": cfg.n_dec_layers,
+          "layers_published": published.n_layers, "params": n_params,
+          "reduced": reduced, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "frames": frames or None, "steps": steps, "ckpt_every": every,
+          "query": TRAIN_QUERY, "lr": TRAIN_LR, "remat": cfg.remat,
+          "ce_chunk": cfg.ce_chunk, "setup_s": setup_s, "wall_s": wall_s,
+          "losses": whole.losses, "first_loss": whole.losses[0],
+          "last_loss": whole.losses[-1], "grad_norms": whole.grad_norms,
+          "step_ms_median": 1e3 * step_s, "step_s": whole.seconds,
+          "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
+          "host_mb_after_run": host_after, "launches": launches,
+          "launches_per_step": want, "bwd_routes": bwd_routes,
+          "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
+          "resume_launches": resume_launches,
+          "resumed_losses": resumed.losses, "resume_max_abs_diff": diff,
+          "resume_bitwise": diff == 0.0, "grad_check": check,
+          "host_mb": _host_mb()})
+    if not whole.losses[-1] < whole.losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: "
+                             f"{whole.losses}")
+    if resumed.resumed_from != every or \
+            resumed.steps != list(range(every + 1, steps + 1)):
+        raise AssertionError(f"{name}: resume ran steps {resumed.steps}")
+    if diff != 0.0:
+        raise AssertionError(f"{name}: resumed losses differ by {diff}: "
+                             f"{tail} vs {resumed.losses}")
+    if not (check["loss_rel"] <= GRAD_LOSS_TOL and max(
+            check["leaf_norm_rel"].values()) <= GRAD_LEAF_TOL):
+        raise AssertionError(f"{name}: gradients through the kernels vs "
+                             f"plain: {check}")
+    return {"launches": launches, "bwd_routes": bwd_routes,
+            "grad_err": max(check["leaf_norm_rel"].values())}
+
+
+def train_rwkv_phase(args, device) -> dict:
+    """rwkv6-3b at its published widths, RWKV_TRAIN_LAYERS of 32 layers:
+    each step runs every layer's wkv forward twice (remat) and its
+    backward once; the gradient check on a 1-layer cut at the full
+    sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RWKVModel
+    published = get_config(RWKV_ARCH)
+    cfg = published.with_(n_layers=RWKV_TRAIN_LAYERS)
+    cut = published.with_(n_layers=1)
+    L = cfg.n_layers
+    return train_arch_phase(
+        args, device, "train_rwkv", published, cfg,
+        {"wkv": 2 * L, "wkv_bwd": L},
+        [f"layers {L} of {published.n_layers}",
+         "batch 2 of train_4k's 256"],
+        {"kernel": RWKVModel(cut), "plain": RWKVModel(cut, wkv_impl="ref"),
+         "cut": "1 layer", "seq": TRAIN_SEQ,
+         "want": {"wkv": 2, "wkv_bwd": 1}})
+
+
+def train_jamba_phase(args, device) -> dict:
+    """jamba-v0.1-52b at its published widths as one period of 8 layers
+    (7 Mamba layers and the attention slot) with every slot's FFN dense
+    (`moe=None`): one period with its 4 MoE layers holds about 12.9 B
+    parameters, about 155 GB of training state, beyond one card until
+    sharding. Each step runs every Mamba layer's fused scan twice (the
+    period is recomputed) and its backward once, the attention forward
+    twice and `flash_bwd` once. The gradient check runs the same period
+    on JAMBA_GRAD_SEQ tokens: the plain scan's autograd keeps (B, D, N)
+    float32 states a step and layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import HybridModel
+    published = get_config(JAMBA_ARCH)
+    cfg = published.with_(n_layers=published.attn_every, moe=None)
+    mamba = cfg.attn_every - 1
+    return train_arch_phase(
+        args, device, "train_jamba", published, cfg,
+        {"selective_scan_fused": 2 * mamba,
+         "selective_scan_fused_bwd": mamba, "flash_attention": 2,
+         "flash_bwd": 1},
+        [f"layers {cfg.n_layers} of {published.n_layers} (one period)",
+         "moe None: every slot's FFN dense, no experts (one period with "
+         "its 4 MoE layers is about 12.9 B parameters, 155 GB of training "
+         "state)", "batch 2 of train_4k's 256"],
+        {"kernel": HybridModel(cfg), "plain": HybridModel(
+            cfg, scan_impl="ref", attn_impl="ref"),
+         "cut": "the same period", "seq": JAMBA_GRAD_SEQ,
+         "want": {"selective_scan_fused": 2 * mamba,
+                  "selective_scan_fused_bwd": mamba, "flash_attention": 2,
+                  "flash_bwd": 1}})
+
+
+def train_encdec_phase(args, device) -> dict:
+    """seamless-m4t-medium, all 12 + 12 layers, with seeded frames of
+    ENCDEC_TRAIN_FRAMES a row: each step runs 36 attentions (the encoder's,
+    the decoder's self and cross) forward twice and backward once; the
+    gradient check on 1 + 1 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import EncDecModel
+    published = get_config(ENCDEC_ARCH)
+    cut = published.with_(n_layers=1, n_dec_layers=1)
+    n = published.n_layers + 2 * (published.n_dec_layers or
+                                  published.n_layers)
+    return train_arch_phase(
+        args, device, "train_encdec", published, published,
+        {"flash_attention": 2 * n, "flash_bwd": n},
+        ["batch 2 of train_4k's 256"],
+        {"kernel": EncDecModel(cut), "plain": EncDecModel(
+            cut, attn_impl="ref"), "cut": "1 + 1 layers", "seq": TRAIN_SEQ,
+         "want": {"flash_attention": 6, "flash_bwd": 3}},
+        frames=ENCDEC_TRAIN_FRAMES)
+
+
 def int8_bound(B, S, T, H, KV, dh, q_bytes) -> tuple:
     """Least card time (ms) of int8 decode attention: K and V int8 and
     their bf16 scales read once, q read and o written once, against 4·dh
@@ -4138,6 +4701,8 @@ def main() -> int:
     from repro_torch.kernels import intersect as tx
     from repro_torch.kernels import rwkv as tr
     from repro_torch.kernels import ssm as ts
+    from repro_torch.kernels.rwkv import cases as rwkv_cases
+    from repro_torch.kernels.ssm import cases as ssm_cases
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -4158,6 +4723,11 @@ def main() -> int:
     scan_errs = scan_edge_phase(ts, device, args.seed)
     int8_errs = int8_edge_phase(ta, device)
     bwd_errs = attn_bwd_edge_phase(ta, device)
+    wkv_bwd_errs = bwd_edge_phase("wkv_bwd", tr.wkv_bwd_cuda, tr.wkv_bwd_ref,
+                                  rwkv_cases, device, args.seed)
+    scan_bwd_errs = bwd_edge_phase(
+        "scan_bwd", ts.selective_scan_fused_bwd_cuda,
+        ts.selective_scan_fused_bwd_ref, ssm_cases, device, args.seed)
     main = main_phase(args, device)
     serving = serving_phase(args, device, main)
     admin = cluster_admin_phase(args, device, main, serving)
@@ -4177,11 +4747,14 @@ def main() -> int:
     attn = attn_timing_phase(ta, device, args.seed, lm["shapes"], attn_errs)
     kernels.append(attn)
     rwkv = rwkv_phase(args, device)
-    kernels.append(wkv_timing_phase(tr, device, args.seed, rwkv["shapes"],
-                                    wkv_errs))
+    wkv = wkv_timing_phase(tr, device, args.seed, rwkv["shapes"], wkv_errs)
+    wkv["launches_by_path"] = {"rwkv": wkv["launches"]}
+    kernels.append(wkv)
     jamba = jamba_phase(args, device)
-    kernels.append(scan_timing_phase(ts, device, args.seed, jamba["shapes"],
-                                     scan_errs))
+    scan = scan_timing_phase(ts, device, args.seed, jamba["shapes"],
+                             scan_errs)
+    scan["launches_by_path"] = {"jamba": scan["launches"]}
+    kernels.append(scan)
     mixtral = mixtral_phase(args, device)
     vlm = vlm_phase(args, device)
     encdec = encdec_phase(args, device)
@@ -4190,8 +4763,30 @@ def main() -> int:
     kernels.append(int8_timing_phase(ta, device, args.seed, lm_int8,
                                      int8_errs))
     train = train_phase(args, device)
-    kernels.append(bwd_timing_phase(ta, device, args.seed, train["launches"],
-                                    bwd_errs, train))
+    bwd = bwd_timing_phase(ta, device, args.seed, train["launches"],
+                           bwd_errs, train)
+    kernels.append(bwd)
+    train_rwkv = train_rwkv_phase(args, device)
+    kernels.append(wkv_bwd_timing_phase(tr, device, args.seed,
+                                        train_rwkv["launches"],
+                                        wkv_bwd_errs))
+    train_jamba = train_jamba_phase(args, device)
+    kernels.append(scan_bwd_timing_phase(ts, device, args.seed,
+                                         train_jamba["launches"],
+                                         scan_bwd_errs))
+    train_encdec = train_encdec_phase(args, device)
+    # the forward kernels' training launches, and flash_bwd's on every
+    # training path (all on the tensor cores, asserted by each phase)
+    for entry, path, key, phase in (
+            (wkv, "train_rwkv", "wkv", train_rwkv),
+            (scan, "train_jamba", "selective_scan_fused", train_jamba)):
+        entry["launches_by_path"][path] = phase["launches"][key]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    for path, phase in (("train_jamba", train_jamba),
+                        ("train_encdec", train_encdec)):
+        bwd["launches_by_path"][path] = phase["launches"]["flash_bwd"]
+        bwd["routes"]["tc"]["launches"] += phase["bwd_routes"].get("tc", 0)
+    bwd["launches"] = sum(bwd["launches_by_path"].values())
     # the attention kernel runs on eight paths: its launches and its
     # errors against the plain version are summed over all
     attn["launches_by_path"] = {"lm": attn["launches"],
@@ -4203,6 +4798,10 @@ def main() -> int:
                                 "lm_int8": lm_int8["launches"][
                                     "flash_attention"],
                                 "train": train["launches"][
+                                    "flash_attention"],
+                                "train_jamba": train_jamba["launches"][
+                                    "flash_attention"],
+                                "train_encdec": train_encdec["launches"][
                                     "flash_attention"]}
     attn["launches"] = sum(attn["launches_by_path"].values())
     for errs_of_path in (jamba["attn_errs"], rag["errs"], mixtral["errs"],

@@ -134,16 +134,20 @@ def int8_inputs(shape, seed: int, device, dtype=torch.bfloat16):
 
 
 def bwd_cases(device) -> list:
-    """(name, (B, S, H, KV, dh), keywords) of training attention (S = T):
+    """(name, (B, S, H, KV, dh), keywords) of training attention, the
+    keys' length T that of `kv_positions` where given, else S (`kv_len`):
     causal, a window, positions per batch row, GQA groups of 1, 8 and
     48, dh 64 and 128, S not a multiple of the 32-row tile, and S = 1;
     then the tensor-core route's edges (its items of 128 keys or query
     positions, its tiles of 64): causal over several items with S not a
     multiple of 64, a window narrower than a tile (whole tiles skipped,
     the tiles it crosses masked), and g = 8 at dh 64 with positions per
-    row over several items; last dh 32, which the FMA route takes in
-    bf16 too, from the bf16 prefill kernel's log-sum-exp under
-    autograd."""
+    row over several items; dh 32, which the FMA route takes in bf16
+    too, from the bf16 prefill kernel's log-sum-exp under autograd; last
+    the encoder-decoder's: cross attention with S != T (non-causal, the
+    memory at arange(T)), 77 queries on 300 keys and 32 on 4096 (16/16
+    heads of 64), and the encoder's non-causal 16/16 heads of 64 over
+    several of the tensor-core route's 128-key items."""
     rows = torch.stack([torch.arange(77) + 5 * b for b in range(2)])
     rows300 = torch.stack([torch.arange(300) + 7 * b for b in range(2)])
     return [
@@ -164,13 +168,29 @@ def bwd_cases(device) -> list:
           "kv_positions": _i32(rows300, device)}),
         ("dh32_window", (2, 200, 16, 2, 32), {"causal": True,
                                               "window": 90}),
+        ("cross_77_300", (2, 77, 8, 8, 64),
+         {"causal": False, "q_positions": _i32(torch.arange(77), device),
+          "kv_positions": _i32(torch.arange(300), device)}),
+        ("cross_32_4096", (2, 32, 16, 16, 64),
+         {"causal": False, "q_positions": _i32(torch.arange(32), device),
+          "kv_positions": _i32(torch.arange(4096), device)}),
+        ("encoder_items", (1, 600, 16, 16, 64), {"causal": False}),
     ]
 
 
-def bwd_inputs(shape, seed: int, device, dtype=torch.bfloat16):
-    """q, dout (B, S, H, dh) and k, v (B, S, KV, dh) in `dtype`."""
+def kv_len(shape, kw: dict) -> int:
+    """A backward case's key length: `kv_positions`' last axis, else S."""
+    kv = kw.get("kv_positions")
+    return shape[1] if kv is None else int(kv.shape[-1])
+
+
+def bwd_inputs(shape, seed: int, device, dtype=torch.bfloat16,
+               T: int | None = None):
+    """q, dout (B, S, H, dh) and k, v (B, T, KV, dh) in `dtype` (T = S
+    unless given)."""
     B, S, H, KV, dh = shape
+    T = S if T is None else T
     g = torch.Generator().manual_seed(seed)
     q, dout = (torch.randn(B, S, H, dh, generator=g) for _ in range(2))
-    k, v = (torch.randn(B, S, KV, dh, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, T, KV, dh, generator=g) for _ in range(2))
     return tuple(x.to(dtype).to(device) for x in (q, k, v, dout))

@@ -25,6 +25,17 @@ launches and `LAUNCH_SHAPES` counts them by (B, S, H, dh, dtype, s0
 given). `launch` is the bare call beneath, for timing: it checks nothing
 and counts nothing. The library is built by nvcc on first launch, never
 at import.
+
+`wkv_bwd_cuda` is the backward (`csrc/wkv_bwd.cu`, port only): given the
+forward's inputs, the output's gradient dout (B, S, H, dh) float32 and
+optionally the final state's ds_fin, it returns (dr, dk, dv in r's
+dtype, dw (B, S, H, dh) float32, du (H, dh) float32, ds0 or None when s0
+is None). A forward sweep saves the state before each chunk of
+`BWD_CHUNK` steps in a scratch buffer, and a reverse sweep recomputes
+each chunk's states from it; a block owns `BWD_COLS[dh]` value columns
+of a (b, h), and the tiles' partial sums of dr, dk and dw are added in
+one order by a second kernel of the same launch call. `plan_bwd` decides
+it, `LAUNCHES["wkv_bwd"]` counts it and `launch_bwd` is its bare call.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ def _declare(handle: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     handle.wkv_launch.argtypes = [vp] * 8 + [i] * 5 + [ll, i, ll, vp]
     handle.wkv_launch.restype = i
+    handle.wkv_bwd_launch.argtypes = [vp] * 15 + [i] * 5 + [ll, i, ll, vp]
+    handle.wkv_bwd_launch.restype = i
 
 
 LIBRARY = Library("rwkv", Path(__file__).resolve().parent / "csrc", _declare)
@@ -98,12 +111,46 @@ def plan(B: int, S: int, H: int, dh: int,
                 RAW_STAGES * stage + 2 * prepared + levels)
 
 
-LAUNCHES: dict[str, int] = {"wkv": 0}
+# The backward's tiling (`csrc/wkv_bwd.cu`'s BC and BwdCfg).
+BWD_CHUNK = 16                # steps between the states the forward saves
+BWD_COLS = {32: 32, 64: 32, 128: 16}   # value columns a block, by dh
+
+
+class BwdPlan(NamedTuple):
+    """One launch of `wkv_bwd_launch`."""
+    cols: int                 # value columns a block
+    tiles: int                # blocks a (b, h): dh / cols
+    blocks: int
+    threads: int              # a key and 4 columns a thread
+    smem_bytes: int
+    chunks: int               # saved states a (b, h)
+    scratch_floats: int       # saved states, tile partials, du partials
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd(B: int, S: int, H: int, dh: int) -> BwdPlan:
+    """The backward's tiling at (B, S, H, dh); the library launches
+    exactly this or refuses it."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head size {dh} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    cols = BWD_COLS[dh]
+    tiles, threads = dh // cols, dh * cols // 4
+    chunks = -(-S // BWD_CHUNK)
+    smem = 4 * BWD_CHUNK * (3 * dh + 2 * cols + 2 + threads // 32 * cols)
+    nel = B * S * H * dh
+    scratch = B * H * chunks * dh * dh + 3 * tiles * nel + B * H * tiles * dh
+    return BwdPlan(cols, tiles, B * H * tiles, threads, smem, chunks,
+                   scratch)
+
+
+LAUNCHES: dict[str, int] = {"wkv": 0, "wkv_bwd": 0}
 LAUNCH_SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
-    LAUNCHES["wkv"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     LAUNCH_SHAPES.clear()
 
 
@@ -177,3 +224,67 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc:
         raise RuntimeError(f"wkv: CUDA kernel launch failed with cudaError "
                            f"{rc}")
+
+
+def _check_bwd(r, s0, dout, ds_fin) -> None:
+    B, S, H, dh = r.shape
+    if plan_bwd(B, S, H, dh).blocks > _MAX_INT:
+        raise ValueError(f"B·H = {B * H} exceeds the backward's grid")
+    for name, x, shape in (("dout", dout, r.shape),
+                           ("ds_fin", ds_fin, (B, H, dh, dh))):
+        if x is None:
+            continue
+        if x.shape != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {tuple(shape)}; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != r.device or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             "tensor on r's CUDA device")
+
+
+def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor | None,
+                 dout: torch.Tensor, ds_fin: torch.Tensor | None = None
+                 ) -> tuple:
+    """The gradients of `wkv_cuda(r, k, v, w, u, s0)` on the card, as
+    `ref.wkv_bwd_ref` gives them. Raises on what the kernel does not take
+    and when the launch fails; there is no other path."""
+    _check(r, k, v, w, u, s0)
+    _check_bwd(r, s0, dout, ds_fin)
+    B, S, H, dh = r.shape
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    du = torch.empty((H, dh), dtype=torch.float32, device=r.device)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    scratch = torch.empty(plan_bwd(B, S, H, dh).scratch_floats,
+                          dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        launch_bwd(r, k, v, w, u, s0, dout, ds_fin, dr, dk, dv, dw, du, ds0,
+                   scratch)
+    LAUNCHES["wkv_bwd"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch_bwd(r, k, v, w, u, s0, dout, ds_fin, dr, dk, dv, dw, du, ds0,
+               scratch) -> None:
+    """Bare launch of the backward on the current stream into
+    preallocated gradients and `plan_bwd`'s scratch. Raises if the launch
+    itself fails."""
+    lib = LIBRARY.lib()
+    B, S, H, dh = r.shape
+    p = plan_bwd(B, S, H, dh)
+    rc = lib.wkv_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        _ptr(s0), dout.data_ptr(), _ptr(ds_fin), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        _ptr(ds0), scratch.data_ptr(), B, S, H, dh,
+        int(r.dtype == torch.bfloat16), p.blocks, p.threads, p.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"wkv_bwd: CUDA kernel launch failed with "
+                           f"cudaError {rc}")

@@ -14,12 +14,23 @@ returns (y + D·x (B, S, D) float32, h_fin (B, D, N) float32). B_ and C_
 may be strided views, such as the model's slices of its x projection:
 each is read as rows of N at one row stride.
 
+`selective_scan_fused_bwd_cuda` is the fused scan's backward
+(`csrc/selective_scan_bwd.cu`, port only): given the forward's inputs,
+y's gradient dy (B, S, D) float32 and optionally the final state's
+dh_fin, it returns (d(dt) (B, S, D) float32, dA (D, N) float32, dB_ and
+dC_ (B, S, N) and dx (B, S, D) in x's dtype, dD (D,) float32 or None,
+dh0 (B, D, N) float32 or None). A forward sweep saves the state before
+each chunk of `BWD_CHUNK` steps in a scratch buffer (`plan_fused_bwd`
+sizes it) and a reverse sweep recomputes each chunk from it; dB_, dC_,
+dA and dD are added across blocks in one order by a second kernel of
+the same launch call.
+
 `LAUNCHES[name]` counts each kernel's launches and `LAUNCH_SHAPES[name]`
 counts them by shape: (B, S, D, N, h0 given) for "selective_scan", (B,
 S, D, N, dtype of x, h0 given, D given) for "selective_scan_fused".
-`launch` and `launch_fused` are the bare calls beneath, for timing: they
-check nothing and count nothing. The library is built by nvcc on first
-launch, never at import.
+`launch`, `launch_fused` and `launch_bwd`
+are the bare calls beneath, for timing: they check nothing and count
+nothing. The library is built by nvcc on first launch, never at import.
 """
 
 from __future__ import annotations
@@ -44,11 +55,21 @@ def _declare(handle: ctypes.CDLL) -> None:
     handle.selective_scan_fused_launch.argtypes = \
         [vp] * 9 + [i] * 4 + [ll, ll, i, vp]
     handle.selective_scan_fused_launch.restype = i
+    handle.selective_scan_fused_bwd_launch.argtypes = \
+        [vp] * 17 + [i] * 4 + [ll, ll, i, ll, vp]
+    handle.selective_scan_fused_bwd_launch.restype = i
 
 
 LIBRARY = Library("ssm", Path(__file__).resolve().parent / "csrc", _declare)
 
-LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0}
+# The backward's tiling (`csrc/selective_scan_bwd.cu`'s BT, BC and
+# ScanBwdCfg).
+BWD_THREADS = 256             # threads a block
+BWD_CHUNK = 16                # steps between the states the forward saves
+BWD_STATES = 4                # states a thread (all of them when N <= 4)
+
+LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0,
+                            "selective_scan_fused_bwd": 0}
 LAUNCH_SHAPES: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 
@@ -228,3 +249,75 @@ def launch_fused(dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
     if rc:
         raise RuntimeError(f"selective_scan_fused: CUDA kernel launch failed "
                            f"with cudaError {rc}")
+
+
+def plan_fused_bwd(B: int, S: int, D: int, N: int) -> dict:
+    """The backward's blocks a batch row, chunks and scratch floats (the
+    saved states, the blocks' partial dB_ and dC_, the per-b dA and dD);
+    the library refuses another scratch size."""
+    npow = 1 << (N - 1).bit_length()
+    dpb = BWD_THREADS // (npow // min(npow, BWD_STATES))
+    per_b = -(-D // dpb)
+    chunks = -(-S // BWD_CHUNK)
+    scratch = (B * chunks * D * N + per_b * B * S * 2 * N + B * D * N
+               + B * D)
+    return {"columns": dpb, "blocks_per_b": per_b, "blocks": B * per_b,
+            "chunks": chunks, "scratch_floats": scratch}
+
+
+def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
+                                  dh_fin=None) -> tuple:
+    """The gradients of `selective_scan_fused_cuda(dt, A, B_, C_, x, D,
+    h0)` on the card, as `ref.selective_scan_fused_bwd_ref` gives them.
+    Raises on what the kernel does not take and when the launch fails;
+    there is no other path."""
+    _check_fused(dt, A, B_, C_, x, D, h0)
+    Bsz, S, Di = dt.shape
+    N = A.shape[1]
+    for name, t, want in (("dy", dy, (Bsz, S, Di)),
+                          ("dh_fin", dh_fin, (Bsz, Di, N))):
+        if t is None:
+            continue
+        if t.shape != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {want}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != dt.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on dt's CUDA device")
+    plan = plan_fused_bwd(Bsz, S, Di, N)
+    if plan["blocks"] > _MAX_INT:
+        raise ValueError(f"shape {(Bsz, S, Di, N)} exceeds the backward's "
+                         "grid")
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    ddt = torch.empty((Bsz, S, Di), **f32)
+    dA = torch.empty((Di, N), **f32)
+    dB, dC = (torch.empty((Bsz, S, N), dtype=x.dtype, device=dt.device)
+              for _ in range(2))
+    dx = torch.empty_like(x)
+    dD = None if D is None else torch.empty((Di,), **f32)
+    dh0 = None if h0 is None else torch.empty((Bsz, Di, N), **f32)
+    scratch = torch.empty(plan["scratch_floats"], **f32)
+    with torch.cuda.device(dt.device):
+        launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, ddt, dA, dB, dC, dx,
+                   dD, dh0, scratch)
+    LAUNCHES["selective_scan_fused_bwd"] += 1
+    return ddt, dA, dB, dC, dx, dD, dh0
+
+
+def launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, ddt, dA, dB, dC, dx, dD,
+               dh0, scratch) -> None:
+    """Bare launch of the fused scan's backward on the current stream
+    into preallocated gradients and `plan_fused_bwd`'s scratch. Raises if
+    the launch itself fails."""
+    lib = LIBRARY.lib()
+    Bsz, S, Di = dt.shape
+    rc = lib.selective_scan_fused_bwd_launch(
+        dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+        x.data_ptr(), _ptr(D), _ptr(h0), dy.data_ptr(), _ptr(dh_fin),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dx.data_ptr(), _ptr(dD), _ptr(dh0), scratch.data_ptr(), Bsz, S, Di,
+        A.shape[1], row_stride(B_), row_stride(C_),
+        int(x.dtype == torch.bfloat16), scratch.numel(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"selective_scan_fused_bwd: CUDA kernel launch "
+                           f"failed with cudaError {rc}")

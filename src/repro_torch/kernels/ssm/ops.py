@@ -8,6 +8,11 @@ with `impl="ref"`, to the plain PyTorch version on the card, for
 comparison; a CPU tensor takes the plain version. Nothing falls back:
 without a card `device="cuda"` raises. An input of a dtype the kernel
 does not take raises on either device, as the kernel would.
+
+On the card `selective_scan_fused` is differentiable through
+`_ScanFused`, a `torch.autograd.Function` whose forward is the fused
+scan kernel and whose backward is the `selective_scan_fused_bwd` kernel;
+on the CPU autograd differentiates `selective_scan_fused_ref`.
 """
 
 from __future__ import annotations
@@ -16,8 +21,35 @@ import torch
 
 from ..intersect.ops import resolve_device
 from .kernel import (check_fused_inputs, check_inputs, row_stride,
-                     selective_scan_cuda, selective_scan_fused_cuda)
+                     selective_scan_cuda, selective_scan_fused_bwd_cuda,
+                     selective_scan_fused_cuda)
 from .ref import selective_scan_fused_ref, selective_scan_ref
+
+# the Function's two halves, by name (a test swaps in the plain versions)
+KERNELS = {"forward": selective_scan_fused_cuda,
+           "backward": selective_scan_fused_bwd_cuda}
+
+
+class _ScanFused(torch.autograd.Function):
+    """The fused scan kernel forward, its backward kernel backward:
+    gradients for dt, A, B_, C_, x, D and h0 from y's and the final
+    state's."""
+
+    @staticmethod
+    def forward(ctx, dt, A, B_, C_, x, D, h0):
+        ctx.set_materialize_grads(False)
+        y, h_fin = KERNELS["forward"](dt, A, B_, C_, x, D, h0)
+        ctx.save_for_backward(dt, A, B_, C_, x, D, h0)
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, dy, dh_fin):
+        dt, A, B_, C_, x, D, h0 = ctx.saved_tensors
+        dy = (torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+              if dy is None else dy.contiguous())
+        return KERNELS["backward"](
+            dt, A, B_, C_, x, D, h0, dy,
+            None if dh_fin is None else dh_fin.contiguous())
 
 
 def _impl(impl: str) -> str:
@@ -47,7 +79,8 @@ def selective_scan_fused(dt, A, B_, C_, x, D=None, h0=None, *,
     """The scan from dt, A, B_, C_ and x on `device`, with the D skip when
     D is given; returns (y (B, S, D) float32, final state (B, D, N)
     float32). B_ and C_ may be strided rows, as the model's slices of its
-    projection are; other layouts are copied."""
+    projection are; other layouts are copied. On the card, gradients
+    reach every input through the backward kernel."""
     _impl(impl)
     dev = resolve_device(device)
     dt, A, B_, C_, x = (torch.as_tensor(t).to(dev) for t in (dt, A, B_, C_,
@@ -59,6 +92,9 @@ def selective_scan_fused(dt, A, B_, C_, x, D=None, h0=None, *,
         return selective_scan_fused_ref(dt, A, B_, C_, x, D, h0)
     B_, C_ = (t if t.dim() == 3 and row_stride(t) is not None
               else t.contiguous() for t in (B_, C_))
-    return selective_scan_fused_cuda(
-        dt.contiguous(), A.contiguous(), B_, C_, x.contiguous(),
-        *(None if t is None else t.contiguous() for t in (D, h0)))
+    args = (dt.contiguous(), A.contiguous(), B_, C_, x.contiguous(),
+            *(None if t is None else t.contiguous() for t in (D, h0)))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args):
+        return _ScanFused.apply(*args)
+    return selective_scan_fused_cuda(*args)

@@ -1,10 +1,20 @@
-"""Train launcher (CLI): the transformer trained on a keyword-filtered
-mixture that an Airphant index serves (`repro/launch/train.py`).
+"""Train launcher (CLI): a model of the registry trained on a
+keyword-filtered mixture that an Airphant index serves
+(`repro/launch/train.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
         --reduced --steps 50 --query "block" --workdir build/run1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+        --reduced --device cpu --steps 2
+
+`--arch` takes any architecture whose batches are tokens and labels:
+the transformers, RWKV-6 and Jamba (on a card their wkv and scan are
+differentiated by the `wkv_bwd` and `selective_scan_fused_bwd` kernels,
+their attention by `flash_bwd`). The loader feeds no encoder frames or
+image patches, as the JAX launcher's does not, so the encoder-decoder and
+the VLM are trained through `train()` with a loader that adds them.
 
 A 4,000-line log corpus is written and indexed into a `LocalBlobStore`
 at `--workdir` (once); an `IndexedCorpusLoader` behind a simulated cloud

@@ -1,10 +1,9 @@
 """The model zoo: the dense, MoE (Mixtral's sliding window and rolling
 cache included) and VLM transformers, the SeamlessM4T encoder-decoder,
 RWKV-6 and the Jamba hybrid — prefill and decode from a KV cache or a
-recurrent state — with the transformers' int8 KV cache and their
-training loss (`loss_fn`, `losses.py`). Not ported yet: sharding
-(ROADMAP queue 1, item 7) and the RWKV, Jamba and encoder-decoder losses
-(item 9)."""
+recurrent state — with the transformers' int8 KV cache, and every
+model's training loss (`loss_fn`, `losses.py`). Not ported yet:
+sharding (ROADMAP queue 1, item 7)."""
 
 from .api import batch_desc, build_model
 from .common import Desc, init_params, param_count, stack_tree

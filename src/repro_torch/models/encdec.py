@@ -17,17 +17,27 @@ The cache is {"k", "v": (L_dec, B, T, KV, dh) bf16 decoder self-K/V,
 from the encoder's output at prefill, "kpos": (T,) int32 absolute
 position per slot, -1 for empty, "pos": () int32 on the host}.
 `decode_step` writes the new token's K/V into the cache's tensors in
-place. The training loss is not ported yet (ROADMAP queue 1, item 9).
+place.
+
+`loss_fn` is the training forward: `encode`, then the decoder layers
+over the tokens with causal self-attention and cross-attention into the
+memory, the final norm and the chunked cross-entropy. Each encoder and
+decoder layer runs under `torch.utils.checkpoint` unless `cfg.remat` is
+"none", as JAX's `maybe_remat` scan bodies. On a card every attention
+is differentiated by `flash_bwd`.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks
 from .common import Desc, stack_tree, tree_map
+from .losses import chunked_cross_entropy
 
 
 def _enc_layer_desc(cfg: ModelConfig) -> dict:
@@ -95,14 +105,65 @@ class EncDecModel:
         x = blocks.rms_norm(x, params["ln_dec"], self.cfg.norm_eps)
         return (x[:, -1] @ params["lm_head"].T).float()
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the training loss is not ported yet (ROADMAP "
-            "queue 1, item 9)")
+    def _remat(self, fn, *args):
+        """fn(*args), recomputed in backward unless `cfg.remat` is
+        "none" or gradients are off."""
+        if self.cfg.remat != "none" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of `batch` ({"frames" (B, S_enc,
+        D), "tokens", "labels" (B, S), -1 = ignore}), float32 scalar."""
+        return self.decoder_loss(params, self.encode(params, batch["frames"]),
+                                 batch)
+
+    def decoder_loss(self, params, memory, batch) -> torch.Tensor:
+        """The loss's decoder half: the decoder layers over
+        `batch["tokens"]` against the encoder's `memory` (B, S_enc, D),
+        the final norm and the chunked cross-entropy."""
+        cfg = self.cfg
+        embed = params["embed"]
+        x = F.embedding(torch.as_tensor(batch["tokens"], device=embed.device),
+                        embed)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=embed.device)
+        cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
+        mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
+                               device=embed.device)
+
+        def layer(x, lp, memory):
+            def self_fn(k, v):
+                return k, v, positions, positions
+
+            def cross_fn(h):
+                qc, kc, vc = blocks.qkv_project(h, lp["cross"], cfg,
+                                                kv_x=memory)
+                return qc, kc, vc, positions, mem_pos
+            return self._dec_layer(x, lp, cos, sin, self_fn, cross_fn)
+
+        for i in range(self.n_dec):
+            lp = tree_map(lambda w: w[i], params["dec_layers"])
+            x = self._remat(layer, x, lp, memory)
+        x = blocks.rms_norm(x, params["ln_dec"], cfg.norm_eps)
+        return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
+                                     chunk=cfg.ce_chunk)
 
     # ---------------------------------------------------------------- encode
+    def _enc_layer(self, x, lp, cos, sin, positions):
+        cfg = self.cfg
+        h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = blocks.qkv_project(h, lp["attn"], cfg)
+        q = blocks.apply_rope(q, cos, sin)
+        k = blocks.apply_rope(k, cos, sin)
+        attn = self._attend(q, k, v, positions, positions, causal=False)
+        x = x + blocks.attn_out(attn, lp["attn"])
+        h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + blocks.swiglu_ffn(h, lp["ffn"])
+
     def encode(self, params, frames):
-        """Encoder frames (B, S_enc, D) → memory (B, S_enc, D) bf16."""
+        """Encoder frames (B, S_enc, D) → memory (B, S_enc, D) bf16; each
+        layer is recomputed in backward unless `cfg.remat` is "none"."""
         cfg = self.cfg
         dev = params["embed"].device
         x = torch.as_tensor(frames, device=dev).to(torch.bfloat16)
@@ -110,14 +171,7 @@ class EncDecModel:
         cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
         for i in range(cfg.n_layers):
             lp = tree_map(lambda w: w[i], params["enc_layers"])
-            h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = blocks.qkv_project(h, lp["attn"], cfg)
-            q = blocks.apply_rope(q, cos, sin)
-            k = blocks.apply_rope(k, cos, sin)
-            attn = self._attend(q, k, v, positions, positions, causal=False)
-            x = x + blocks.attn_out(attn, lp["attn"])
-            h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + blocks.swiglu_ffn(h, lp["ffn"])
+            x = self._remat(self._enc_layer, x, lp, cos, sin, positions)
         return blocks.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
     # --------------------------------------------------------------- decoder

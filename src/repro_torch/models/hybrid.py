@@ -26,17 +26,27 @@ With a sliding window (`cfg.swa`) the attention cache rolls as
 and position pos goes to slot pos % T.
 Prefill takes each Mamba layer's conv tail from `mamba_forward`'s own
 `in_proj` product, where JAX's `_conv_tail` repeats that product on the
-same inputs. The training loss is not ported yet.
+same inputs.
+
+`loss_fn` is the training forward: embeddings, every period's slots over
+the whole sequence (each period under `torch.utils.checkpoint` unless
+`cfg.remat` is "none", as JAX's `maybe_remat` period body), the final
+norm and the chunked cross-entropy; it builds no K/V cache and keeps no
+Mamba state. On a card the Mamba scans are differentiated by the
+`selective_scan_fused_bwd` kernel and the attention by `flash_bwd`.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks, mamba
 from .common import Desc, stack_tree, tree_map
+from .losses import chunked_cross_entropy
 
 
 class HybridModel:
@@ -136,20 +146,33 @@ class HybridModel:
             return x + blocks.moe_ffn(h2, lp["moe"], cfg), new
         return x + blocks.swiglu_ffn(h2, lp["ffn"]), new
 
+    def _period(self, x, pp, cos, sin, kv_fn, slots=None):
+        """One period's slots in turn (`pp` its parameters by slot,
+        `slots` its cached Mamba states or None); returns x and the new
+        Mamba states by slot."""
+        new = {}
+        for i in range(self.period):
+            name = f"slot{i}"
+            state = None if slots is None or self._slot_is_attn(i) else \
+                slots[name]
+            x, st = self._slot(x, pp[name], cos, sin, kv_fn, state)
+            if st is not None:
+                new[name] = st
+        return x, new
+
     def _layers(self, params, x, cos, sin, kv_fn, slots=None):
         """Every period's slots in turn; returns x and the new Mamba
         states stacked over periods, by slot."""
         new: dict[str, list] = {}
         for n in range(self.n_periods):
-            for i in range(self.period):
-                name = f"slot{i}"
-                lp = tree_map(lambda w: w[n], params["periods"][name])
-                state = None if slots is None or self._slot_is_attn(i) else \
-                    {k: v[n] for k, v in slots[name].items()}
-                x, st = self._slot(x, lp, cos, sin,
-                                   lambda k, v, n=n: kv_fn(n, k, v), state)
-                if st is not None:
-                    new.setdefault(name, []).append(st)
+            pp = tree_map(lambda w: w[n], params["periods"])
+            cached = None if slots is None else {
+                name: {k: v[n] for k, v in st.items()}
+                for name, st in slots.items()}
+            x, sts = self._period(x, pp, cos, sin,
+                                  lambda k, v, n=n: kv_fn(n, k, v), cached)
+            for name, st in sts.items():
+                new.setdefault(name, []).append(st)
         return x, {name: {k: torch.stack([st[k] for st in sts])
                           for k in sts[0]} for name, sts in new.items()}
 
@@ -163,10 +186,32 @@ class HybridModel:
         x = blocks.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return (x[:, -1] @ params["lm_head"].T).float()
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the training loss is not ported yet (ROADMAP "
-            "queue 1, item 9)")
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of `batch` ({"tokens", "labels"
+        (B, S), -1 = ignore}), float32 scalar."""
+        cfg = self.cfg
+        embed = params["embed"]
+        x = F.embedding(torch.as_tensor(batch["tokens"], device=embed.device),
+                        embed)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=embed.device)
+        cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
+
+        def kv_fn(k, v):
+            return k, v, positions, positions
+
+        def period(x, pp):
+            return self._period(x, pp, cos, sin, kv_fn)[0]
+
+        for n in range(self.n_periods):
+            pp = tree_map(lambda w: w[n], params["periods"])
+            if cfg.remat != "none" and torch.is_grad_enabled():
+                x = checkpoint(period, x, pp, use_reentrant=False)
+            else:
+                x = period(x, pp)
+        x = blocks.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
+                                     chunk=cfg.ce_chunk)
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch, pad_to: int | None = None):

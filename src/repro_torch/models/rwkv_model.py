@@ -7,15 +7,24 @@ a fixed size, whatever the prompt's length: the cache is {"states":
 {"shift_t", "shift_c": (L, B, D) in the activations' dtype, "S": (L, B,
 H, dh, dh) float32}, "pos": () int32 on the host}, and `prefill` takes
 no `pad_to`. `decode_step` returns new state tensors and leaves the
-cache it was given as it was. The training loss is not ported yet.
+cache it was given as it was.
+
+`loss_fn` is the training forward: embeddings, the layers from a zero
+state (each under `torch.utils.checkpoint` unless `cfg.remat` is
+"none", as JAX's `maybe_remat` scan body), the final layer norm and the
+chunked cross-entropy. On a card its wkv is differentiated by the
+`wkv_bwd` kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .common import Desc, stack_tree, tree_map
+from .losses import chunked_cross_entropy
 from .rwkv6 import layer_norm, rwkv_layer, rwkv_layer_desc, rwkv_state_desc
 
 
@@ -67,10 +76,27 @@ class RWKVModel:
             new.append(st)
         return x, {k: torch.stack([st[k] for st in new]) for k in new[0]}
 
-    def loss_fn(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the training loss is not ported yet (ROADMAP "
-            "queue 1, item 9)")
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of `batch` ({"tokens", "labels"
+        (B, S), -1 = ignore}), float32 scalar."""
+        cfg = self.cfg
+        embed = params["embed"]
+        x = F.embedding(torch.as_tensor(batch["tokens"], device=embed.device),
+                        embed)
+        x = layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.norm_eps)
+
+        def layer(x, lp):
+            return rwkv_layer(x, lp, cfg, None, self.wkv_impl)[0]
+
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["layers"])
+            if cfg.remat != "none" and torch.is_grad_enabled():
+                x = checkpoint(layer, x, lp, use_reentrant=False)
+            else:
+                x = layer(x, lp)
+        x = layer_norm(x, params["lnf_w"], params["lnf_b"], cfg.norm_eps)
+        return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
+                                     chunk=cfg.ce_chunk)
 
     def prefill(self, params, batch):
         """Full-prompt forward from a zero state; returns (last-position

@@ -443,14 +443,18 @@ def test_attention_bwd_ref_matches_jax_vjp(case):
     every backward edge case, float32, 1e-4 of the three gradients'
     joint scale (sums in other orders)."""
     import jax
-    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    from repro_torch.kernels.attention.cases import (bwd_cases, bwd_inputs,
+                                                     kv_len)
     name, (B, S, H, KV, dh), kw = bwd_cases("cpu")[case]
-    q, k, v, do = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32)
-    pos = kw.get("q_positions")
+    T = kv_len((B, S, H, KV, dh), kw)
+    q, k, v, do = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32,
+                             T=T)
+    pos, kpos = kw.get("q_positions"), kw.get("kv_positions")
     pos = np.arange(S, dtype=np.int32) if pos is None else pos.numpy()
+    kpos = np.arange(T, dtype=np.int32) if kpos is None else kpos.numpy()
     out, vjp = jax.vjp(lambda q_, k_, v_: blockwise_attention(
         q_, k_, v_, q_positions=jnp.asarray(pos), kv_positions=jnp.asarray(
-            pos), causal=kw["causal"], window=kw.get("window"), chunk=512,
+            kpos), causal=kw["causal"], window=kw.get("window"), chunk=512,
         rules=NULL_RULES), *(jnp.asarray(x.numpy()) for x in (q, k, v)))
     want = vjp(jnp.asarray(do.numpy()))
     got = ta.attention_bwd(q, k, v, torch.from_numpy(np.array(out)), do,
@@ -466,9 +470,11 @@ def test_attention_bwd_ref_matches_autograd_of_attention_ref(case, dtype):
     """The explicit formulas against autograd through `attention_ref` (the
     CPU path of `attention`): 2e-5 of the joint scale in float32; in bf16
     each gradient is rounded to bf16 once on both sides, 1e-2."""
-    from repro_torch.kernels.attention.cases import bwd_cases, bwd_inputs
+    from repro_torch.kernels.attention.cases import (bwd_cases, bwd_inputs,
+                                                     kv_len)
     name, shape, kw = bwd_cases("cpu")[case]
-    q, k, v, do = bwd_inputs(shape, case, "cpu", getattr(torch, dtype))
+    q, k, v, do = bwd_inputs(shape, case, "cpu", getattr(torch, dtype),
+                             T=kv_len(shape, kw))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = ta.attention(*leaves, device="cpu", **kw)
     assert out.grad_fn is not None
@@ -529,16 +535,19 @@ def test_attention_lse_ref_matches_jax_logsumexp(case):
     backward edge case: within 1e-5 of max(1, |lse|); +inf exactly where
     no key is allowed."""
     import jax
-    from repro_torch.kernels.attention.cases import bwd_inputs
+    from repro_torch.kernels.attention.cases import bwd_inputs, kv_len
     name, (B, S, H, KV, dh), kw = bwd_cases("cpu")[case]
-    q, k, _, _ = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32)
-    pos = kw.get("q_positions")
+    T = kv_len((B, S, H, KV, dh), kw)
+    q, k, _, _ = bwd_inputs((B, S, H, KV, dh), case, "cpu", torch.float32,
+                            T=T)
+    pos, kpos = kw.get("q_positions"), kw.get("kv_positions")
     pos = np.arange(S, dtype=np.int32) if pos is None else pos.numpy()
-    pos = np.broadcast_to(pos, (B, S))
+    kpos = np.arange(T, dtype=np.int32) if kpos is None else kpos.numpy()
+    pos, kpos = np.broadcast_to(pos, (B, S)), np.broadcast_to(kpos, (B, T))
     qj = jnp.asarray(q.numpy()).reshape(B, S, KV, H // KV, dh)
     s = jnp.einsum("bckgd,btkd->bkgct", qj, jnp.asarray(k.numpy()),
                    preferred_element_type=jnp.float32) / np.sqrt(dh)
-    qp, kp = pos[:, None, None, :, None], pos[:, None, None, None, :]
+    qp, kp = pos[:, None, None, :, None], kpos[:, None, None, None, :]
     mask = (kp >= 0) & (qp >= kp if kw["causal"] else True)
     if kw.get("window") is not None:
         mask &= (qp - kp) < kw["window"]

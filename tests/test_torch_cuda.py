@@ -535,7 +535,8 @@ def _fused_case(card, args):
     y, h_fin = ts.selective_scan_fused(*args, device=card)
     want_y, want_h = ts.selective_scan_fused(*args, impl="ref", device=card)
     torch.cuda.synchronize()
-    assert ts.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 1}
+    assert ts.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 1,
+                           "selective_scan_fused_bwd": 0}
     assert y.dtype == h_fin.dtype == torch.float32
     assert y.shape == want_y.shape and h_fin.shape == want_h.shape
     assert torch.isfinite(y).all() and torch.isfinite(h_fin).all()
@@ -597,7 +598,8 @@ def test_selective_scan_fused_wrapper_refuses_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="N = 33 exceeds"):
         ts.selective_scan_fused_cuda(dt, A, B_, C_, x)
     assert ts.LAUNCHES == {"selective_scan": 0,     # refusals never launch
-                           "selective_scan_fused": 0}
+                           "selective_scan_fused": 0,
+                           "selective_scan_fused_bwd": 0}
 
 
 def test_reduced_jamba_on_card_matches_plain_scan(card):
@@ -630,7 +632,8 @@ def test_reduced_jamba_on_card_matches_plain_scan(card):
         runs.append(torch.stack(steps))
     n_mamba = cfg.n_layers - cfg.n_layers // cfg.attn_every
     assert ts.LAUNCHES == {"selective_scan": 0,
-                           "selective_scan_fused": 4 * n_mamba}
+                           "selective_scan_fused": 4 * n_mamba,
+                           "selective_scan_fused_bwd": 0}
     scale = max(float(runs[1].abs().max()), 1.0)
     assert float((runs[0] - runs[1]).abs().max()) <= 1e-4 * scale
 
@@ -1122,9 +1125,9 @@ def test_flash_bwd_matches_plain_on_card(card, case, dtype):
     edge cases, each gradient within 1e-4 (float32) or 2e-2 (bf16, one
     rounding of each output) of the three gradients' joint scale, by
     the route `plan_bwd` names (the log-sum-exp recomputed)."""
-    from repro_torch.kernels.attention.cases import bwd_inputs
+    from repro_torch.kernels.attention.cases import bwd_inputs, kv_len
     name, shape, kw = bwd_cases(card)[case]
-    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    q, k, v, do = bwd_inputs(shape, case, card, dtype, T=kv_len(shape, kw))
     out = ta.attention(q, k, v, device=card, **kw)
     ta.reset_launches()
     got = ta.attention_bwd(q, k, v, out, do, device=card, **kw)
@@ -1142,9 +1145,9 @@ def test_flash_bwd_through_autograd_matches_plain_on_card(card, case, dtype):
     forward kernel, which in bf16 prefill also writes the log-sum-exp the
     backward then reads) against `attention_bwd_ref` at the forward's
     output, within the tolerances above."""
-    from repro_torch.kernels.attention.cases import bwd_inputs
+    from repro_torch.kernels.attention.cases import bwd_inputs, kv_len
     name, shape, kw = bwd_cases(card)[case]
-    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    q, k, v, do = bwd_inputs(shape, case, card, dtype, T=kv_len(shape, kw))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     ta.reset_launches()
     out = ta.attention(*leaves, device=card, **kw)
@@ -1162,9 +1165,9 @@ def test_flash_bwd_is_deterministic_on_card(card, case, dtype):
     """Two `flash_bwd` calls on the same inputs give the same dq, dk and
     dv bit for bit, on both routes, with and without the forward's
     log-sum-exp: no float atomics, every sum in a fixed order."""
-    from repro_torch.kernels.attention.cases import bwd_inputs
+    from repro_torch.kernels.attention.cases import bwd_inputs, kv_len
     name, shape, kw = bwd_cases(card)[case]
-    q, k, v, do = bwd_inputs(shape, case, card, dtype)
+    q, k, v, do = bwd_inputs(shape, case, card, dtype, T=kv_len(shape, kw))
     lse = None
     if ta.forward_lse(q, k):
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=card)
@@ -1182,9 +1185,10 @@ def test_flash_attention_lse_matches_plain_on_card(card, case):
     against `attention_lse_ref` on the same bf16 inputs: +inf on the same
     rows (none allowed), elsewhere within 1e-4 of max(1, |lse|) (float32
     sums in another order; the output itself is unchanged)."""
-    from repro_torch.kernels.attention.cases import bwd_inputs
+    from repro_torch.kernels.attention.cases import bwd_inputs, kv_len
     name, shape, kw = bwd_cases(card)[case]
-    q, k, v, _ = bwd_inputs(shape, case, card, torch.bfloat16)
+    q, k, v, _ = bwd_inputs(shape, case, card, torch.bfloat16,
+                            T=kv_len(shape, kw))
     if not ta.forward_lse(q, k):
         with pytest.raises(ValueError, match="log-sum-exp"):
             ta.flash_attention(q, k, v, lse=torch.empty(
@@ -1261,6 +1265,172 @@ def test_reduced_training_resumes_on_card_with_the_same_losses(card):
     state, second = run(model, fresh(1), Batches(), ckpt,
                         TrainLoopConfig(total_steps=6, **loop), opt)
     assert second.resumed_from == 3
+    assert first.losses + second.losses == wlog.losses
+    for a, b in zip(tree_leaves(whole), tree_leaves(state)):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------- the wkv and fused scan backwards
+from repro_torch.kernels.rwkv import cases as wkv_cases  # noqa: E402
+from repro_torch.kernels.ssm import cases as scan_cases  # noqa: E402
+
+_WKV_BWD = wkv_cases.bwd_cases()
+_SCAN_BWD = scan_cases.bwd_cases()
+_WKV_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _grads_close(got, want, names, tol, name):
+    """Each gradient within `tol` of its dtype of the plain version's
+    largest |value| (None where the plain version gives None)."""
+    for what, g, w in zip(names, got, want):
+        assert (g is None) == (w is None), (name, what)
+        if g is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, what)
+        limit = tol["bfloat16" if g.dtype == torch.bfloat16 else "float32"]
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err = float((g.float() - w.float()).abs().max()) / scale
+        assert err <= limit, (name, what, err)
+
+
+@pytest.mark.parametrize("case", range(len(_WKV_BWD)),
+                         ids=[c[0] for c in _WKV_BWD])
+def test_wkv_bwd_matches_plain_on_card(card, case):
+    """`wkv_bwd_cuda` against `wkv_bwd_ref` on every backward edge case
+    (`kernels.rwkv.cases`): float32 gradients within 1e-4 of their scale,
+    bf16 ones (dr, dk, dv of bf16 r, k, v) one rounding more; one launch
+    counted; a second call equal bit for bit."""
+    args = wkv_cases.bwd_inputs(_WKV_BWD[case], case, card)
+    tr.reset_launches()
+    got = tr.wkv_bwd_cuda(*args)
+    assert tr.LAUNCHES["wkv_bwd"] == 1
+    want = tr.wkv_bwd_ref(*args)
+    torch.cuda.synchronize()
+    _grads_close(got, want, _WKV_NAMES, wkv_cases.BWD_TOL, _WKV_BWD[case][0])
+    for a, b in zip(got, tr.wkv_bwd_cuda(*args)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [0, 5, 16, 27])
+def test_wkv_through_autograd_uses_the_backward_kernel_on_card(card, case):
+    """Gradients that autograd takes through `ops.wkv` on the card come
+    from one forward and one `wkv_bwd` launch and equal the plain
+    backward's at the kernel forward's inputs."""
+    r, k, v, w, u, s0, dout, ds_fin = wkv_cases.bwd_inputs(_WKV_BWD[case],
+                                                           case, card)
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    init = None if s0 is None else s0.clone().requires_grad_()
+    tr.reset_launches()
+    out, s_fin = tr.wkv(*leaves, init, device=card)
+    loss = (out * dout).sum()
+    if ds_fin is not None:
+        loss = loss + (s_fin * ds_fin).sum()
+    got = torch.autograd.grad(loss, leaves + ([] if init is None
+                                              else [init]))
+    assert tr.LAUNCHES == {"wkv": 1, "wkv_bwd": 1}
+    want = [g for g in tr.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds_fin)
+            if g is not None]
+    _grads_close(got, want, _WKV_NAMES, wkv_cases.BWD_TOL, case)
+
+
+@pytest.mark.parametrize("case", range(len(_SCAN_BWD)),
+                         ids=[c[0] for c in _SCAN_BWD])
+def test_scan_fused_bwd_matches_plain_on_card(card, case):
+    """`selective_scan_fused_bwd_cuda` against
+    `selective_scan_fused_bwd_ref` on every backward edge case
+    (`kernels.ssm.cases`: strided B_ and C_, exp's denormal range):
+    float32 gradients within 1e-4 of their scale, bf16 ones (dB_, dC_,
+    dx) one rounding more; one launch counted; a second call equal bit
+    for bit."""
+    args = scan_cases.bwd_inputs(_SCAN_BWD[case], case, card)
+    ts.reset_launches()
+    got = ts.selective_scan_fused_bwd_cuda(*args)
+    assert ts.LAUNCHES["selective_scan_fused_bwd"] == 1
+    want = ts.selective_scan_fused_bwd_ref(*args)
+    torch.cuda.synchronize()
+    _grads_close(got, want, scan_cases.GRADS, scan_cases.BWD_TOL,
+                 _SCAN_BWD[case][0])
+    for a, b in zip(got, ts.selective_scan_fused_bwd_cuda(*args)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [0, 3, 17, 20])
+def test_scan_fused_through_autograd_uses_the_backward_kernel_on_card(
+        card, case):
+    """Gradients that autograd takes through `ops.selective_scan_fused`
+    on the card (B_ and C_ strided views of one projection) come from one
+    forward and one backward launch and equal the plain backward's."""
+    dt, A, B_, C_, x, D, h0, dy, dh_fin = scan_cases.bwd_inputs(
+        _SCAN_BWD[case], case, card)
+    leaves = [t.clone().requires_grad_() for t in (dt, A, x)]
+    N = A.shape[1]
+    proj = torch.cat([B_, C_], -1).clone().requires_grad_()
+    extra = [None if t is None else t.clone().requires_grad_()
+             for t in (D, h0)]
+    ts.reset_launches()
+    y, h = ts.selective_scan_fused(leaves[0], leaves[1], proj[..., :N],
+                                   proj[..., N:], leaves[2], *extra,
+                                   device=card)
+    loss = (y * dy).sum()
+    if dh_fin is not None:
+        loss = loss + (h * dh_fin).sum()
+    got = torch.autograd.grad(loss, leaves + [proj] + [
+        t for t in extra if t is not None])
+    assert ts.LAUNCHES["selective_scan_fused"] == 1
+    assert ts.LAUNCHES["selective_scan_fused_bwd"] == 1
+    ddt, dA, dB, dC, dx, dD, dh0 = ts.selective_scan_fused_bwd_ref(
+        dt, A, B_, C_, x, D, h0, dy, dh_fin)
+    want = [ddt, dA, dx, torch.cat([dB, dC], -1)] + [
+        g for g in (dD, dh0) if g is not None]
+    _grads_close(got, want, ("ddt", "dA", "dx", "dproj", "dD", "dh0"),
+                 scan_cases.BWD_TOL, case)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_reduced_rwkv_and_jamba_training_resume_on_card(card, arch):
+    """The reduced RWKV-6 and Jamba trained 4 steps on the card through
+    the wkv and fused scan backwards (and flash_bwd), and again killed
+    after the step-2 checkpoint and resumed from fresh parameters: the
+    same losses and parameters bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.storage import InMemoryBlobStore
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      TrainLoopConfig, run)
+
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+
+    class Batches:
+        def batches(self, start, n):
+            for step in range(start, start + n):
+                rng = np.random.default_rng(step)
+                toks = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (2, 65)).astype(np.int32))
+                yield step, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fresh(seed):
+        return init_params(model.param_desc(),
+                           torch.Generator(device=card).manual_seed(seed),
+                           card)
+
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    loop = dict(checkpoint_every=2, log_every=1)
+    for mod in (tr, ts, ta):
+        mod.reset_launches()
+    whole, wlog = run(model, fresh(0), Batches(), None,
+                      TrainLoopConfig(total_steps=4, **loop), opt)
+    bwd = (tr.LAUNCHES["wkv_bwd"] if arch == "rwkv6-3b"
+           else ts.LAUNCHES["selective_scan_fused_bwd"])
+    assert bwd == 4 * (cfg.n_layers if arch == "rwkv6-3b"
+                       else cfg.n_layers - cfg.n_layers // cfg.attn_every)
+    ckpt = CheckpointManager(InMemoryBlobStore())
+    _, first = run(model, fresh(0), Batches(), ckpt,
+                   TrainLoopConfig(total_steps=2, **loop), opt)
+    state, second = run(model, fresh(1), Batches(), ckpt,
+                        TrainLoopConfig(total_steps=4, **loop), opt)
+    assert second.resumed_from == 2
     assert first.losses + second.losses == wlog.losses
     for a, b in zip(tree_leaves(whole), tree_leaves(state)):
         assert torch.equal(a, b)

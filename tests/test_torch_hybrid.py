@@ -459,8 +459,14 @@ def test_init_params_and_cache_follow_the_jax_desc(jax_side):
 def test_hybrid_builds_and_its_training_loss_raises():
     model = build_model(get_config(ARCH, reduced=True))
     assert isinstance(model, HybridModel)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        model.loss_fn({}, {})
+    params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                         "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (2, 9)).astype(np.int32))
+    loss = model.loss_fn(params, {"tokens": toks[:, :-1],
+                                  "labels": toks[:, 1:]})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert torch.isfinite(loss)
     with pytest.raises(ValueError, match="multiple of the period"):
         HybridModel(get_config(ARCH, reduced=True).with_(n_layers=6))
 

@@ -369,8 +369,17 @@ def test_encdec_cache_desc_and_training_loss():
     assert cache["k"].shape == (L, 3, 10, KV, dh)
     assert cache["cross_k"].shape == (L, 3, 7, KV, dh)
     assert cache["kpos"].tolist() == [-1] * 10 and int(cache["pos"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        model.loss_fn({}, {})
+    params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                         "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, 9)).astype(
+        np.int32))
+    loss = model.loss_fn(params, {
+        "frames": torch.from_numpy(rng.normal(0, 1, (
+            2, 12, model.cfg.d_model)).astype(np.float32)),
+        "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert torch.isfinite(loss)
 
 
 def test_batch_desc_matches_jax():

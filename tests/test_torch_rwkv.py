@@ -44,6 +44,8 @@ from repro.models import param_count as jax_param_count
 from repro.models.rwkv6 import wkv_chunked
 from repro_torch.configs import get_config
 from repro_torch.kernels import rwkv as tr
+from repro_torch.kernels.rwkv import cases as bwd
+from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import (RWKVModel, build_model, init_params,
                                 param_count, params_from_numpy)
 
@@ -400,3 +402,114 @@ def test_serve_decode_cli_runs_rwkv_without_jax():
     tokens = ast.literal_eval(
         proc.stdout.split("greedy tokens:")[1].strip())
     assert len(tokens) == 4 and all(len(t) == 4 for t in tokens)
+
+
+# ------------------------------------------------------- the backward
+BWD_CASES = bwd.bwd_cases()
+
+
+def _bwd_tol(g: torch.Tensor) -> float:
+    return bwd.BWD_TOL["bfloat16" if g.dtype == torch.bfloat16
+                       else "float32"]
+
+
+def _jax(x):
+    if x is None:
+        return None
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_wkv_bwd_ref_matches_jax_vjp(case):
+    """`wkv_bwd_ref` against `jax.vjp` of the JAX package's sequential
+    `wkv_ref` (`repro/kernels/rwkv/ref.py`) on every backward edge case:
+    each gradient within 1e-4 of its scale (float32 sums in other
+    orders), a bf16 gradient (dr, dk, dv of bf16 r, k, v) one rounding
+    more."""
+    r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 3, "cpu")
+    args = [_jax(x) for x in (r, k, v, w, u, s0)]
+    n = 6 if s0 is not None else 5
+    (out, s_fin), vjp = jax.vjp(lambda *a: jax_wkv_ref(*a), *args[:n])
+    want = vjp((_jax(dout), jnp.zeros_like(s_fin) if ds_fin is None
+                else _jax(ds_fin)))
+    got = tr.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds_fin)
+    assert (got[5] is None) == (s0 is None)
+    for name, g, jw in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == (r.dtype if name in ("dr", "dk", "dv")
+                           else torch.float32), name
+        assert _rel_err(g, np.asarray(jw, np.float32)) <= _bwd_tol(g), name
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:16] + BWD_CASES[24:28],
+                         ids=[c[0] for c in BWD_CASES[:16] + BWD_CASES[24:28]])
+def test_wkv_bwd_ref_matches_autograd_of_the_plain_forward(case):
+    """The explicit reverse loop against autograd through `wkv_ref` (the
+    CPU path of `ops.wkv`), within the same tolerances."""
+    r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 4, "cpu")
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)
+              ] + ([] if s0 is None else [s0.clone().requires_grad_()])
+    out, s_fin = wkv_ops.wkv(*leaves, device="cpu") if s0 is not None \
+        else wkv_ops.wkv(*leaves, None, device="cpu")
+    loss = (out * dout).sum() + (0 if ds_fin is None
+                                 else (s_fin * ds_fin).sum())
+    want = torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)   # S = 1: w unused
+    got = tr.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds_fin)
+    for name, g, a in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        assert _rel_err(g, a.float().numpy()) <= _bwd_tol(g), name
+
+
+@pytest.mark.parametrize("outputs", ["both", "out", "state"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_function_with_the_plain_halves_equals_autograd(
+        monkeypatch, with_s0, outputs):
+    """`ops._WKV` run on the CPU with the plain forward and backward
+    swapped in for the kernels: its gradients (saved tensors, the
+    backward's inputs, None for an unused output and for a missing s0)
+    equal autograd through `wkv_ref` within 1e-5 of their scale."""
+    monkeypatch.setitem(wkv_ops.KERNELS, "forward", tr.wkv_ref)
+    monkeypatch.setitem(wkv_ops.KERNELS, "backward", tr.wkv_bwd_ref)
+    case = ("fn", (2, 19, 2, 32), "float32", with_s0, "model")
+    r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 5, "cpu")
+    ds_fin = torch.randn(2, 2, 32, 32, generator=torch.Generator()
+                         .manual_seed(6))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+        init = None if s0 is None else s0.clone().requires_grad_()
+        out, s_fin = fn(*leaves, init)
+        loss = 0
+        if outputs in ("both", "out"):
+            loss = loss + (out * dout).sum()
+        if outputs in ("both", "state"):
+            loss = loss + (s_fin * ds_fin).sum()
+        return torch.autograd.grad(loss, leaves + ([] if init is None
+                                                   else [init]),
+                                   allow_unused=True, materialize_grads=True)
+
+    got = grads(wkv_ops._WKV.apply)
+    want = grads(tr.wkv_ref)
+    assert len(got) == len(want) == 5 + with_s0
+    for g, a in zip(got, want):
+        assert _rel_err(g, a.numpy()) <= 1e-5
+
+
+def test_wkv_bwd_plan_and_refusals():
+    """`plan_bwd`: a block a (b, h, column tile), 4 columns a thread,
+    the shared memory and scratch the library checks; the wrapper
+    refuses CPU tensors and a dout of the wrong shape, before any
+    library is loaded."""
+    from repro_torch.kernels.rwkv import kernel as rk
+    p = rk.plan_bwd(2, 4096, 40, 64)
+    assert (p.cols, p.tiles, p.blocks, p.threads) == (32, 2, 160, 512)
+    assert p.chunks == 256 and p.smem_bytes <= 227 * 1024
+    assert rk.plan_bwd(1, 1, 1, 128)[:4] == (16, 8, 8, 512)
+    assert rk.plan_bwd(1, 17, 1, 32).chunks == 2
+    r, k, v, w, u, s0, dout, _ = bwd.bwd_inputs(BWD_CASES[0], 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.wkv_bwd_cuda(r, k, v, w, u, s0, dout)
+    rk.reset_launches()
+    assert rk.LAUNCHES == {"wkv": 0, "wkv_bwd": 0}

@@ -28,6 +28,8 @@ from repro.kernels.ssm import selective_scan_ref as jax_scan_ref
 from repro.models import mamba as jax_mamba
 from repro_torch.configs import get_config
 from repro_torch.kernels import ssm
+from repro_torch.kernels.ssm import cases as scan_cases
+from repro_torch.kernels.ssm import ops as ssm_ops
 from repro_torch.models import mamba, params_from_numpy
 
 
@@ -176,7 +178,8 @@ def test_selective_scan_fused_matches_jax(dtype, with_h0, with_D):
         assert h_fin.shape == tuple(want_h.shape)
         assert _scaled_err(y, want_y) <= FUSED_TOL[dtype]
         assert _scaled_err(h_fin, want_h) <= FUSED_TOL[dtype]
-    assert ssm.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 0}
+    assert ssm.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 0,
+                            "selective_scan_fused_bwd": 0}
 
 
 @pytest.mark.parametrize("with_D", [False, True])
@@ -269,3 +272,191 @@ def test_row_stride_reads_the_models_slices():
     assert ssm.kernel.row_stride(proj[:1, :, 24:]) == 40
     assert ssm.kernel.row_stride(proj.transpose(0, 1)[..., :16]) is None
     assert ssm.kernel.row_stride(proj[..., ::2]) is None
+
+
+# ------------------------------------------------------- the backward
+BWD_CASES = scan_cases.bwd_cases()
+
+
+def _j(x):
+    if x is None:
+        return None
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.contiguous().numpy())
+
+
+def _jax_fused(dt, A, B_, C_, x, D=None, h0=None):
+    """JAX's `_ssm_inputs` expressions for a and b from dt, A, B_ and x,
+    its `selective_scan_ref`, then the D skip, as its Mamba layer
+    composes them (`repro/models/mamba.py`)."""
+    f32 = jnp.float32
+    a = jnp.exp(dt[..., None] * A)
+    b = (dt[..., None] * B_[:, :, None, :].astype(f32)
+         * x[..., None].astype(f32))
+    y, h = jax_scan_ref(a, b, C_.astype(f32), h0)
+    if D is not None:
+        y = y + x.astype(f32) * D
+    return y, h
+
+
+def _bwd_tol(g: torch.Tensor) -> float:
+    """Of a gradient's scale: 1e-4 in float32; a bf16 gradient against
+    JAX's or autograd's, which add dx's two bf16 terms (the scan's and
+    the D skip's) and round again, three roundings."""
+    return 3 * 2.0**-8 if g.dtype == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_scan_fused_bwd_ref_matches_jax_vjp(case):
+    """`selective_scan_fused_bwd_ref` against `jax.vjp` of JAX's
+    composition (`_ssm_inputs`' a and b, `selective_scan_ref`, the D
+    skip) on every backward edge case — h0 and dh_fin, S = 1 and S off
+    the chunk, bf16 and float32, strided B_ and C_, D omitted, exp's
+    denormal range: each gradient within 1e-4 of its scale, a bf16 one
+    (dB_, dC_, dx) within three roundings (`_bwd_tol`)."""
+    dt, A, B_, C_, x, D, h0, dy, dh_fin = scan_cases.bwd_inputs(case, 3,
+                                                                "cpu")
+    given = [t for t in (D, h0) if t is not None]
+    names = [n for n, t in (("D", D), ("h0", h0)) if t is not None]
+
+    def fn(dt_, A_, B__, C__, x_, *rest):
+        kw = dict(zip(names, rest))
+        return _jax_fused(dt_, A_, B__, C__, x_, kw.get("D"), kw.get("h0"))
+    (y, h), vjp = jax.vjp(fn, *(_j(t) for t in (dt, A, B_, C_, x, *given)))
+    want = list(vjp((_j(dy), jnp.zeros_like(h) if dh_fin is None
+                     else _j(dh_fin))))
+    got = ssm.selective_scan_fused_bwd_ref(dt, A, B_, C_, x, D, h0, dy,
+                                           dh_fin)
+    want = want[:5] + [want.pop(5) if D is not None else None] + [
+        want[-1] if h0 is not None else None]
+    for name, g, w in zip(scan_cases.GRADS, got, want):
+        assert (g is None) == (w is None), name
+        if g is None:
+            continue
+        assert g.dtype == (x.dtype if name in ("dB_", "dC_", "dx")
+                           else torch.float32), name
+        assert _scaled_err(g, np.asarray(w, np.float32)) <= _bwd_tol(g), name
+
+
+@pytest.mark.parametrize("with_D", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_scan_fused_bwd_ref_through_ssm_inputs_matches_jax(with_h0, with_D):
+    """The reduced Jamba's Mamba inputs in float32: the gradients of x_act,
+    x_proj, dt_w, dt_b, A_log, D and h0 from `jax.vjp` of JAX's own
+    `_ssm_inputs` + `selective_scan_ref` + D skip, against the port's
+    `_ssm_inputs` under autograd fed `selective_scan_fused_bwd_ref`'s
+    d(dt), dA, dB_ and dC_ (dx added to x_act's), within 1e-4 of each
+    gradient's scale."""
+    jcfg, jp, x, p, xt, h0 = _mamba_inputs(12, "float32")
+    h0 = h0 if with_h0 else None
+    rng = np.random.default_rng(13)
+    dy = rng.normal(0, 1, (2, 9, x.shape[-1])).astype(np.float32)
+    keys = ("x_proj", "dt_w", "dt_b", "A_log")
+
+    def jfn(x_, sub, D_, h0_):
+        a, b, c = jax_mamba._ssm_inputs(x_, dict(sub), jcfg)
+        y, _ = jax_scan_ref(a, b, c, h0_)
+        return y + x_.astype(jnp.float32) * D_ if with_D else y
+    sub = {k: jp[k] for k in keys}
+    _, vjp = jax.vjp(jfn, x, sub, jp["D"], None if h0 is None
+                     else jnp.asarray(h0))
+    jx, jsub, jD, jh0 = vjp(jnp.asarray(dy))
+    leaves = [xt.clone().requires_grad_()] + [
+        p[k].clone().requires_grad_() for k in keys]
+    cfg = get_config(ARCH, reduced=True)
+    dt, A, B_, C_ = mamba._ssm_inputs(leaves[0], dict(zip(keys, leaves[1:])),
+                                      cfg)
+    D = p["D"] if with_D else None
+    h0t = None if h0 is None else torch.from_numpy(h0)
+    ddt, dA, dB, dC, dx, dD, dh0 = ssm.selective_scan_fused_bwd_ref(
+        dt.detach(), A.detach(), B_.detach(), C_.detach(), xt, D, h0t,
+        torch.from_numpy(dy))
+    got = list(torch.autograd.grad((dt, A, B_, C_), leaves,
+                                   (ddt, dA, dB, dC)))
+    got[0] = got[0] + dx
+    for g, w in zip(got, [jx] + [jsub[k] for k in keys]):
+        assert _scaled_err(g, w) <= 1e-4
+    if with_D:
+        assert _scaled_err(dD, jD) <= 1e-4
+    if with_h0:
+        assert _scaled_err(dh0, jh0) <= 1e-4
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:16], ids=[c[0] for c in
+                                                       BWD_CASES[:16]])
+def test_scan_fused_bwd_ref_matches_autograd_of_the_plain_forward(case):
+    """The explicit reverse loop against autograd through
+    `selective_scan_fused_ref` (the CPU path of `ops.selective_scan_fused`),
+    within the same tolerances."""
+    dt, A, B_, C_, x, D, h0, dy, dh_fin = scan_cases.bwd_inputs(case, 4,
+                                                                "cpu")
+    leaves = [t.clone().requires_grad_() for t in (dt, A, B_, C_, x)]
+    extra = [None if t is None else t.clone().requires_grad_()
+             for t in (D, h0)]
+    y, h = ssm.selective_scan_fused(*leaves, *extra, device="cpu")
+    loss = (y * dy).sum() + (0 if dh_fin is None else (h * dh_fin).sum())
+    want = torch.autograd.grad(loss, leaves + [t for t in extra
+                                               if t is not None])
+    got = [g for g in ssm.selective_scan_fused_bwd_ref(
+        dt, A, B_, C_, x, D, h0, dy, dh_fin) if g is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _scaled_err(g, w.float().numpy()) <= _bwd_tol(g)
+
+
+@pytest.mark.parametrize("outputs", ["both", "y", "state"])
+@pytest.mark.parametrize("full", [False, True])
+def test_scan_fused_function_with_the_plain_halves_equals_autograd(
+        monkeypatch, full, outputs):
+    """`ops._ScanFused` run on the CPU with the plain forward and backward
+    swapped in for the kernels: its gradients (saved tensors and strided
+    views, the backward's inputs, None for an unused output, a missing D
+    or h0) equal autograd through `selective_scan_fused_ref` within 1e-5
+    of their scale."""
+    monkeypatch.setitem(ssm_ops.KERNELS, "forward",
+                        ssm.selective_scan_fused_ref)
+    monkeypatch.setitem(ssm_ops.KERNELS, "backward",
+                        ssm.selective_scan_fused_bwd_ref)
+    case = ("fn", (2, 21, 12, 8), "float32", full, full, False)
+    dt, A, B_, C_, x, D, h0, dy, _ = scan_cases.bwd_inputs(case, 5, "cpu")
+    dh_fin = torch.randn(2, 12, 8, generator=torch.Generator().manual_seed(6))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (dt, A, x)]
+        proj = torch.cat([B_, C_], -1).clone().requires_grad_()
+        extra = [None if t is None else t.clone().requires_grad_()
+                 for t in (D, h0)]
+        y, h = fn(leaves[0], leaves[1], proj[..., :8], proj[..., 8:],
+                  leaves[2], *extra)
+        loss = 0
+        if outputs in ("both", "y"):
+            loss = loss + (y * dy).sum()
+        if outputs in ("both", "state"):
+            loss = loss + (h * dh_fin).sum()
+        return torch.autograd.grad(
+            loss, leaves + [proj] + [t for t in extra if t is not None],
+            allow_unused=True, materialize_grads=True)
+
+    got = grads(ssm_ops._ScanFused.apply)
+    want = grads(ssm.selective_scan_fused_ref)
+    assert len(got) == len(want) == 4 + 2 * full
+    for g, w in zip(got, want):
+        assert _scaled_err(g, w.numpy()) <= 1e-5
+
+
+def test_scan_fused_bwd_plan_and_refusals():
+    """`plan_fused_bwd`: 4 states a thread, 64 columns a block at N = 16,
+    the scratch the library checks; the wrapper refuses CPU tensors and
+    a dy of the wrong shape before any library is loaded."""
+    from repro_torch.kernels.ssm import kernel as sk
+    plan = sk.plan_fused_bwd(2, 4096, 8192, 16)
+    assert (plan["columns"], plan["blocks_per_b"], plan["chunks"]) == (
+        64, 128, 256)
+    assert sk.plan_fused_bwd(1, 1, 5, 3)["columns"] == 256
+    args = scan_cases.bwd_inputs(BWD_CASES[0], 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.selective_scan_fused_bwd_cuda(*args)
+    sk.reset_launches()
+    assert sk.LAUNCHES["selective_scan_fused_bwd"] == 0

@@ -365,12 +365,19 @@ def test_int8_kv_cache_prefill_and_decode_match_jax(arch):
 
 
 def test_rwkv_builds_and_its_training_loss_raises():
-    """RWKV-6 serving is ported; its training loss waits for training."""
+    """RWKV-6 builds, and its training loss (once a raise) is a finite
+    float32 scalar."""
     from repro_torch.models import RWKVModel
     model = build_model(get_config("rwkv6-3b", reduced=True))
     assert isinstance(model, RWKVModel)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        model.loss_fn({}, {})
+    params = init_params(model.param_desc(), torch.Generator().manual_seed(0),
+                         "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (2, 9)).astype(np.int32))
+    loss = model.loss_fn(params, {"tokens": toks[:, :-1],
+                                  "labels": toks[:, 1:]})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert torch.isfinite(loss)
 
 
 def test_serve_decode_cli_runs_without_jax():
