@@ -211,6 +211,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W). The 67 TFLOP/s
@@ -408,6 +409,10 @@ SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets `t_s`, the seconds since
+    the script started, so that a run's time can be split by phase."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3670,51 +3675,6 @@ def _host_mb() -> dict:
     return out
 
 
-def _grad_check(cfg, batch, device, seed: int) -> dict:
-    """One step's loss and gradients on a GRAD_CHECK_LAYERS-layer cut of
-    `cfg`: attention through flash_attention + flash_bwd vs plain
-    autograd through attention_ref, the same weights and batch."""
-    import torch
-
-    from repro_torch.kernels import attention as ta
-    from repro_torch.models import build_model
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import TransformerModel
-    from repro_torch.training.checkpoint import _paths
-
-    cut = cfg.with_(n_layers=GRAD_CHECK_LAYERS)
-    model = build_model(cut)
-    params, _ = new_params(model, seed, device)
-    leaves = tree_leaves(params)
-    names = [n for n, _ in _paths(params)]
-    out = {}
-    for impl, m in (("cuda", model), ("ref", TransformerModel(
-            cut, attn_impl="ref"))):
-        for leaf in leaves:
-            leaf.requires_grad_(True)
-        ta.reset_launches()
-        loss = m.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        for leaf in leaves:
-            leaf.requires_grad_(False)
-        out[impl] = (float(loss.detach()), [g.float() for g in grads],
-                     dict(ta.LAUNCHES))
-        del loss, grads
-        torch.cuda.empty_cache()
-    (lk, gk, nk), (lp, gp, np_) = out["cuda"], out["ref"]
-    if nk["flash_bwd"] != cut.n_layers or np_["flash_bwd"] != 0:
-        raise AssertionError(f"grad check launches {nk} / {np_}")
-    per_leaf = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
-                for n, a, b in zip(names, gk, gp)}
-    per_leaf_max = {n: float((a - b).abs().max() / b.abs().max()
-                             .clamp_min(1e-30))
-                    for n, a, b in zip(names, gk, gp)}
-    return {"layers": cut.n_layers, "loss_kernel": lk, "loss_plain": lp,
-            "loss_rel": abs(lk - lp) / abs(lp), "launches": nk,
-            "leaf_norm_rel": per_leaf, "leaf_max_rel": per_leaf_max,
-            "tolerance": {"loss": GRAD_LOSS_TOL, "leaf": GRAD_LEAF_TOL}}
-
-
 def train_profile(model, state, batch, device) -> dict:
     """One more train step on `state` under torch.profiler: the card's
     busy time against the host's wall, and the kernels that take it."""
@@ -3747,124 +3707,28 @@ def train_profile(model, state, batch, device) -> dict:
 
 
 def train_phase(args, device) -> dict:
-    """`launch/train.py`'s flow on the card: the logs index, the
-    keyword-filtered `IndexedCorpusLoader`, `training.run` (eager steps,
-    flash_bwd, AdamW, async checkpoints every TRAIN_CKPT_EVERY steps)
-    over TRAIN_STEPS steps; then a fresh run (other initial weights)
-    resumes from the step-10 checkpoint and must give the same losses;
-    then the kernel-vs-plain gradient check."""
-    import gc
-    import shutil
-    import statistics as stats
-    import tempfile
-
-    import torch
-
+    """qwen3-32b at its published widths, TRAIN_LAYERS of 64 layers, in
+    `train_arch_phase`'s flow over TRAIN_STEPS steps with a checkpoint
+    every TRAIN_CKPT_EVERY and one profiled step after the resume: each
+    step runs every layer's flash_attention twice (remat) and flash_bwd
+    once; the gradient check on a GRAD_CHECK_LAYERS-layer cut at the
+    full sequence."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attention as ta
-    from repro_torch.launch.train import logs_store, make_loader, train
-    from repro_torch.models import param_count
-    from repro_torch.storage import InMemoryBlobStore
-    from repro_torch.training import CheckpointConfig
-
-    gc.collect()
-    torch.cuda.empty_cache()
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import TransformerModel
     published = get_config(TRAIN_ARCH)
     cfg = published.with_(n_layers=TRAIN_LAYERS)
-    workdir = tempfile.mkdtemp(prefix="train-", dir=ROOT / "build")
-    t0 = time.perf_counter()
-    store = logs_store(workdir)
-    loader = make_loader(store, cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_QUERY,
-                         device)
-    setup_s = time.perf_counter() - t0
-    ckpts = InMemoryBlobStore()
-    ckpt_cfg = CheckpointConfig(keep_last_k=2)
-
-    # ---- the main path: counts zeroed before, read after -------------
-    ta.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, state, whole = train(cfg, store, loader, steps=TRAIN_STEPS,
-                            lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
-                            device=device, log_every=1,
-                            ckpt_config=ckpt_cfg, ckpt_store=ckpts,
-                            seed=args.seed)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = dict(ta.LAUNCHES)
-    bwd_routes = dict(ta.BWD_ROUTES)
-    peak_bytes = torch.cuda.max_memory_allocated()
-    # -------------------------------------------------------------------
-    n_params = param_count(state["params"])
-    host_after = _host_mb()
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    want = {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
-            "flash_bwd": TRAIN_LAYERS * TRAIN_STEPS, "flash_decode_int8": 0}
-    if launches != want:
-        raise AssertionError(f"the train path launched {launches}, expected "
-                             f"{want} (forward, remat recompute, backward "
-                             "per layer and step)")
-    if bwd_routes != {"tc": want["flash_bwd"]}:
-        raise AssertionError(f"the train path's backward took the routes "
-                             f"{bwd_routes}, not the tensor cores' alone")
-    steps = sorted(int(n.split("step-")[1][:10]) for n in
-                   ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
-    if steps != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
-        raise AssertionError(f"checkpoints at {steps}")
-    for name in ckpts.list(f"ckpt/step-{TRAIN_STEPS:010d}"):
-        ckpts.delete(name)            # the run is cut after step 10
-
-    t0 = time.perf_counter()
-    model, state, resumed = train(cfg, store, loader, steps=TRAIN_STEPS,
-                                  lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
-                                  device=device, log_every=1,
-                                  ckpt_config=ckpt_cfg, ckpt_store=ckpts,
-                                  seed=args.seed + 1)
-    torch.cuda.synchronize()
-    resume_s = time.perf_counter() - t0
-    profile = train_profile(model, state, loader.batch(TRAIN_STEPS), device)
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    tail = whole.losses[TRAIN_CKPT_EVERY:]
-    diff = max(abs(a - b) for a, b in zip(tail, resumed.losses))
-    grad = _grad_check(cfg, {k: torch.as_tensor(v, device=device) for k, v
-                             in loader.batch(0).items()}, device, args.seed)
-    shutil.rmtree(workdir, ignore_errors=True)     # the logs index's blobs
-    step_s = stats.median(whole.seconds[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS,
-          "layers_published": published.n_layers, "params": n_params,
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-          "query": TRAIN_QUERY, "lr": TRAIN_LR, "remat": cfg.remat,
-          "ce_chunk": cfg.ce_chunk, "setup_s": setup_s, "wall_s": wall_s,
-          "losses": whole.losses, "first_loss": whole.losses[0],
-          "last_loss": whole.losses[-1], "grad_norms": whole.grad_norms,
-          "step_ms_median": 1e3 * step_s, "step_s": whole.seconds,
-          "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
-          "host_mb_after_run": host_after, "launches": launches,
-          "bwd_routes": bwd_routes,
-          "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
-          "resumed_losses": resumed.losses,
-          "resume_max_abs_diff": diff, "resume_bitwise": diff == 0.0,
-          "grad_check": grad, "step_profile": profile,
-          "host_mb": _host_mb()})
-    if not whole.losses[-1] < whole.losses[0]:
-        raise AssertionError(f"the loss did not fall: {whole.losses}")
-    if resumed.resumed_from != TRAIN_CKPT_EVERY or \
-            resumed.steps != list(range(TRAIN_CKPT_EVERY + 1,
-                                        TRAIN_STEPS + 1)):
-        raise AssertionError(f"resume ran steps {resumed.steps}")
-    if diff != 0.0:
-        raise AssertionError(f"resumed losses differ by {diff}: {tail} vs "
-                             f"{resumed.losses}")
-    if not (grad["loss_rel"] <= GRAD_LOSS_TOL and max(
-            grad["leaf_norm_rel"].values()) <= GRAD_LEAF_TOL):
-        raise AssertionError(f"gradients through flash_bwd vs plain: {grad}")
-    return {"launches": launches, "bwd_routes": bwd_routes,
-            "grad_err": max(grad["leaf_norm_rel"].values())}
+    cut = cfg.with_(n_layers=GRAD_CHECK_LAYERS)
+    L, G = cfg.n_layers, cut.n_layers
+    return train_arch_phase(
+        args, device, "train", published, cfg,
+        {"flash_attention": 2 * L, "flash_bwd": L},
+        [f"layers {L} of {published.n_layers}",
+         "batch 2 of train_4k's 256"],
+        {"kernel": build_model(cut), "plain": TransformerModel(
+            cut, attn_impl="ref"), "cut": f"{G} layer", "seq": TRAIN_SEQ,
+         "want": {"flash_attention": 2 * G, "flash_bwd": G}},
+        steps=TRAIN_STEPS, every=TRAIN_CKPT_EVERY, profile=True)
 
 
 # --------------------------------------------- timing of the new kernels
@@ -3991,7 +3855,7 @@ def bwd_timing_phase(ta, device, seed: int, launches: dict,
 
 
 # ------------------------- training RWKV-6, Jamba and the encoder-decoder
-def wkv_bwd_bound(B, S, H, dh, nbytes_el) -> tuple:
+def wkv_bwd_bound(B, S, H, dh, nbytes_el) -> dict:
     """Least card time (ms) of the wkv backward: r, k, v at their width,
     w and dout float32 read once, dr, dk, dv at r's width and dw float32
     written once, u and du; against 14 flops per (b, t, h) and state
@@ -4002,24 +3866,28 @@ def wkv_bwd_bound(B, S, H, dh, nbytes_el) -> tuple:
     nbytes = (6 * nbytes_el + 12) * elems + 8 * H * dh
     flops = 14 * elems * dh
     t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def scan_bwd_bound(B, S, D, N, nbytes_el) -> dict:
-    """Least card time (ms) of the fused scan's backward, the largest of
-    three terms: bytes (dt, dy and d(dt) float32, x and dx at x's width
-    per (b, t, d); B_, C_, dB_, dC_ per (b, t, n); A, dA, D, dD) over HBM
-    bandwidth; float32 operations per (b, t, d, n) over the float32 rate:
-    the state once (dt·A, b's two products, the update's two), G (an
-    FMA), da and dA (three), d(dt)'s two terms (four), dx's and dB_'s
-    products and sums (five), dC_'s FMA (two), the carry (one): 24; one
-    ex2 per (b, t, d, n) over the special-function units' rate.
-    `bound_by` is "bytes" or "operations", `term` names the term."""
+    """Least card time (ms) of the fused scan's backward with the D skip,
+    the largest of three terms: bytes (dt, dy and d(dt) float32, x and dx
+    at x's width per (b, t, d); B_, C_, dB_, dC_ per (b, t, n); A, dA, D,
+    dD) over HBM bandwidth; float32 operations, each counted once, over
+    the float32 rate: 19 per (b, t, d, n) (the state h_{t-1} again:
+    dt·A, (dt·x)·B_ and the update's FMA, 4; G's FMA, 2; da = G·h·a, 2;
+    dA's FMA, 2; d(dt)'s sum of da·A, 2; the sum of G·B_ that d(dt) and
+    dx share, 2; dB_'s sum over d of G·(dt·x), 2; dC_'s of dy·h, 2; the
+    carry a·G, 1) and 8 per (b, t, d) (dt·x, 1; d(dt)'s FMA of that
+    shared sum with x, 2; dx = sum·dt + D·dy, 3; dD's FMA, 2); one ex2
+    per (b, t, d, n) over the special-function units' rate. `bound_by`
+    is "bytes" or "operations", `term` names the term."""
     elems = B * S * D * N
     nbytes = (12 + 2 * nbytes_el) * B * S * D + 4 * nbytes_el * B * S * N \
         + 8 * D * N + 8 * D
-    flops = 24 * elems
+    flops = 19 * elems + 8 * B * S * D
     terms = {"bytes": nbytes / HBM_BYTES_PER_S,
              "float32": flops / F32_FLOPS_PER_S,
              "sfu": elems / SFU_OPS_PER_S}
@@ -4068,8 +3936,6 @@ def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, device,
     """Every case of `cases_mod.bwd_cases()`, the backward kernel against
     its plain version within `cases_mod.BWD_TOL` of each output's scale;
     every third case run twice, bit for bit."""
-    names = (("dr", "dk", "dv", "dw", "du", "ds0") if kind == "wkv_bwd"
-             else ("ddt", "dA", "dB_", "dC_", "dx", "dD", "dh0"))
     worst: dict[str, float] = {}
     twice = 0
     t0 = time.perf_counter()
@@ -4079,7 +3945,7 @@ def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, device,
         again = kernel_fn(*args) if i % 3 == 0 else None
         twice += again is not None
         errs = bwd_kernel_check(f"{kind} {case[0]}", got, plain_fn(*args),
-                                names, cases_mod.BWD_TOL, again)
+                                cases_mod.GRADS, cases_mod.BWD_TOL, again)
         for what, rel in errs.items():
             worst[what] = max(worst.get(what, 0.0), rel)
         del args, got, again
@@ -4089,141 +3955,122 @@ def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, device,
     return worst
 
 
+def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,
+                      device, plain_fn, kernel_fn, setup, edge: dict) -> dict:
+    """`entry` (a backward kernel's name, source, bound, launches...)
+    with what is measured at its train path's shape `case`: the bare
+    launch by CUDA events (L2 flushed), the plain version's time, its
+    forward kernel's, and the error (`max_abs_err`: the largest over the
+    outputs' scales and the edge phase's, a bf16 output's one rounding
+    included; `max_abs_err_float32`: the same shape in float32, every
+    output float32). `setup(args)` gives the bare launch, the gradient
+    buffers it fills and the forward's bare launch."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
+    args = cases_mod.bwd_inputs(case, seed, device)
+    launch, grads, forward = setup(args)
+    ms = cuda_ms(launch, flush, iters=10, warmup=2)
+    errs = bwd_kernel_check(f"{entry['name']} train shape", grads + [None],
+                            plain_fn(*args), cases_mod.GRADS,
+                            cases_mod.BWD_TOL)
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: plain_fn(*args), flush, iters=2, warmup=0)
+    forward_ms = cuda_ms(forward, flush, iters=10, warmup=2)
+    del args, launch, grads, forward
+    torch.cuda.empty_cache()
+    args32 = cases_mod.bwd_inputs((case[0], case[1], "float32", *case[3:]),
+                                  seed, device)
+    errs32 = bwd_kernel_check(f"{entry['name']} train shape float32",
+                              kernel_fn(*args32), plain_fn(*args32),
+                              cases_mod.GRADS, cases_mod.BWD_TOL)
+    del args32
+    torch.cuda.empty_cache()
+    return {"route": "cuda", **entry,
+            "max_abs_err": max(*errs.values(), *edge.values()),
+            "max_abs_err_float32": max(errs32.values()),
+            "max_err_by_check": {f"{entry['name']}_edge": edge,
+                                 "train_shape": errs,
+                                 "train_shape_float32": errs32},
+            "tolerance": cases_mod.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "share_of_bound": entry["bound_ms"] / ms,
+            "forward_ms": forward_ms}
+
+
 def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
                          edge: dict) -> dict:
     """The wkv backward at the RWKV train path's shape (TRAIN_BATCH,
-    TRAIN_SEQ, 40, 64) bf16 from the model's decays, no state: the bare
-    launch by CUDA events (L2 flushed), the plain version, the error
-    (`max_abs_err`: the largest over the outputs' scales, a bf16 output's
-    one rounding included; `max_abs_err_float32`: the same shape with
-    float32 r, k, v, every output float32)."""
+    TRAIN_SEQ, 40, 64) bf16 from the model's decays, no state, through
+    `bwd_kernel_timing`."""
     import torch
 
     from repro_torch.kernels.rwkv import cases
     B, S, H, dh = TRAIN_BATCH, TRAIN_SEQ, 40, 64
-    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
-    args = cases.bwd_inputs(("train", (B, S, H, dh), "bfloat16", False,
-                             "model"), seed + 11, device)
-    r, k, v, w, u, _, dout, _ = args
     plan = tr.plan_bwd(B, S, H, dh)
-    grads = [torch.empty_like(r) for _ in range(3)] + [
-        torch.empty(r.shape, dtype=torch.float32, device=device),
-        torch.empty((H, dh), dtype=torch.float32, device=device)]
-    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
-                          device=device)
 
-    def kernel():
-        tr.launch_bwd(r, k, v, w, u, None, dout, None, *grads, None, scratch)
-    ms = cuda_ms(kernel, flush, iters=10, warmup=2)
-    want = tr.wkv_bwd_ref(*args)
-    errs = bwd_kernel_check("wkv_bwd train shape", grads + [None], want,
-                            ("dr", "dk", "dv", "dw", "du", "ds0"),
-                            cases.BWD_TOL)
-    del want
-    torch.cuda.empty_cache()
-    plain_ms = cuda_ms(lambda: tr.wkv_bwd_ref(*args), flush, iters=2,
-                       warmup=0)
-    # the same shape in float32: every output within 1e-4 of its scale
-    args32 = cases.bwd_inputs(("train", (B, S, H, dh), "float32", False,
-                               "model"), seed + 11, device)
-    errs32 = bwd_kernel_check("wkv_bwd train shape float32",
-                              tr.wkv_bwd_cuda(*args32),
-                              tr.wkv_bwd_ref(*args32),
-                              ("dr", "dk", "dv", "dw", "du", "ds0"),
-                              cases.BWD_TOL)
-    del args32
-    torch.cuda.empty_cache()
-    fwd_out = torch.empty(r.shape, dtype=torch.float32, device=device)
-    fwd_state = torch.empty((B, H, dh, dh), dtype=torch.float32,
-                            device=device)
-    fwd_ms = cuda_ms(lambda: tr.launch(r, k, v, w, u, None, fwd_out,
-                                       fwd_state), flush, iters=10, warmup=2)
-    bound_ms, bound_by, flops, nbytes = wkv_bwd_bound(B, S, H, dh, 2)
-    return {"name": "wkv_bwd", "route": "cuda", "source": WKV_BWD_SOURCE,
-            "replaces": PORT_ONLY.format("jax.grad of wkv_chunked, "
-                                         "src/repro/models/rwkv6.py:111"),
-            "launches": launches["wkv_bwd"],
-            "launches_by_path": {"train_rwkv": launches["wkv_bwd"]},
-            "max_abs_err": max(*errs.values(), *edge.values()),
-            "max_abs_err_float32": max(errs32.values()),
-            "max_err_by_check": {"wkv_bwd_edge": edge, "train_shape": errs,
-                                 "train_shape_float32": errs32},
-            "tolerance": cases.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes, "library_ms": None,
-            "library": "none: no PyTorch call computes the wkv backward",
-            "share_of_bound": bound_ms / ms, "forward_ms": fwd_ms,
-            "plan": plan._asdict(),
-            "shape": {"B": B, "S": S, "H": H, "dh": dh, "dtype": "bfloat16",
-                      "s0": False}}
+    def setup(args):
+        r, k, v, w, u, _, dout, _ = args
+        f32 = dict(dtype=torch.float32, device=device)
+        grads = [torch.empty_like(r) for _ in range(3)] + [
+            torch.empty(r.shape, **f32), torch.empty((H, dh), **f32)]
+        scratch = torch.empty(plan.scratch_floats, **f32)
+        out, state = (torch.empty(r.shape, **f32),
+                      torch.empty((B, H, dh, dh), **f32))
+        return (lambda: tr.launch_bwd(r, k, v, w, u, None, dout, None,
+                                      *grads, None, scratch), grads,
+                lambda: tr.launch(r, k, v, w, u, None, out, state))
+    entry = {"name": "wkv_bwd", "source": WKV_BWD_SOURCE,
+             "replaces": PORT_ONLY.format("jax.grad of wkv_chunked, "
+                                          "src/repro/models/rwkv6.py:111"),
+             "launches": launches["wkv_bwd"],
+             "launches_by_path": {"train_rwkv": launches["wkv_bwd"]},
+             **wkv_bwd_bound(B, S, H, dh, 2),
+             "library": "none: no PyTorch call computes the wkv backward",
+             "plan": plan._asdict(),
+             "shape": {"B": B, "S": S, "H": H, "dh": dh,
+                       "dtype": "bfloat16", "s0": False}}
+    return bwd_kernel_timing(
+        entry, cases, ("train", (B, S, H, dh), "bfloat16", False, "model"),
+        seed + 11, device, tr.wkv_bwd_ref, tr.wkv_bwd_cuda, setup, edge)
 
 
 def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
                           edge: dict) -> dict:
     """The fused scan's backward at the Jamba train path's shape
-    (TRAIN_BATCH, TRAIN_SEQ, 8192, 16) bf16 with the D skip, no state:
-    the bare launch by CUDA events (L2 flushed), the plain version, the
-    error (`max_abs_err` and `max_abs_err_float32` as `wkv_bwd`'s)."""
+    (TRAIN_BATCH, TRAIN_SEQ, 8192, 16) bf16 with the D skip, no state,
+    through `bwd_kernel_timing`."""
     import torch
 
     from repro_torch.kernels.ssm import cases
     B, S, D, N = TRAIN_BATCH, TRAIN_SEQ, 8192, 16
-    flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
-    args = cases.bwd_inputs(("train", (B, S, D, N), "bfloat16", False, True,
-                             False), seed + 12, device)
-    dt, A, B_, C_, x, Dv, _, dy, _ = args
     plan = ts.plan_fused_bwd(B, S, D, N)
-    f32 = dict(dtype=torch.float32, device=device)
-    grads = [torch.empty((B, S, D), **f32), torch.empty((D, N), **f32),
-             torch.empty((B, S, N), dtype=x.dtype, device=device),
-             torch.empty((B, S, N), dtype=x.dtype, device=device),
-             torch.empty_like(x), torch.empty((D,), **f32)]
-    scratch = torch.empty(plan["scratch_floats"], **f32)
 
-    def kernel():
-        ts.launch_bwd(dt, A, B_, C_, x, Dv, None, dy, None, *grads, None,
-                      scratch)
-    ms = cuda_ms(kernel, flush, iters=10, warmup=2)
-    want = ts.selective_scan_fused_bwd_ref(*args)
-    errs = bwd_kernel_check("scan_bwd train shape", grads + [None], want,
-                            cases.GRADS, cases.BWD_TOL)
-    del want
-    torch.cuda.empty_cache()
-    plain_ms = cuda_ms(lambda: ts.selective_scan_fused_bwd_ref(*args), flush,
-                       iters=2, warmup=0)
-    # the same shape in float32: every output within 1e-4 of its scale
-    args32 = cases.bwd_inputs(("train", (B, S, D, N), "float32", False, True,
-                               False), seed + 12, device)
-    errs32 = bwd_kernel_check("scan_bwd train shape float32",
-                              ts.selective_scan_fused_bwd_cuda(*args32),
-                              ts.selective_scan_fused_bwd_ref(*args32),
-                              cases.GRADS, cases.BWD_TOL)
-    del args32
-    torch.cuda.empty_cache()
-    y = torch.empty((B, S, D), **f32)
-    h_fin = torch.empty((B, D, N), **f32)
-    fwd_ms = cuda_ms(lambda: ts.launch_fused(dt, A, B_, C_, x, Dv, None, y,
-                                             h_fin), flush, iters=10,
-                     warmup=2)
-    bound = scan_bwd_bound(B, S, D, N, 2)
-    return {"name": "scan_bwd", "route": "cuda", "source": SCAN_BWD_SOURCE,
-            "replaces": PORT_ONLY.format("jax.grad of chunked_diag_scan, "
-                                         "src/repro/models/mamba.py:68"),
-            "kernel": "scan_bwd",
-            "launches": launches["selective_scan_fused_bwd"],
-            "launches_by_path": {
-                "train_jamba": launches["selective_scan_fused_bwd"]},
-            "max_abs_err": max(*errs.values(), *edge.values()),
-            "max_abs_err_float32": max(errs32.values()),
-            "max_err_by_check": {"scan_bwd_edge": edge, "train_shape": errs,
-                                 "train_shape_float32": errs32},
-            "tolerance": cases.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
-            **bound, "library_ms": None,
-            "library": "none: no PyTorch call computes the scan's backward",
-            "share_of_bound": bound["bound_ms"] / ms, "forward_ms": fwd_ms,
-            "plan": plan,
-            "shape": {"B": B, "S": S, "D": D, "N": N, "dtype": "bfloat16",
-                      "h0": False, "D_skip": True}}
+    def setup(args):
+        dt, A, B_, C_, x, Dv, _, dy, _ = args
+        f32 = dict(dtype=torch.float32, device=device)
+        grads = [torch.empty((B, S, D), **f32), torch.empty((D, N), **f32),
+                 torch.empty((B, S, N), dtype=x.dtype, device=device),
+                 torch.empty((B, S, N), dtype=x.dtype, device=device),
+                 torch.empty_like(x), torch.empty((D,), **f32)]
+        scratch = torch.empty(plan["scratch_floats"], **f32)
+        y, h_fin = torch.empty((B, S, D), **f32), torch.empty((B, D, N), **f32)
+        return (lambda: ts.launch_bwd(dt, A, B_, C_, x, Dv, None, dy, None,
+                                      *grads, None, scratch), grads,
+                lambda: ts.launch_fused(dt, A, B_, C_, x, Dv, None, y, h_fin))
+    entry = {"name": "scan_bwd", "source": SCAN_BWD_SOURCE,
+             "replaces": PORT_ONLY.format("jax.grad of chunked_diag_scan, "
+                                          "src/repro/models/mamba.py:68"),
+             "launches": launches["selective_scan_fused_bwd"],
+             "launches_by_path": {
+                 "train_jamba": launches["selective_scan_fused_bwd"]},
+             **scan_bwd_bound(B, S, D, N, 2),
+             "library": "none: no PyTorch call computes the scan's backward",
+             "plan": plan,
+             "shape": {"B": B, "S": S, "D": D, "N": N, "dtype": "bfloat16",
+                       "h0": False, "D_skip": True}}
+    return bwd_kernel_timing(
+        entry, cases, ("train", (B, S, D, N), "bfloat16", False, True, False),
+        seed + 12, device, ts.selective_scan_fused_bwd_ref,
+        ts.selective_scan_fused_bwd_cuda, setup, edge)
 
 
 class FramesLoader:
@@ -4310,15 +4157,18 @@ def _grad_check_pair(kernel_model, plain_model, batch, device, seed: int,
 
 
 def train_arch_phase(args, device, name: str, published, cfg, want: dict,
-                     reduced: list, grad: dict, frames: int = 0) -> dict:
-    """`launch/train.py`'s flow (`train_phase`'s) on `cfg`: the logs
-    index's keyword-filtered loader (with seeded frames when `frames`),
-    TRAIN_NEW_STEPS AdamW steps with async checkpoints every
-    TRAIN_NEW_CKPT, the launch counts `want` per step (the rest 0, every
+                     reduced: list, grad: dict, frames: int = 0,
+                     steps: int = TRAIN_NEW_STEPS, every: int = TRAIN_NEW_CKPT,
+                     profile: bool = False) -> dict:
+    """`launch/train.py`'s flow on `cfg`: the logs index's
+    keyword-filtered loader (with seeded frames when `frames`), `steps`
+    AdamW steps (eager, remat) with async checkpoints every `every` into
+    host memory, the launch counts `want` per step (the rest 0, every
     `flash_bwd` on the tensor cores); then a fresh run from other weights
     resumes from the middle checkpoint and must give the same losses bit
-    for bit; then `grad`'s check (`_grad_check_pair` on its cut and
-    sequence length)."""
+    for bit (with `profile`, one more step on its state under
+    torch.profiler); then `grad`'s check (`_grad_check_pair` on its cut
+    and sequence length)."""
     import gc
     import shutil
     import statistics as stats
@@ -4334,7 +4184,6 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
 
     gc.collect()
     torch.cuda.empty_cache()
-    steps, every = TRAIN_NEW_STEPS, TRAIN_NEW_CKPT
     workdir = tempfile.mkdtemp(prefix="train-", dir=ROOT / "build")
     t0 = time.perf_counter()
     store = logs_store(workdir)
@@ -4382,13 +4231,16 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     for blob in ckpts.list(f"ckpt/step-{steps:010d}"):
         ckpts.delete(blob)               # the run is cut after `every`
     t0 = time.perf_counter()
-    _, state, resumed = train(cfg, store, loader, steps=steps, lr=TRAIN_LR,
-                              ckpt_every=every, device=device, log_every=1,
-                              ckpt_config=ckpt_cfg, ckpt_store=ckpts,
-                              seed=args.seed + 1)
+    model, state, resumed = train(cfg, store, loader, steps=steps,
+                                  lr=TRAIN_LR, ckpt_every=every,
+                                  device=device, log_every=1,
+                                  ckpt_config=ckpt_cfg, ckpt_store=ckpts,
+                                  seed=args.seed + 1)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
     resume_launches = _all_launches()
+    step_profile = (train_profile(model, state, loader.batch(steps), device)
+                    if profile else None)
     del state, ckpts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4400,8 +4252,8 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     t0 = time.perf_counter()
     check = _grad_check_pair(grad["kernel"], grad["plain"], batch, device,
                              args.seed, grad["want"])
-    check.update(cut=grad["cut"], seq=grad["seq"],
-                 wall_s=time.perf_counter() - t0)
+    check.update(cut=grad["cut"], layers=grad["kernel"].cfg.n_layers,
+                 seq=grad["seq"], wall_s=time.perf_counter() - t0)
     shutil.rmtree(workdir, ignore_errors=True)
     step_s = stats.median(whole.seconds[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -4422,7 +4274,7 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
           "resume_launches": resume_launches,
           "resumed_losses": resumed.losses, "resume_max_abs_diff": diff,
           "resume_bitwise": diff == 0.0, "grad_check": check,
-          "host_mb": _host_mb()})
+          "step_profile": step_profile, "host_mb": _host_mb()})
     if not whole.losses[-1] < whole.losses[0]:
         raise AssertionError(f"{name}: the loss did not fall: "
                              f"{whole.losses}")

@@ -16,6 +16,8 @@ import torch
 
 from .kernel import BWD_CHUNK, HEAD_DIMS
 
+# the backward's outputs, in the order wkv_bwd_ref returns them
+GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 # of each output's scale: float32 sums in other orders; a bf16 output
 # (dr, dk, dv in r's dtype) one rounding more
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4}

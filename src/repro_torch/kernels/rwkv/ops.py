@@ -21,9 +21,6 @@ from ..intersect.ops import resolve_device
 from .kernel import wkv_bwd_cuda, wkv_cuda
 from .ref import wkv_ref
 
-# the Function's two halves, by name (a test swaps in the plain versions)
-KERNELS = {"forward": wkv_cuda, "backward": wkv_bwd_cuda}
-
 
 class _WKV(torch.autograd.Function):
     """The wkv kernel forward, `wkv_bwd` backward: gradients for r, k, v,
@@ -32,7 +29,7 @@ class _WKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
         ctx.set_materialize_grads(False)
-        out, s_fin = KERNELS["forward"](r, k, v, w, u, s0)
+        out, s_fin = wkv_cuda(r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, s0)
         return out, s_fin
 
@@ -41,7 +38,7 @@ class _WKV(torch.autograd.Function):
         r, k, v, w, u, s0 = ctx.saved_tensors
         dout = (torch.zeros(r.shape, dtype=torch.float32, device=r.device)
                 if dout is None else dout.contiguous())
-        return KERNELS["backward"](
+        return wkv_bwd_cuda(
             r, k, v, w, u, s0, dout,
             None if ds_fin is None else ds_fin.contiguous())
 

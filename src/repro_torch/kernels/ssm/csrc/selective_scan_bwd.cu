@@ -45,11 +45,12 @@
 //
 // Bound on an H100 SXM (700 W) at the Jamba train shape (2, 4096, 8192,
 // 16) bf16: dt, x, dy read and d(dt), dx written once per (b, t, d), B_,
-// C_ and their gradients per (b, t), A, dA once (0.32 ms at 3.35 TB/s);
-// 24 float32 flops per (b, t, d, n) (the state once, G, da, dA, d(dt),
-// dx, dB_, dC_, the carry) against 67 TFLOP/s: 0.38 ms, so operations
-// bound it; one exponential per (b, t, d, n) on the special-function
-// units, 0.26 ms. This kernel takes the exponential three times (the
+// C_ and their gradients per (b, t), A, dA once (0.32 ms at 3.35 TB/s),
+// which bounds it; 19 float32 flops per (b, t, d, n), each counted once
+// (the state again, G, da, dA, d(dt)'s sum, the sum of G B_ that d(dt)
+// and dx share, dB_, dC_, the carry), and 8 per (b, t, d), against 67
+// TFLOP/s: 0.31 ms; one exponential per (b, t, d, n) on the
+// special-function units, 0.26 ms. This kernel takes the exponential three times (the
 // saving sweep, the chunk's recomputed states, the step's own a_t), and
 // its saved states (B, S/16, D, N) and the blocks' partials of dB_ and
 // dC_ are its own traffic.

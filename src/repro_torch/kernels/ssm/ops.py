@@ -25,10 +25,6 @@ from .kernel import (check_fused_inputs, check_inputs, row_stride,
                      selective_scan_fused_cuda)
 from .ref import selective_scan_fused_ref, selective_scan_ref
 
-# the Function's two halves, by name (a test swaps in the plain versions)
-KERNELS = {"forward": selective_scan_fused_cuda,
-           "backward": selective_scan_fused_bwd_cuda}
-
 
 class _ScanFused(torch.autograd.Function):
     """The fused scan kernel forward, its backward kernel backward:
@@ -38,7 +34,7 @@ class _ScanFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt, A, B_, C_, x, D, h0):
         ctx.set_materialize_grads(False)
-        y, h_fin = KERNELS["forward"](dt, A, B_, C_, x, D, h0)
+        y, h_fin = selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0)
         ctx.save_for_backward(dt, A, B_, C_, x, D, h0)
         return y, h_fin
 
@@ -47,7 +43,7 @@ class _ScanFused(torch.autograd.Function):
         dt, A, B_, C_, x, D, h0 = ctx.saved_tensors
         dy = (torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
               if dy is None else dy.contiguous())
-        return KERNELS["backward"](
+        return selective_scan_fused_bwd_cuda(
             dt, A, B_, C_, x, D, h0, dy,
             None if dh_fin is None else dh_fin.contiguous())
 

@@ -1,4 +1,5 @@
-"""Shared model machinery: parameter descriptors and initialisation.
+"""Shared model machinery: parameter descriptors and initialisation, and
+the training losses' per-layer rematerialisation (`remat`).
 
 Parameters are described once as a tree (nested dicts) of `Desc` (shape,
 dtype, initializer), as in the JAX package; `init_params` draws real
@@ -15,6 +16,7 @@ from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -94,3 +96,15 @@ def init_params(tree, generator: torch.Generator, device="cuda") -> Any:
 def param_count(tree) -> int:
     """Exact count from a `Desc` or tensor tree."""
     return sum(math.prod(leaf.shape) for leaf in tree_leaves(tree))
+
+
+def remat(cfg, fn, *args):
+    """fn(*args), its activations recomputed in backward (JAX's
+    `maybe_remat`) when `cfg.remat` is not "none" and a gradient can reach
+    a tensor of `args` (trees included); otherwise a plain call, so that a
+    serving path, whose weights need no gradient, never checkpoints."""
+    if cfg.remat != "none" and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for a in args for t in tree_leaves(a)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -31,12 +31,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks
-from .common import Desc, stack_tree, tree_map
+from .common import Desc, remat, stack_tree, tree_map
 from .losses import chunked_cross_entropy
 
 
@@ -105,13 +104,6 @@ class EncDecModel:
         x = blocks.rms_norm(x, params["ln_dec"], self.cfg.norm_eps)
         return (x[:, -1] @ params["lm_head"].T).float()
 
-    def _remat(self, fn, *args):
-        """fn(*args), recomputed in backward unless `cfg.remat` is
-        "none" or gradients are off."""
-        if self.cfg.remat != "none" and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
-
     def loss_fn(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy of `batch` ({"frames" (B, S_enc,
         D), "tokens", "labels" (B, S), -1 = ignore}), float32 scalar."""
@@ -144,7 +136,7 @@ class EncDecModel:
 
         for i in range(self.n_dec):
             lp = tree_map(lambda w: w[i], params["dec_layers"])
-            x = self._remat(layer, x, lp, memory)
+            x = remat(cfg, layer, x, lp, memory)
         x = blocks.rms_norm(x, params["ln_dec"], cfg.norm_eps)
         return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
                                      chunk=cfg.ce_chunk)
@@ -171,7 +163,7 @@ class EncDecModel:
         cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
         for i in range(cfg.n_layers):
             lp = tree_map(lambda w: w[i], params["enc_layers"])
-            x = self._remat(self._enc_layer, x, lp, cos, sin, positions)
+            x = remat(cfg, self._enc_layer, x, lp, cos, sin, positions)
         return blocks.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
     # --------------------------------------------------------------- decoder

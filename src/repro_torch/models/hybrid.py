@@ -40,12 +40,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks, mamba
-from .common import Desc, stack_tree, tree_map
+from .common import Desc, remat, stack_tree, tree_map
 from .losses import chunked_cross_entropy
 
 
@@ -205,10 +204,7 @@ class HybridModel:
 
         for n in range(self.n_periods):
             pp = tree_map(lambda w: w[n], params["periods"])
-            if cfg.remat != "none" and torch.is_grad_enabled():
-                x = checkpoint(period, x, pp, use_reentrant=False)
-            else:
-                x = period(x, pp)
+            x = remat(cfg, period, x, pp)
         x = blocks.rms_norm(x, params["ln_f"], cfg.norm_eps)
         return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
                                      chunk=cfg.ce_chunk)

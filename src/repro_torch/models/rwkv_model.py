@@ -20,10 +20,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .common import Desc, stack_tree, tree_map
+from .common import Desc, remat, stack_tree, tree_map
 from .losses import chunked_cross_entropy
 from .rwkv6 import layer_norm, rwkv_layer, rwkv_layer_desc, rwkv_state_desc
 
@@ -90,10 +89,7 @@ class RWKVModel:
 
         for i in range(cfg.n_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
-            if cfg.remat != "none" and torch.is_grad_enabled():
-                x = checkpoint(layer, x, lp, use_reentrant=False)
-            else:
-                x = layer(x, lp)
+            x = remat(cfg, layer, x, lp)
         x = layer_norm(x, params["lnf_w"], params["lnf_b"], cfg.norm_eps)
         return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
                                      chunk=cfg.ce_chunk)

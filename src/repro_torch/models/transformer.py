@@ -45,12 +45,11 @@ its attention is differentiated by the `flash_bwd` kernel.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks
-from .common import Desc, stack_tree, tree_map
+from .common import Desc, remat, stack_tree, tree_map
 from .losses import chunked_cross_entropy
 
 
@@ -188,10 +187,7 @@ class TransformerModel:
 
         for i in range(cfg.n_layers):
             lp = tree_map(lambda w: w[i], params["layers"])
-            if cfg.remat != "none" and torch.is_grad_enabled():
-                x = checkpoint(layer, x, lp, use_reentrant=False)
-            else:
-                x = layer(x, lp)
+            x = remat(cfg, layer, x, lp)
         return blocks.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def loss_fn(self, params, batch) -> torch.Tensor:

@@ -470,8 +470,8 @@ def test_wkv_function_with_the_plain_halves_equals_autograd(
     swapped in for the kernels: its gradients (saved tensors, the
     backward's inputs, None for an unused output and for a missing s0)
     equal autograd through `wkv_ref` within 1e-5 of their scale."""
-    monkeypatch.setitem(wkv_ops.KERNELS, "forward", tr.wkv_ref)
-    monkeypatch.setitem(wkv_ops.KERNELS, "backward", tr.wkv_bwd_ref)
+    monkeypatch.setattr(wkv_ops, "wkv_cuda", tr.wkv_ref)
+    monkeypatch.setattr(wkv_ops, "wkv_bwd_cuda", tr.wkv_bwd_ref)
     case = ("fn", (2, 19, 2, 32), "float32", with_s0, "model")
     r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 5, "cpu")
     ds_fin = torch.randn(2, 2, 32, 32, generator=torch.Generator()

@@ -415,9 +415,9 @@ def test_scan_fused_function_with_the_plain_halves_equals_autograd(
     views, the backward's inputs, None for an unused output, a missing D
     or h0) equal autograd through `selective_scan_fused_ref` within 1e-5
     of their scale."""
-    monkeypatch.setitem(ssm_ops.KERNELS, "forward",
+    monkeypatch.setattr(ssm_ops, "selective_scan_fused_cuda",
                         ssm.selective_scan_fused_ref)
-    monkeypatch.setitem(ssm_ops.KERNELS, "backward",
+    monkeypatch.setattr(ssm_ops, "selective_scan_fused_bwd_cuda",
                         ssm.selective_scan_fused_bwd_ref)
     case = ("fn", (2, 21, 12, 8), "float32", full, full, False)
     dt, A, B_, C_, x, D, h0, dy, _ = scan_cases.bwd_inputs(case, 5, "cpu")

@@ -562,6 +562,50 @@ def test_rwkv_hybrid_and_encdec_losses_still_raise():
         assert torch.isfinite(loss), arch
 
 
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-3b", "jamba-v0.1-52b",
+                                  "seamless-m4t-medium"])
+def test_remat_checkpoints_only_when_a_gradient_can_reach_the_weights(
+        monkeypatch, arch):
+    """`models.common.remat`, which all four losses use: with weights that
+    need a gradient, one `torch.utils.checkpoint` a layer (a period for
+    Jamba, the encoder's and decoder's layers for the encoder-decoder);
+    with gradients enabled but no weight needing one, as a server calls
+    it, none, and the same loss bit for bit; the encoder-decoder's
+    `encode` likewise."""
+    from repro_torch.models import common, init_params
+    calls = []
+
+    def counted(fn, *args, **kwargs):
+        calls.append(fn)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kwargs)
+    monkeypatch.setattr(common, "checkpoint", counted)
+    cfg = get_config(arch, reduced=True)
+    assert cfg.remat != "none"
+    model = build_model(cfg)
+    params = init_params(model.param_desc(),
+                         torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 17))
+                            .astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = cfg.n_layers
+    if arch == "jamba-v0.1-52b":
+        want = cfg.n_layers // cfg.attn_every
+    if arch == "seamless-m4t-medium":
+        batch["frames"] = torch.from_numpy(rng.normal(0, 1, (
+            2, 8, cfg.d_model)).astype(np.float32))
+        want = cfg.n_layers + (cfg.n_dec_layers or cfg.n_layers)
+        model.encode(params, batch["frames"])
+        assert calls == []
+    plain = model.loss_fn(params, batch)
+    assert calls == []
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    loss = model.loss_fn(params, batch)
+    assert len(calls) == want
+    assert torch.equal(loss.detach(), plain)
+
+
 # ------------------------------------------------------- the train loop
 class Batches:
     """Seeded numpy batches, the same for both packages."""
