@@ -406,6 +406,28 @@ TRAIN_NEW_STEPS, TRAIN_NEW_CKPT = 8, 4
 RWKV_TRAIN_LAYERS, JAMBA_GRAD_SEQ, ENCDEC_TRAIN_FRAMES = 8, 512, 4096
 WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv_bwd.cu"
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
+# the backwards' times at their train shapes before their redesign (PR
+# 26's kernels, NVIDIA H100 80GB HBM3 at 700 W: PERF.md rows 10-11)
+WKV_BWD_EARLIER_MS = 6.062
+SCAN_BWD_EARLIER_MS = 4.378
+
+
+def _scan_bwd_saved(*args):
+    """The fused scan's backward on its "saved" route: the states from a
+    forward launch that writes them, as `ops._ScanFused` runs it."""
+    from repro_torch.kernels import ssm as ts
+    states = ts.selective_scan_fused_cuda(*args[:7], states=True)[2]
+    return ts.selective_scan_fused_bwd_cuda(*args, states)
+
+
+def _scan_bwd_recomputed(*args):
+    from repro_torch.kernels import ssm as ts
+    return ts.selective_scan_fused_bwd_cuda(*args)
+
+
+# the fused scan backward's routes (kernels.ssm.BWD_ROUTES)
+SCAN_BWD_ROUTES = {"saved": _scan_bwd_saved,
+                   "recomputed": _scan_bwd_recomputed}
 
 
 def emit(obj) -> None:
@@ -3931,52 +3953,102 @@ def bwd_kernel_check(name: str, got, want, names, tol: dict,
     return out
 
 
-def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, device,
-                   seed: int) -> dict:
-    """Every case of `cases_mod.bwd_cases()`, the backward kernel against
-    its plain version within `cases_mod.BWD_TOL` of each output's scale;
-    every third case run twice, bit for bit."""
+def bwd_edge_phase(kind: str, routes: dict, plain_fn, cases_mod, device,
+                   seed: int, counter=None) -> dict:
+    """Every case of `cases_mod.bwd_cases()` through every route of the
+    backward kernel (`routes`: name -> a call on the case's inputs),
+    against its plain version within `cases_mod.BWD_TOL` of each
+    output's scale; every third case run twice, bit for bit. With
+    `counter` (the kernel's launches by route), each route's launches
+    must be exactly its calls."""
     worst: dict[str, float] = {}
+    calls: dict[str, int] = {name: 0 for name in routes}
     twice = 0
+    if counter is not None:
+        counter.clear()
     t0 = time.perf_counter()
     for i, case in enumerate(cases_mod.bwd_cases()):
         args = cases_mod.bwd_inputs(case, seed + i, device)
-        got = kernel_fn(*args)
-        again = kernel_fn(*args) if i % 3 == 0 else None
-        twice += again is not None
-        errs = bwd_kernel_check(f"{kind} {case[0]}", got, plain_fn(*args),
-                                cases_mod.GRADS, cases_mod.BWD_TOL, again)
-        for what, rel in errs.items():
-            worst[what] = max(worst.get(what, 0.0), rel)
-        del args, got, again
+        want = plain_fn(*args)
+        for route, kernel_fn in routes.items():
+            got = kernel_fn(*args)
+            again = kernel_fn(*args) if i % 3 == 0 else None
+            calls[route] += 1 + (again is not None)
+            twice += again is not None
+            errs = bwd_kernel_check(f"{kind} {case[0]} ({route})", got, want,
+                                    cases_mod.GRADS, cases_mod.BWD_TOL, again)
+            for what, rel in errs.items():
+                worst[what] = max(worst.get(what, 0.0), rel)
+            del got, again
+        del args, want
+    if counter is not None and dict(counter) != calls:
+        raise AssertionError(f"{kind} launched {dict(counter)} by route, "
+                             f"expected {calls}")
     emit({"phase": f"{kind}_edge", "cases": len(cases_mod.bwd_cases()),
+          "routes": list(routes), "launches_by_route": calls,
           "bitwise_repeats": twice, "max_scaled_err_by_output": worst,
           "tolerance": cases_mod.BWD_TOL, "wall_s": time.perf_counter() - t0})
     return worst
 
 
+def device_ms_parts(fn, flush, keys, iters: int = 10) -> dict:
+    """Device ms a run of `fn` spends in each kernel whose name holds one
+    of `keys` (the longest key that matches), from torch.profiler over
+    `iters` runs, L2 flushed before each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    sums = {key: [] for key in keys}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        hits = [key for key in keys if key in e.name]
+        if hits:
+            sums[max(hits, key=len)].append(
+                1e-3 * (e.time_range.end - e.time_range.start))
+    return {key: (sum(v) / len(v) if v else None) for key, v in sums.items()}
+
+
 def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,
-                      device, plain_fn, kernel_fn, setup, edge: dict) -> dict:
+                      device, plain_fn, kernel_fn, setup, edge: dict,
+                      parts: tuple = ()) -> dict:
     """`entry` (a backward kernel's name, source, bound, launches...)
     with what is measured at its train path's shape `case`: the bare
-    launch by CUDA events (L2 flushed), the plain version's time, its
-    forward kernel's, and the error (`max_abs_err`: the largest over the
-    outputs' scales and the edge phase's, a bf16 output's one rounding
-    included; `max_abs_err_float32`: the same shape in float32, every
-    output float32). `setup(args)` gives the bare launch, the gradient
-    buffers it fills and the forward's bare launch."""
+    launch by CUDA events (L2 flushed), the profiler's device ms of each
+    kernel in `parts`, the plain version's time, its forward kernel's
+    and the forward and backward together as the train path runs them,
+    and the error (`max_abs_err`: the largest over the outputs' scales
+    and the edge phase's, a bf16 output's one rounding included;
+    `max_abs_err_float32`: the same shape in float32, every output
+    float32). `setup(args)` gives the bare launch, the gradient buffers
+    it fills, the forward's bare launch as the train path runs it, and
+    other launches to time (name -> call)."""
     import torch
     flush = torch.empty(128 << 20, dtype=torch.int8, device=device)
     args = cases_mod.bwd_inputs(case, seed, device)
-    launch, grads, forward = setup(args)
+    launch, grads, forward, others = setup(args)
     ms = cuda_ms(launch, flush, iters=10, warmup=2)
+    device_parts = device_ms_parts(launch, flush, parts) if parts else {}
     errs = bwd_kernel_check(f"{entry['name']} train shape", grads + [None],
                             plain_fn(*args), cases_mod.GRADS,
                             cases_mod.BWD_TOL)
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: plain_fn(*args), flush, iters=2, warmup=0)
     forward_ms = cuda_ms(forward, flush, iters=10, warmup=2)
-    del args, launch, grads, forward
+
+    def both():
+        forward()
+        launch()
+    fwd_bwd_ms = cuda_ms(both, flush, iters=10, warmup=2)
+    other_ms = {name: cuda_ms(fn, flush, iters=10, warmup=2)
+                for name, fn in others.items()}
+    del args, launch, grads, forward, others
     torch.cuda.empty_cache()
     args32 = cases_mod.bwd_inputs((case[0], case[1], "float32", *case[3:]),
                                   seed, device)
@@ -3993,7 +4065,10 @@ def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,
                                  "train_shape_float32": errs32},
             "tolerance": cases_mod.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "share_of_bound": entry["bound_ms"] / ms,
-            "forward_ms": forward_ms}
+            "earlier_share_of_bound":
+                entry["bound_ms"] / entry["earlier_ms"],
+            "device_ms_by_kernel": device_parts, "forward_ms": forward_ms,
+            "forward_and_backward_ms": fwd_bwd_ms, **other_ms}
 
 
 def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
@@ -4017,8 +4092,9 @@ def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
                       torch.empty((B, H, dh, dh), **f32))
         return (lambda: tr.launch_bwd(r, k, v, w, u, None, dout, None,
                                       *grads, None, scratch), grads,
-                lambda: tr.launch(r, k, v, w, u, None, out, state))
+                lambda: tr.launch(r, k, v, w, u, None, out, state), {})
     entry = {"name": "wkv_bwd", "source": WKV_BWD_SOURCE,
+             "earlier_ms": WKV_BWD_EARLIER_MS,
              "replaces": PORT_ONLY.format("jax.grad of wkv_chunked, "
                                           "src/repro/models/rwkv6.py:111"),
              "launches": launches["wkv_bwd"],
@@ -4030,7 +4106,8 @@ def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
                        "dtype": "bfloat16", "s0": False}}
     return bwd_kernel_timing(
         entry, cases, ("train", (B, S, H, dh), "bfloat16", False, "model"),
-        seed + 11, device, tr.wkv_bwd_ref, tr.wkv_bwd_cuda, setup, edge)
+        seed + 11, device, tr.wkv_bwd_ref, tr.wkv_bwd_cuda, setup, edge,
+        ("wkv_bwd_states", "wkv_bwd_chunk", "wkv_bwd_finish"))
 
 
 def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
@@ -4053,10 +4130,17 @@ def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
                  torch.empty_like(x), torch.empty((D,), **f32)]
         scratch = torch.empty(plan["scratch_floats"], **f32)
         y, h_fin = torch.empty((B, S, D), **f32), torch.empty((B, D, N), **f32)
+        states = torch.empty(ts.states_shape(B, S, D, N), **f32)
+        ts.launch_fused(dt, A, B_, C_, x, Dv, None, y, h_fin, states)
+        # the train path's forward saves the states the backward reads
         return (lambda: ts.launch_bwd(dt, A, B_, C_, x, Dv, None, dy, None,
-                                      *grads, None, scratch), grads,
-                lambda: ts.launch_fused(dt, A, B_, C_, x, Dv, None, y, h_fin))
+                                      states, *grads, None, scratch), grads,
+                lambda: ts.launch_fused(dt, A, B_, C_, x, Dv, None, y, h_fin,
+                                        states),
+                {"forward_without_states_ms": lambda: ts.launch_fused(
+                    dt, A, B_, C_, x, Dv, None, y, h_fin)})
     entry = {"name": "scan_bwd", "source": SCAN_BWD_SOURCE,
+             "earlier_ms": SCAN_BWD_EARLIER_MS,
              "replaces": PORT_ONLY.format("jax.grad of chunked_diag_scan, "
                                           "src/repro/models/mamba.py:68"),
              "launches": launches["selective_scan_fused_bwd"],
@@ -4070,7 +4154,8 @@ def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
     return bwd_kernel_timing(
         entry, cases, ("train", (B, S, D, N), "bfloat16", False, True, False),
         seed + 12, device, ts.selective_scan_fused_bwd_ref,
-        ts.selective_scan_fused_bwd_cuda, setup, edge)
+        ts.selective_scan_fused_bwd_cuda, setup, edge,
+        ("scan_bwd", "scan_bwd_finish"))
 
 
 class FramesLoader:
@@ -4177,6 +4262,7 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     import torch
 
     from repro_torch.kernels import attention as ta
+    from repro_torch.kernels import ssm as ts
     from repro_torch.launch.train import logs_store, make_loader, train
     from repro_torch.models import param_count
     from repro_torch.storage import InMemoryBlobStore
@@ -4210,6 +4296,7 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     wall_s = time.perf_counter() - t0
     launches = _all_launches()
     bwd_routes = dict(ta.BWD_ROUTES)
+    scan_routes = dict(ts.BWD_ROUTES)
     peak_bytes = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------
     n_params = param_count(state["params"])
@@ -4224,6 +4311,11 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
                       if want_all["flash_bwd"] else {}):
         raise AssertionError(f"{name}'s attention backward took the routes "
                              f"{bwd_routes}, not the tensor cores' alone")
+    scans = want_all["selective_scan_fused_bwd"]
+    if scan_routes != ({"saved": scans} if scans else {}):
+        raise AssertionError(f"{name}'s scan backward took the routes "
+                             f"{scan_routes}, not the forward's saved "
+                             "states alone")
     saved = sorted(int(n.split("step-")[1][:10]) for n in
                    ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
     if saved != [every, steps]:
@@ -4270,6 +4362,7 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
           "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
           "host_mb_after_run": host_after, "launches": launches,
           "launches_per_step": want, "bwd_routes": bwd_routes,
+          "scan_bwd_routes": scan_routes,
           "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
           "resume_launches": resume_launches,
           "resumed_losses": resumed.losses, "resume_max_abs_diff": diff,
@@ -4575,11 +4668,12 @@ def main() -> int:
     scan_errs = scan_edge_phase(ts, device, args.seed)
     int8_errs = int8_edge_phase(ta, device)
     bwd_errs = attn_bwd_edge_phase(ta, device)
-    wkv_bwd_errs = bwd_edge_phase("wkv_bwd", tr.wkv_bwd_cuda, tr.wkv_bwd_ref,
-                                  rwkv_cases, device, args.seed)
+    wkv_bwd_errs = bwd_edge_phase("wkv_bwd", {"cuda": tr.wkv_bwd_cuda},
+                                  tr.wkv_bwd_ref, rwkv_cases, device,
+                                  args.seed)
     scan_bwd_errs = bwd_edge_phase(
-        "scan_bwd", ts.selective_scan_fused_bwd_cuda,
-        ts.selective_scan_fused_bwd_ref, ssm_cases, device, args.seed)
+        "scan_bwd", SCAN_BWD_ROUTES, ts.selective_scan_fused_bwd_ref,
+        ssm_cases, device, args.seed, ts.BWD_ROUTES)
     main = main_phase(args, device)
     serving = serving_phase(args, device, main)
     admin = cluster_admin_phase(args, device, main, serving)

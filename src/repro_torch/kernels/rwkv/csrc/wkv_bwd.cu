@@ -21,290 +21,574 @@
 // du and ds0 float32.
 //
 // The trap: dw needs S_{t-1} while G runs backwards in time. S_{t-1} is
-// never recovered by dividing by w (exp(-exp(.)) underflows to 0), and
-// not every state is stored (5.4 GB a layer at (2, 4096, 40, 64)). A
-// forward sweep saves the state before each chunk of BC = 16 steps in the
-// scratch buffer; the reverse sweep reloads a chunk's state, recomputes
-// the chunk's 16 states forward into registers, then walks the chunk
-// backwards with G in registers.
+// never recovered by dividing by w (exp(-exp(.)) underflows to 0, and the
+// edge cases hold keys at w = 0 and w = 1 exactly), and not every state
+// is stored (5.4 GB a layer at (2, 4096, 40, 64)).
 //
-// Design: a block owns JT value columns (32; 16 at dh = 128) of one (b,
-// h) and all dh keys, a thread one key i and E = 4 consecutive columns,
-// the L = JT / 4 threads of a key consecutive lanes of a warp. Each chunk
-// of r, k, w (all keys) and v, dout (the block's columns) goes to shared
-// memory, with each step's r . (u k) and the block's v . dout. A step's
-// sums over j (dr, dk, dw) are shuffles over the key's L lanes; dv's sum
-// over i is a shuffle over the warp's keys and then, once a chunk, a sum
-// over the warps in shared memory in warp order. dr, dk and dw of a step
-// cover only the block's columns: each block writes its tile's partial
-// sums, and `wkv_bwd_finish` adds the dh / JT tiles in tile order (and du
-// over b and tiles), then casts dr and dk to r's dtype. No float atomics:
-// every sum has one order, so two calls agree bit for bit.
+// Design: three kernels in one launch call, parallel over chunks of BC =
+// 16 steps where the recurrence allows it.
+//   wkv_bwd_states: the two serial passes, over chunks rather than steps,
+//     in the chunked product form of wkv_prefill (its TF32 helpers in
+//     wkv_chunk.cuh). A block walks one (b, h)'s chunks for 64 value
+//     columns (32 at dh = 32), a warp holding 16 columns of the state in
+//     the mma accumulator layout:
+//       forward  (k~_t = k_t prod_{s>t} w_s):  S <- W S + sum_t k~_t v_t^T
+//       backward (r~_t = r_t prod_{s<t} w_s):  G <- W G + sum_t r~_t dout_t^T
+//     (W = prod_t w_t of the chunk, the rows i scaled), the second walking
+//     the chunks from the last. Each writes its matrix at every chunk
+//     boundary: S_c, the state before chunk c, and G_c, the gradient after
+//     chunk c's last step (0.34 GB each at the train shape); the backward
+//     pass's last G is ds0. Products of w only, so w = 0 and 1 need no
+//     care. The chunk's product runs as mma.sync m16n8k8 TF32 with split
+//     operands (bf16 v is exact in TF32 and is not split).
+//   wkv_bwd_chunk: a block per (b, h, chunk) and tile of KT keys (all dh
+//     keys up to dh = 64, 32 at dh = 128) with all dh columns, so the sums
+//     over j of dr, dk and dw stay in the block. A thread owns one key and
+//     E = 8 columns; from S_c it recomputes SUB = 8 states of the chunk
+//     into registers (the later half first, walking the earlier half once
+//     more), then walks them backwards from G_c with G in registers. A
+//     step's three sums over j go to the key's L = dh / 8 lanes by a
+//     reduce-scatter of shuffles (a lane ends with one of them), dv's
+//     sum over the warp's keys by a reduce-scatter too, then over the
+//     warps in warp order through shared memory once every SUB steps.
+//     dr, dk and dw leave through shared memory, coalesced, once a chunk.
+//   wkv_bwd_finish: du over (b, chunk) in order, and at dh = 128 dv over
+//     the four key tiles in order (there a tile's dv is a float partial).
+// No float atomics: every sum has one order, so two calls agree bit for
+// bit.
 //
 // Bound on an H100 SXM (700 W) at (2, 4096, 40, 64) bf16: r, k, v, w,
 // dout read and dr, dk, dv, dw written once (0.15 ms at 3.35 TB/s);
 // 14 float32 flops per (b, t, h) and state entry (the state once, G's
 // update, one FMA each of dr, dk, dv and dw's sums) against 67 TFLOP/s:
-// 0.28 ms, so operations bound it. This kernel computes the state twice
-// (the saving sweep and the chunk's recomputation), and its tile
-// partials and saved states (0.8 GB at that shape) are its own traffic.
+// 0.28 ms, so operations bound it. This kernel recomputes the state 1.5
+// times in the walk, and its chunk matrices S_c and G_c (0.67 GB written
+// and read again at that shape) are its own traffic.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "wkv_chunk.cuh"
+
 namespace {
 
-constexpr int BC = 16;                       // steps a chunk
+// The tuning constants may be set with -D (scripts/wkv_bwd_variants.py
+// builds and times such variants; ../kernel.py's plan_bwd must agree).
+#ifndef WKV_BWD_STATE_COLS
+#define WKV_BWD_STATE_COLS 32    // states pass: value columns a block
+#endif
+#ifndef WKV_BWD_THREADS_64
+#define WKV_BWD_THREADS_64 256   // chunk pass at dh = 64: threads a block
+#endif
 
+constexpr int BC = 16;                       // steps a chunk
+constexpr int SUB = 8;                       // steps a walk holds
+constexpr int NSUB = BC / SUB;
+
+// ---------------------------------------------------------- wkv_bwd_states
 template <int DH>
-struct BwdCfg {
-    static constexpr int JT = DH >= 128 ? 16 : 32;   // columns a block
-    static constexpr int E = 4;                      // columns a thread
-    static constexpr int L = JT / E;                 // threads a key
-    static constexpr int THREADS = DH * L;
-    static constexpr int WARPS = THREADS / 32;
-    static constexpr int KPW = 32 / L;               // keys a warp
-    static constexpr int TILES = DH / JT;
-    // floats of shared memory: r, k, w [BC][DH]; v, dout [BC][JT]; r.uk
-    // and v.dout [BC]; dv's warp sums [BC][WARPS][JT]
-    static constexpr int SMEM = BC * (3 * DH + 2 * JT + 2) + BC * WARPS * JT;
+struct StatesCfg {
+    static constexpr int JT = DH < WKV_BWD_STATE_COLS ? DH
+                                                      : WKV_BWD_STATE_COLS;
+    static constexpr int NW = JT / 16;               // a warp per 16
+    static constexpr int THREADS = 32 * NW;
+    static constexpr int CT = DH / JT;               // column tiles
+    static constexpr int KS = 2 * DH + 8;            // floats a row of a~
+    static constexpr int BS = JT + 8;                // elements a row of b
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
+// Byte offsets of the states kernel's shared memory: two stages of raw
+// input (a: r or k, all keys, in r's dtype; w; b: v or dout, the block's
+// columns, in rows of BS elements of at most 4 bytes), then the prepared
+// chunk: a~ as {hi, lo} pairs in rows of KS floats, and W.
+template <int DH, typename T>
+struct StatesSmem {
+    using C = StatesCfg<DH>;
+    static constexpr size_t A = 0;
+    static constexpr size_t W = A + (size_t)BC * DH * sizeof(T);
+    static constexpr size_t B = W + (size_t)BC * DH * 4;
+    static constexpr size_t STAGE = B + (size_t)BC * C::BS * 4;
+    static constexpr size_t AT = 2 * STAGE;
+    static constexpr size_t WC = AT + (size_t)BC * C::KS * 4;
+    static constexpr size_t BYTES = WC + (size_t)DH * 4;
+};
+
+// One direction of the states pass for one block. `a` is k (forward) or
+// r (backward) in TA, `b` v or dout in TB; `init` s0 or ds_fin (null:
+// zeros); `out` the (B·H, chunks, dh, dh) matrices; `last` (ds0, may be
+// null) takes the matrix after the last chunk.
+template <int DH, typename TA, typename TB, bool BACK>
+__device__ __forceinline__ void states_pass(
+        unsigned char* smem, const TA* __restrict__ a,
+        const TB* __restrict__ bv, const float* __restrict__ w,
+        const float* __restrict__ init, float* __restrict__ out,
+        float* __restrict__ last, long long bh, int S, int H, int chunks,
+        int tile) {
+    using C = StatesCfg<DH>;
+    using L = StatesSmem<DH, TA>;
+    constexpr int JT = C::JT, TH = C::THREADS, KS = C::KS, BS = C::BS;
+    constexpr int NK = DH / 8;
+    constexpr bool SPLIT_B = sizeof(TB) == 4;  // bf16 is exact in TF32
+    constexpr int AU = DH * (int)sizeof(TA) / 16;    // 16-byte pieces a row
+    constexpr int WU = DH / 4, BU = JT * (int)sizeof(TB) / 16;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3, jw = 16 * warp;
+    const int j0 = tile * JT;
+    const int b = (int)(bh / H), h = (int)(bh % H);
+    const size_t row = (size_t)H * DH;
+    const size_t base = ((size_t)b * S * H + h) * DH;   // (b, 0, h, 0)
+    float* at = reinterpret_cast<float*>(smem + L::AT);
+    float* wc = reinterpret_cast<float*>(smem + L::WC);
+
+    auto issue = [&](int ch, int st) {
+        unsigned char* stage = smem + st * L::STAGE;
+        const int t0 = ch * BC;
+        for (int x = tid; x < BC * AU; x += TH) {
+            const int t = x / AU, q = x % AU;
+            const bool ok = t0 + t < S;
+            const size_t off = base + (size_t)(ok ? t0 + t : 0) * row;
+            cp_async16(stage + L::A + (size_t)(t * DH) * sizeof(TA) + q * 16,
+                       reinterpret_cast<const unsigned char*>(a + off) +
+                           q * 16, ok);
+        }
+        for (int x = tid; x < BC * WU; x += TH) {
+            const int t = x / WU, q = x % WU;
+            const bool ok = t0 + t < S;
+            const size_t off = base + (size_t)(ok ? t0 + t : 0) * row;
+            cp_async16(stage + L::W + (size_t)(t * DH + 4 * q) * 4,
+                       w + off + 4 * q, ok);
+        }
+        for (int x = tid; x < BC * BU; x += TH) {
+            const int t = x / BU, q = x % BU;
+            const bool ok = t0 + t < S;
+            const size_t off = base + (size_t)(ok ? t0 + t : 0) * row + j0;
+            cp_async16(stage + L::B + (size_t)(t * BS) * sizeof(TB) + q * 16,
+                       reinterpret_cast<const unsigned char*>(bv + off) +
+                           q * 16, ok);
+        }
+        cp_async_commit();
+    };
+
+    // the warp's columns of the matrix, s[nu][e] = M[8 nu + 2c + (e & 1)]
+    // [j0 + jw + g + 8 (e >> 1)] (the m16n8 accumulator, m = column)
+    float s[NK][4];
+    const size_t mat0 = (size_t)bh * DH * DH + j0 + jw + g;
+#pragma unroll
+    for (int nu = 0; nu < NK; ++nu)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            s[nu][e] = init ? init[mat0 + (size_t)(8 * nu + 2 * c + (e & 1))
+                                   * DH + 8 * (e >> 1)]
+                            : 0.f;
+
+    issue(BACK ? chunks - 1 : 0, 0);
+    for (int it = 0; it < chunks; ++it) {
+        const int ch = BACK ? chunks - 1 - it : it;
+        if (it + 1 < chunks) {
+            issue(BACK ? ch - 1 : ch + 1, (it + 1) & 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();                     // stage it & 1 is in
+        const unsigned char* stage = smem + (it & 1) * L::STAGE;
+        const TA* ar = reinterpret_cast<const TA*>(stage + L::A);
+        const float* wr = reinterpret_cast<const float*>(stage + L::W);
+        const TB* br = reinterpret_cast<const TB*>(stage + L::B);
+        const int live = S - ch * BC;        // w = 1 past S
+        // a~ and W, a thread per key: products of w in step order
+        for (int i = tid; i < DH; i += TH) {
+            float p = 1.f;
+#pragma unroll
+            for (int n = 0; n < BC; ++n) {
+                const int t = BACK ? n : BC - 1 - n;
+                *reinterpret_cast<float2*>(at + t * KS + 2 * i) =
+                    split(to_float(ar[t * DH + i]) * p);
+                if (t < live) p *= wr[t * DH + i];
+            }
+            wc[i] = p;
+        }
+        __syncthreads();                     // the prepared chunk is in
+
+        // the matrix at this chunk's boundary, then X^T = B^T a~
+        float* mo = out + ((size_t)bh * chunks + ch) * DH * DH + j0 + jw + g;
+#pragma unroll
+        for (int nu = 0; nu < NK; ++nu)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                mo[(size_t)(8 * nu + 2 * c + (e & 1)) * DH + 8 * (e >> 1)] =
+                    s[nu][e];
+        // B^T as the A operand (m = column, k = step), both k-steps of 8
+        uint32_t va[2][4], vl[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int t = 8 * ks + c + 4 * (e >> 1);
+                const float y = to_float(br[t * BS + jw + g + 8 * (e & 1)]);
+                if constexpr (SPLIT_B) {
+                    const float2 z = split(y);
+                    va[ks][e] = __float_as_uint(z.x);
+                    vl[ks][e] = __float_as_uint(z.y);
+                } else {
+                    va[ks][e] = __float_as_uint(y);
+                }
+            }
+        // a tile of 8 keys at a time: X^T = B^T a~ (the k-steps in
+        // accumulators of their own), then M = W M + X
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+            float x[2][4] = {};
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+                const float2 b0 = *reinterpret_cast<const float2*>(
+                    at + (8 * ks + c) * KS + 2 * (8 * kk + g));
+                const float2 b1 = *reinterpret_cast<const float2*>(
+                    at + (8 * ks + c + 4) * KS + 2 * (8 * kk + g));
+                mma(x[ks], va[ks], b0.x, b1.x);
+                mma(x[ks], va[ks], b0.y, b1.y);
+                if constexpr (SPLIT_B) mma(x[ks], vl[ks], b0.x, b1.x);
+            }
+            const float2 wv = *reinterpret_cast<const float2*>(
+                wc + 8 * kk + 2 * c);
+            s[kk][0] = fmaf(wv.x, s[kk][0], x[0][0] + x[1][0]);
+            s[kk][1] = fmaf(wv.y, s[kk][1], x[0][1] + x[1][1]);
+            s[kk][2] = fmaf(wv.x, s[kk][2], x[0][2] + x[1][2]);
+            s[kk][3] = fmaf(wv.y, s[kk][3], x[0][3] + x[1][3]);
+        }
+        __syncthreads();                     // before the next prepare
+    }
+    if (last) {
+        float* lo = last + mat0;
+#pragma unroll
+        for (int nu = 0; nu < NK; ++nu)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                lo[(size_t)(8 * nu + 2 * c + (e & 1)) * DH + 8 * (e >> 1)] =
+                    s[nu][e];
+    }
 }
 
 struct BwdArgs {
     const void *r, *k, *v;
     const float *w, *u, *s0, *dout, *ds_fin;
     void *dr, *dk, *dv;
-    float *dw, *du, *ds0, *scratch;
+    float *dw, *du, *ds0;
+    float *smat, *gmat, *pdu, *pdv;          // scratch
     int B, S, H, chunks;
 };
 
+// Blocks [0, B·H·CT): the forward pass (S_c); the rest: the backward
+// pass (G_c and ds0). The column tile is fastest.
 template <typename T, int DH>
-__global__ void __launch_bounds__(BwdCfg<DH>::THREADS, 1)
-wkv_bwd(const BwdArgs a) {
-    using C = BwdCfg<DH>;
-    constexpr int JT = C::JT, E = C::E, L = C::L, TH = C::THREADS,
-                  WARPS = C::WARPS, TILES = C::TILES;
+__global__ void __launch_bounds__(StatesCfg<DH>::THREADS)
+wkv_bwd_states(const BwdArgs a) {
+    using C = StatesCfg<DH>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const long long per = (long long)a.B * a.H * C::CT;
+    const bool back = blockIdx.x >= per;
+    const long long x = back ? blockIdx.x - per : blockIdx.x;
+    const int tile = (int)(x % C::CT);
+    const long long bh = x / C::CT;
+    if (back)
+        states_pass<DH, T, float, true>(
+            smem, static_cast<const T*>(a.r), a.dout, a.w, a.ds_fin, a.gmat,
+            a.ds0, bh, a.S, a.H, a.chunks, tile);
+    else
+        states_pass<DH, T, T, false>(
+            smem, static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+            a.w, a.s0, a.smat, nullptr, bh, a.S, a.H, a.chunks, tile);
+}
+
+// ----------------------------------------------------------- wkv_bwd_chunk
+template <int DH>
+struct ChunkCfg {
+    static constexpr int E = 8;                      // columns a thread
+    static constexpr int L = DH / E;                 // lanes a key
+    static constexpr int THREADS = DH == 32 ? 128
+                                 : DH == 64 ? WKV_BWD_THREADS_64 : 512;
+    static constexpr int KT = THREADS / L;           // keys a block
+    static constexpr int KTILES = DH / KT;
+    static constexpr int NW = THREADS / 32;
+    static constexpr int MIN_BLOCKS = 512 / THREADS; // at most 128 registers
+    // floats of shared memory: r, k, w [BC][KT]; v, dout [BC][DH]; v.dout
+    // and r.(u k) over the block's keys [BC]; dv's warp sums [SUB][NW][DH];
+    // dr, dk, dw [BC][KT]
+    static constexpr int SMEM = 6 * BC * KT + 2 * BC * DH + 2 * BC +
+                                SUB * NW * DH;
+};
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+}
+
+// Sums v[0..CUR) over the lanes that differ in the bits O, 2 O, ... below
+// END of the lane index, scattering: at each bit while CUR > 1 a lane
+// keeps the half of the values its bit names (the upper half when set)
+// and adds its partner's copy of it; once one value is left the rest of
+// the bits add it whole. The order of every sum is fixed.
+template <int CUR, int O, int END>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+    if constexpr (O < END) {
+        if constexpr (CUR > 1) {
+            const bool up = (lane & O) != 0;
+#pragma unroll
+            for (int i = 0; i < CUR / 2; ++i) {
+                const float keep = up ? v[i + CUR / 2] : v[i];
+                const float send = up ? v[i] : v[i + CUR / 2];
+                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+            }
+            reduce_scatter<CUR / 2, O * 2, END>(v, lane);
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+            reduce_scatter<1, O * 2, END>(v, lane);
+        }
+    }
+}
+
+// Which of the V values a lane holds after reduce_scatter<V, O, END>
+// (the first of V >> bits consecutive ones), and whether it is the lane
+// that writes them (its bits past the scattering ones are 0).
+template <int V, int O, int END>
+__device__ __forceinline__ int scatter_index(int lane, bool& writer) {
+    int idx = 0, cur = V;
+    writer = true;
+    for (int o = O; o < END; o <<= 1) {
+        if (cur > 1) {
+            if (lane & o) idx += cur / 2;
+            cur /= 2;
+        } else if (lane & o) {
+            writer = false;
+        }
+    }
+    return idx;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(ChunkCfg<DH>::THREADS,
+                                  ChunkCfg<DH>::MIN_BLOCKS)
+wkv_bwd_chunk(const BwdArgs a) {
+    using C = ChunkCfg<DH>;
+    constexpr int E = C::E, L = C::L, TH = C::THREADS, KT = C::KT,
+                  NW = C::NW, KPW = 32 / L;
+    constexpr int DV_R = E / KPW;            // dv values a lane holds
+    static_assert(E >= KPW, "dv scatters over the warp's keys");
     extern __shared__ __align__(16) float sm[];
-    float* sr = sm;                          // [BC][DH]
-    float* sk = sr + BC * DH;
-    float* sw = sk + BC * DH;
-    float* sv = sw + BC * DH;                // [BC][JT]
-    float* sd = sv + BC * JT;
-    float* srku = sd + BC * JT;              // [BC]
-    float* svd = srku + BC;                  // [BC]
-    float* sdv = svd + BC;                   // [BC][WARPS][JT]
+    float* sr = sm;                          // [BC][KT]
+    float* sk = sr + BC * KT;
+    float* sw = sk + BC * KT;
+    float* sv = sw + BC * KT;                // [BC][DH]
+    float* sd = sv + BC * DH;
+    float* svd = sd + BC * DH;               // [BC]
+    float* sruk = svd + BC;                  // [BC]
+    float* sdv = sruk + BC;                  // [SUB][NW][DH]
+    float* sdr = sdv + SUB * NW * DH;        // [BC][KT]
+    float* sdk = sdr + BC * KT;
+    float* sdw = sdk + BC * KT;
 
     const T* r = static_cast<const T*>(a.r);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
     const int S = a.S, H = a.H, chunks = a.chunks;
-    const int tile = blockIdx.x % TILES;
-    const long long bh = blockIdx.x / TILES;
+    const int ktile = blockIdx.x % C::KTILES;
+    const long long item = blockIdx.x / C::KTILES;   // (b, h, chunk)
+    const int ch = (int)(item % chunks);
+    const long long bh = item / chunks;
     const int b = (int)(bh / H), h = (int)(bh % H);
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int i = warp * C::KPW + lane / L;  // this thread's key
-    const int jl = (lane % L) * E;           // its first column in the tile
-    const int j0 = tile * JT + jl;           // ... and in the head
-    const bool key_lead = lane % L == 0;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int kl = warp * KPW + lane / L;    // this thread's key in the tile
+    const int i = ktile * KT + kl;           // ... in the head
+    const int jl = (lane % L) * E;           // its first column
+    const int t0 = ch * BC;
     const size_t row = (size_t)H * DH;       // stride of t
     const size_t base = ((size_t)b * S * H + h) * DH;   // (b, 0, h, 0)
     const size_t nel = (size_t)a.B * S * H * DH;
-    float* ckpt = a.scratch + (size_t)bh * chunks * DH * DH;
-    float* pdr = a.scratch + (size_t)a.B * H * chunks * DH * DH;
-    float* pdk = pdr + TILES * nel;
-    float* pdw = pdk + TILES * nel;
-    float* pdu = pdw + TILES * nel;          // [B·H][TILES][DH]
 
-    // One chunk of inputs into shared memory (steps past S: w = 1 and r =
-    // k = v = dout = 0, which leave S and G as they are), then each step's
-    // r . (u k) over all keys and v . dout over the tile, in lane order.
-    auto stage = [&](int t0) {
-        for (int e = tid; e < BC * DH; e += TH) {
-            const int t = t0 + e / DH;
-            const size_t off = base + (size_t)t * row + e % DH;
-            const bool ok = t < S;
-            sr[e] = ok ? to_f(r[off]) : 0.f;
-            sk[e] = ok ? to_f(k[off]) : 0.f;
-            sw[e] = ok ? a.w[off] : 1.f;
-        }
-        for (int e = tid; e < BC * JT; e += TH) {
-            const int t = t0 + e / JT;
-            const size_t off = base + (size_t)t * row + tile * JT + e % JT;
-            const bool ok = t < S;
-            sv[e] = ok ? to_f(v[off]) : 0.f;
-            sd[e] = ok ? a.dout[off] : 0.f;
-        }
-        __syncthreads();
-        for (int uu = warp; uu < BC; uu += WARPS) {
-            float p = 0.f, q = 0.f;
-            for (int ii = lane; ii < DH; ii += 32)
-                p += sr[uu * DH + ii] * a.u[h * DH + ii] * sk[uu * DH + ii];
-            for (int jj = lane; jj < JT; jj += 32)
-                q += sv[uu * JT + jj] * sd[uu * JT + jj];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) {
-                p += __shfl_xor_sync(0xffffffffu, p, o);
-                q += __shfl_xor_sync(0xffffffffu, q, o);
-            }
-            if (lane == 0) {
-                srku[uu] = p;
-                svd[uu] = q;
-            }
-        }
-        __syncthreads();
-    };
-
-    // ---- forward sweep: the state before each chunk, saved
-    float st[E];
-    if (a.s0) {
-        const float4 s4 = *reinterpret_cast<const float4*>(
-            a.s0 + ((size_t)bh * DH + i) * DH + j0);
-        st[0] = s4.x; st[1] = s4.y; st[2] = s4.z; st[3] = s4.w;
-    } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) st[e] = 0.f;
+    // the chunk's inputs; steps past S: w = 1 and r = k = v = dout = 0
+    for (int e = tid; e < BC * KT; e += TH) {
+        const int t = t0 + e / KT;
+        const bool ok = t < S;
+        const size_t off = base + (size_t)t * row + ktile * KT + e % KT;
+        sr[e] = ok ? to_float(r[off]) : 0.f;
+        sk[e] = ok ? to_float(k[off]) : 0.f;
+        sw[e] = ok ? a.w[off] : 1.f;
     }
-    for (int c = 0; c < chunks; ++c) {
-        stage(c * BC);
-        *reinterpret_cast<float4*>(ckpt + ((size_t)c * DH + i) * DH + j0) =
-            make_float4(st[0], st[1], st[2], st[3]);
-#pragma unroll
-        for (int uu = 0; uu < BC; ++uu) {
-            const float wi = sw[uu * DH + i], ki = sk[uu * DH + i];
-#pragma unroll
-            for (int e = 0; e < E; ++e)
-                st[e] = wi * st[e] + ki * sv[uu * JT + jl + e];
-        }
-        __syncthreads();                     // before the next stage
+    for (int e = tid; e < BC * DH; e += TH) {
+        const int t = t0 + e / DH;
+        const bool ok = t < S;
+        const size_t off = base + (size_t)t * row + e % DH;
+        sv[e] = ok ? to_float(v[off]) : 0.f;
+        sd[e] = ok ? a.dout[off] : 0.f;
     }
+    __syncthreads();
+    for (int uu = warp; uu < BC; uu += NW) {
+        float p = 0.f, q = 0.f;
+        for (int ii = lane; ii < KT; ii += 32)
+            p += sr[uu * KT + ii] * a.u[h * DH + ktile * KT + ii] *
+                 sk[uu * KT + ii];
+        for (int jj = lane; jj < DH; jj += 32)
+            q += sv[uu * DH + jj] * sd[uu * DH + jj];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            p += __shfl_xor_sync(0xffffffffu, p, o);
+            q += __shfl_xor_sync(0xffffffffu, q, o);
+        }
+        if (lane == 0) {
+            sruk[uu] = p;
+            svd[uu] = q;
+        }
+    }
+    __syncthreads();
 
-    // ---- reverse sweep
+    const size_t mat = ((size_t)bh * chunks + ch) * DH * DH + (size_t)i * DH
+                       + jl;
     float G[E];
-    if (a.ds_fin) {
-        const float4 g4 = *reinterpret_cast<const float4*>(
-            a.ds_fin + ((size_t)bh * DH + i) * DH + j0);
-        G[0] = g4.x; G[1] = g4.y; G[2] = g4.z; G[3] = g4.w;
-    } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) G[e] = 0.f;
+    {
+        const float4 g0 = *reinterpret_cast<const float4*>(a.gmat + mat);
+        const float4 g1 = *reinterpret_cast<const float4*>(a.gmat + mat + 4);
+        G[0] = g0.x; G[1] = g0.y; G[2] = g0.z; G[3] = g0.w;
+        G[4] = g1.x; G[5] = g1.y; G[6] = g1.z; G[7] = g1.w;
     }
-    const float ui = a.u[h * DH + i];
-    float du_acc = 0.f;
-    T* dv = static_cast<T*>(a.dv);
-    for (int c = chunks - 1; c >= 0; --c) {
-        const int t0 = c * BC;
-        stage(t0);
-        const float4 s4 = *reinterpret_cast<const float4*>(
-            ckpt + ((size_t)c * DH + i) * DH + j0);
-        st[0] = s4.x; st[1] = s4.y; st[2] = s4.z; st[3] = s4.w;
-        float hs[BC][E];                     // S_{t-1} of the chunk's steps
+    bool red_writer;
+    const int red_idx = scatter_index<4, 1, L>(lane, red_writer);
+    bool dv_writer;
+    const int dv_idx = scatter_index<E, L, 32>(lane, dv_writer);
+
 #pragma unroll
-        for (int uu = 0; uu < BC; ++uu) {
-            const float wi = sw[uu * DH + i], ki = sk[uu * DH + i];
+    for (int q = NSUB - 1; q >= 0; --q) {
+        float s[E];
+        {
+            const float4 s0 = *reinterpret_cast<const float4*>(a.smat + mat);
+            const float4 s1 =
+                *reinterpret_cast<const float4*>(a.smat + mat + 4);
+            s[0] = s0.x; s[1] = s0.y; s[2] = s0.z; s[3] = s0.w;
+            s[4] = s1.x; s[5] = s1.y; s[6] = s1.z; s[7] = s1.w;
+        }
+        float hs[SUB][E];                    // S_{t-1} of the walk's steps
+#pragma unroll
+        for (int uu = 0; uu < (q + 1) * SUB; ++uu) {
+            const float wi = sw[uu * KT + kl], ki = sk[uu * KT + kl];
+            const float4 v0 = *reinterpret_cast<const float4*>(
+                sv + uu * DH + jl);
+            const float4 v1 = *reinterpret_cast<const float4*>(
+                sv + uu * DH + jl + 4);
+            const float vj[E] = {v0.x, v0.y, v0.z, v0.w,
+                                 v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
             for (int e = 0; e < E; ++e) {
-                hs[uu][e] = st[e];
-                st[e] = wi * st[e] + ki * sv[uu * JT + jl + e];
+                if (uu >= q * SUB) hs[uu - q * SUB][e] = s[e];
+                if (uu + 1 < (q + 1) * SUB) s[e] = fmaf(wi, s[e], ki * vj[e]);
             }
         }
 #pragma unroll
-        for (int uu = BC - 1; uu >= 0; --uu) {
-            const int t = t0 + uu;
-            const float ri = sr[uu * DH + i], ki = sk[uu * DH + i],
-                        wi = sw[uu * DH + i];
-            float vj[E], dj[E], dvp[E];
-            float pr = 0.f, pk = 0.f, pw = 0.f;
+        for (int uu = SUB - 1; uu >= 0; --uu) {
+            const int t = q * SUB + uu;      // step in the chunk
+            const float ri = sr[t * KT + kl], ki = sk[t * KT + kl],
+                        wi = sw[t * KT + kl];
+            const float4 v0 = *reinterpret_cast<const float4*>(
+                sv + t * DH + jl);
+            const float4 v1 = *reinterpret_cast<const float4*>(
+                sv + t * DH + jl + 4);
+            const float4 d0 = *reinterpret_cast<const float4*>(
+                sd + t * DH + jl);
+            const float4 d1 = *reinterpret_cast<const float4*>(
+                sd + t * DH + jl + 4);
+            const float vj[E] = {v0.x, v0.y, v0.z, v0.w,
+                                 v1.x, v1.y, v1.z, v1.w};
+            const float dj[E] = {d0.x, d0.y, d0.z, d0.w,
+                                 d1.x, d1.y, d1.z, d1.w};
+            float red[4] = {0.f, 0.f, 0.f, 0.f}; // dr, dk, dw; 0
+            float dvp[E];
 #pragma unroll
             for (int e = 0; e < E; ++e) {
-                vj[e] = sv[uu * JT + jl + e];
-                dj[e] = sd[uu * JT + jl + e];
-                pr += dj[e] * hs[uu][e];
-                pk += G[e] * vj[e];
-                pw += G[e] * hs[uu][e];
+                red[0] = fmaf(dj[e], hs[uu][e], red[0]);
+                red[1] = fmaf(G[e], vj[e], red[1]);
+                red[2] = fmaf(G[e], hs[uu][e], red[2]);
                 dvp[e] = G[e] * ki;
+                G[e] = fmaf(wi, G[e], ri * dj[e]);
             }
-#pragma unroll
-            for (int o = 1; o < L; o <<= 1) {         // the key's columns
-                pr += __shfl_xor_sync(0xffffffffu, pr, o);
-                pk += __shfl_xor_sync(0xffffffffu, pk, o);
-                pw += __shfl_xor_sync(0xffffffffu, pw, o);
+            reduce_scatter<4, 1, L>(red, lane);          // the key's lanes
+            reduce_scatter<E, L, 32>(dvp, lane);         // the warp's keys
+            if (red_writer && red_idx < 3) {
+                float* o = red_idx == 0 ? sdr : red_idx == 1 ? sdk : sdw;
+                o[t * KT + kl] = red[0];
             }
+            if (dv_writer) {
 #pragma unroll
-            for (int o = L; o < 32; o <<= 1)          // the warp's keys
-#pragma unroll
-                for (int e = 0; e < E; ++e)
-                    dvp[e] += __shfl_xor_sync(0xffffffffu, dvp[e], o);
-            if (lane < L) {
-#pragma unroll
-                for (int e = 0; e < E; ++e)
-                    sdv[(uu * WARPS + warp) * JT + jl + e] = dvp[e];
+                for (int x = 0; x < DV_R; ++x)
+                    sdv[(uu * NW + warp) * DH + jl + dv_idx + x] = dvp[x];
             }
-            if (key_lead && t < S) {
-                const float vd = svd[uu];
-                const size_t off = (size_t)tile * nel + base +
-                                   (size_t)t * row + i;
-                pdr[off] = pr + ui * ki * vd;
-                pdk[off] = pk + ri * ui * vd;
-                pdw[off] = pw;
-                du_acc += ri * ki * vd;
-            }
-#pragma unroll
-            for (int e = 0; e < E; ++e) G[e] = wi * G[e] + ri * dj[e];
         }
         __syncthreads();
-        for (int e = tid; e < BC * JT; e += TH) {     // dv: warps in order
-            const int uu = e / JT, jj = e % JT, t = t0 + uu;
-            if (t < S) {
-                float s = sd[e] * srku[uu];
-                for (int ww = 0; ww < WARPS; ++ww)
-                    s += sdv[(uu * WARPS + ww) * JT + jj];
-                put(dv + base + (size_t)t * row + tile * JT + jj, s);
+        // dv of the walk's steps: the warps' sums in warp order, then the
+        // diagonal term of the block's keys
+        for (int e = tid; e < SUB * DH; e += TH) {
+            const int uu = e / DH, j = e % DH, t = q * SUB + uu;
+            if (t0 + t < S) {
+                float acc = sd[t * DH + j] * sruk[t];
+                for (int ww = 0; ww < NW; ++ww)
+                    acc += sdv[(uu * NW + ww) * DH + j];
+                const size_t off = base + (size_t)(t0 + t) * row + j;
+                if constexpr (C::KTILES == 1)
+                    put(static_cast<T*>(a.dv) + off, acc);
+                else
+                    a.pdv[(size_t)ktile * nel + off] = acc;
             }
         }
-        __syncthreads();                     // before the next stage
+        __syncthreads();                     // sdv is free again
     }
-    if (a.ds0)
-        *reinterpret_cast<float4*>(a.ds0 + ((size_t)bh * DH + i) * DH + j0) =
-            make_float4(G[0], G[1], G[2], G[3]);
-    if (key_lead) pdu[((size_t)bh * TILES + tile) * DH + i] = du_acc;
+
+    // dr, dk, dw of the chunk's steps, with their diagonal terms, and the
+    // keys' du partial
+    for (int e = tid; e < BC * KT; e += TH) {
+        const int t = e / KT, kk = e % KT;
+        if (t0 + t < S) {
+            const float ui = a.u[h * DH + ktile * KT + kk], vd = svd[t];
+            const size_t off = base + (size_t)(t0 + t) * row + ktile * KT +
+                               kk;
+            put(static_cast<T*>(a.dr) + off, sdr[e] + ui * sk[e] * vd);
+            put(static_cast<T*>(a.dk) + off, sdk[e] + sr[e] * ui * vd);
+            a.dw[off] = sdw[e];
+        }
+    }
+    for (int kk = tid; kk < KT; kk += TH) {
+        float acc = 0.f;
+        for (int t = 0; t < BC; ++t)
+            acc += sr[t * KT + kk] * sk[t * KT + kk] * svd[t];
+        a.pdu[((size_t)bh * chunks + ch) * DH + ktile * KT + kk] = acc;
+    }
 }
 
-// dr, dk (cast to T) and dw: the tiles' partial sums added in tile order;
-// du: the (b, tile) partials added in b-major order.
-template <typename T, int TILES>
-__global__ void wkv_bwd_finish(const float* __restrict__ part, T* dr, T* dk,
-                               float* dw, const float* __restrict__ pdu,
-                               float* du, size_t nel, int B, int H, int DH) {
+// du: the (b, chunk) partials added b-major, chunks in order; with more
+// than one key tile, dv: the tiles' partials in tile order, cast to T.
+template <typename T, int KTILES>
+__global__ void wkv_bwd_finish(const BwdArgs a, int DH) {
+    const size_t nel = (size_t)a.B * a.S * a.H * DH;
+    const size_t hd = (size_t)a.H * DH;
+    const size_t total = KTILES > 1 && nel > hd ? nel : hd;
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-         idx < nel; idx += stride) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int tl = 0; tl < TILES; ++tl) {
-            s0 += part[tl * nel + idx];
-            s1 += part[(TILES + tl) * nel + idx];
-            s2 += part[(2 * TILES + tl) * nel + idx];
-        }
-        put(dr + idx, s0);
-        put(dk + idx, s1);
-        dw[idx] = s2;
-        if (idx < (size_t)H * DH) {
+         idx < total; idx += stride) {
+        if (idx < hd) {
             const int h = (int)(idx / DH), i = (int)(idx % DH);
             float s = 0.f;
-            for (int b = 0; b < B; ++b)
-                for (int tl = 0; tl < TILES; ++tl)
-                    s += pdu[(((size_t)b * H + h) * TILES + tl) * DH + i];
-            du[idx] = s;
+            for (int b = 0; b < a.B; ++b) {
+                const float* p = a.pdu + ((size_t)(b * a.H + h) * a.chunks) *
+                                 DH + i;
+#pragma unroll 8
+                for (int c = 0; c < a.chunks; ++c) s += p[(size_t)c * DH];
+            }
+            a.du[idx] = s;
+        }
+        if constexpr (KTILES > 1) {
+            if (idx < nel) {
+                float s = 0.f;
+#pragma unroll
+                for (int tl = 0; tl < KTILES; ++tl) s += a.pdv[tl * nel + idx];
+                put(static_cast<T*>(a.dv) + idx, s);
+            }
         }
     }
 }
@@ -321,35 +605,63 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned& ready) {
     return err;
 }
 
+struct Plan {
+    long long state_blocks;
+    int state_threads;
+    long long state_smem, blocks;
+    int threads;
+    long long smem, scratch;
+};
+
 template <typename T, int DH>
-cudaError_t launch_bwd(const BwdArgs& a, long long blocks, int threads,
-                       long long smem, cudaStream_t st) {
-    using C = BwdCfg<DH>;
-    if (blocks != (long long)a.B * a.H * C::TILES || threads != C::THREADS ||
-        smem != (long long)sizeof(float) * C::SMEM)
+cudaError_t launch_bwd(BwdArgs a, const Plan& p, float* scratch,
+                       cudaStream_t st) {
+    using SC = StatesCfg<DH>;
+    using SL = StatesSmem<DH, T>;
+    using C = ChunkCfg<DH>;
+    const long long bh = (long long)a.B * a.H;
+    const size_t mats = (size_t)bh * a.chunks * DH * DH;
+    const size_t nel = (size_t)a.B * a.S * a.H * DH;
+    const long long want = 2LL * (long long)mats +
+                           bh * a.chunks * DH +
+                           (C::KTILES > 1 ? (long long)C::KTILES * nel : 0);
+    if (p.state_blocks != 2 * bh * SC::CT ||
+        p.state_threads != SC::THREADS ||
+        p.state_smem != (long long)SL::BYTES ||
+        p.blocks != bh * a.chunks * C::KTILES || p.threads != C::THREADS ||
+        p.smem != (long long)sizeof(float) * C::SMEM || p.scratch != want)
         return cudaErrorInvalidValue;
-    static unsigned ready = 0;
-    cudaError_t err = allow_smem(wkv_bwd<T, DH>, (size_t)smem, ready);
+    a.smat = scratch;
+    a.gmat = scratch + mats;
+    a.pdu = scratch + 2 * mats;
+    a.pdv = C::KTILES > 1 ? a.pdu + (size_t)bh * a.chunks * DH : nullptr;
+    static unsigned ready_s = 0, ready_c = 0;
+    cudaError_t err = allow_smem(wkv_bwd_states<T, DH>, SL::BYTES, ready_s);
     if (err != cudaSuccess) return err;
-    wkv_bwd<T, DH><<<dim3((unsigned)blocks), dim3(threads), (size_t)smem,
-                     st>>>(a);
+    err = allow_smem(wkv_bwd_chunk<T, DH>, (size_t)p.smem, ready_c);
+    if (err != cudaSuccess) return err;
+    wkv_bwd_states<T, DH><<<dim3((unsigned)p.state_blocks),
+                            dim3(SC::THREADS), SL::BYTES, st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const size_t nel = (size_t)a.B * a.S * a.H * DH;
-    const size_t want = (nel + 255) / 256;
-    const unsigned grid = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-    float* part = a.scratch + (size_t)a.B * a.H * a.chunks * DH * DH;
-    wkv_bwd_finish<T, C::TILES><<<grid, 256, 0, st>>>(
-        part, static_cast<T*>(a.dr), static_cast<T*>(a.dk), a.dw,
-        part + 3 * C::TILES * nel, a.du, nel, a.B, a.H, DH);
+    wkv_bwd_chunk<T, DH><<<dim3((unsigned)p.blocks), dim3(C::THREADS),
+                           (size_t)p.smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t hd = (size_t)a.H * DH;
+    const size_t total = C::KTILES > 1 && nel > hd ? nel : hd;
+    const size_t want_blocks = (total + 255) / 256;
+    wkv_bwd_finish<T, C::KTILES><<<(unsigned)(want_blocks < 132 * 16
+                                                  ? want_blocks : 132 * 16),
+                                   256, 0, st>>>(a, DH);
     return cudaGetLastError();
 }
 
 template <int DH>
-cudaError_t launch_bwd_dh(const BwdArgs& a, bool bf16, long long blocks,
-                          int threads, long long smem, cudaStream_t st) {
-    return bf16 ? launch_bwd<__nv_bfloat16, DH>(a, blocks, threads, smem, st)
-                : launch_bwd<float, DH>(a, blocks, threads, smem, st);
+cudaError_t launch_bwd_dh(const BwdArgs& a, bool bf16, const Plan& p,
+                          float* scratch, cudaStream_t st) {
+    return bf16 ? launch_bwd<__nv_bfloat16, DH>(a, p, scratch, st)
+                : launch_bwd<float, DH>(a, p, scratch, st);
 }
 
 }  // namespace
@@ -358,29 +670,34 @@ extern "C" {
 
 // r, k, v, dr, dk, dv (B, S, H, dh) all bf16 (bf16 = 1) or all float32;
 // w, dout, dw (B, S, H, dh), u, du (H, dh), s0, ds_fin, ds0 (B, H, dh,
-// dh; each may be null) float32; scratch of ../kernel.py's `plan_bwd`
-// floats; all contiguous and 16-byte aligned; dh 32, 64 or 128. Launches
-// wkv_bwd with the blocks, threads and shared-memory bytes of `plan_bwd`
-// (refusing any other), then wkv_bwd_finish. Returns the cudaError_t (0
-// on success; cudaErrorInvalidValue for a plan not built).
+// dh; each may be null) float32; scratch of `scratch_floats` floats; all
+// contiguous and 16-byte aligned; dh 32, 64 or 128. Launches
+// wkv_bwd_states, wkv_bwd_chunk and wkv_bwd_finish with the blocks,
+// threads, shared-memory bytes and scratch size of ../kernel.py's
+// `plan_bwd` (refusing any other). Returns the cudaError_t (0 on
+// success; cudaErrorInvalidValue for a plan not built).
 int wkv_bwd_launch(const void* r, const void* k, const void* v,
                    const float* w, const float* u, const float* s0,
                    const float* dout, const float* ds_fin, void* dr, void* dk,
                    void* dv, float* dw, float* du, float* ds0, float* scratch,
-                   int B, int S, int H, int dh, int bf16, long long blocks,
-                   int threads, long long smem, void* stream) {
-    if (B < 1 || S < 1 || H < 1 || blocks < 1 || blocks > 0x7fffffffLL)
+                   int B, int S, int H, int dh, int bf16,
+                   long long state_blocks, int state_threads,
+                   long long state_smem, long long blocks, int threads,
+                   long long smem, long long scratch_floats, void* stream) {
+    if (B < 1 || S < 1 || H < 1 || blocks < 1 || blocks > 0x7fffffffLL ||
+        state_blocks > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     const BwdArgs a{r, k, v, w, u, s0, dout, ds_fin, dr, dk, dv, dw, du, ds0,
-                    scratch, B, S, H, (S + BC - 1) / BC};
+                    nullptr, nullptr, nullptr, nullptr, B, S, H,
+                    (S + BC - 1) / BC};
+    const Plan p{state_blocks, state_threads, state_smem, blocks, threads,
+                 smem, scratch_floats};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dh) {
-        case 32: return (int)launch_bwd_dh<32>(a, bf16 != 0, blocks, threads,
-                                               smem, st);
-        case 64: return (int)launch_bwd_dh<64>(a, bf16 != 0, blocks, threads,
-                                               smem, st);
-        case 128: return (int)launch_bwd_dh<128>(a, bf16 != 0, blocks,
-                                                 threads, smem, st);
+        case 32: return (int)launch_bwd_dh<32>(a, bf16 != 0, p, scratch, st);
+        case 64: return (int)launch_bwd_dh<64>(a, bf16 != 0, p, scratch, st);
+        case 128: return (int)launch_bwd_dh<128>(a, bf16 != 0, p, scratch,
+                                                 st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -30,12 +30,13 @@ at import.
 forward's inputs, the output's gradient dout (B, S, H, dh) float32 and
 optionally the final state's ds_fin, it returns (dr, dk, dv in r's
 dtype, dw (B, S, H, dh) float32, du (H, dh) float32, ds0 or None when s0
-is None). A forward sweep saves the state before each chunk of
-`BWD_CHUNK` steps in a scratch buffer, and a reverse sweep recomputes
-each chunk's states from it; a block owns `BWD_COLS[dh]` value columns
-of a (b, h), and the tiles' partial sums of dr, dk and dw are added in
-one order by a second kernel of the same launch call. `plan_bwd` decides
-it, `LAUNCHES["wkv_bwd"]` counts it and `launch_bwd` is its bare call.
+is None). One launch call runs three kernels: the states pass (the state
+before each chunk of `BWD_CHUNK` steps and the gradient after it, each a
+serial walk over chunks in the chunked TF32 form of `wkv_prefill`, into
+a scratch buffer), the chunk pass (a block per (b, h, chunk) and tile of
+keys, all columns, parallel over chunks) and a finish that adds du over
+(b, chunk) in one order. `plan_bwd` decides it, `LAUNCHES["wkv_bwd"]`
+counts it and `launch_bwd` is its bare call.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def _declare(handle: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     handle.wkv_launch.argtypes = [vp] * 8 + [i] * 5 + [ll, i, ll, vp]
     handle.wkv_launch.restype = i
-    handle.wkv_bwd_launch.argtypes = [vp] * 15 + [i] * 5 + [ll, i, ll, vp]
+    handle.wkv_bwd_launch.argtypes = [vp] * 15 + [i] * 5 + [ll, i, ll,
+                                                            ll, i, ll, ll, vp]
     handle.wkv_bwd_launch.restype = i
 
 
@@ -111,37 +113,57 @@ def plan(B: int, S: int, H: int, dh: int,
                 RAW_STAGES * stage + 2 * prepared + levels)
 
 
-# The backward's tiling (`csrc/wkv_bwd.cu`'s BC and BwdCfg).
-BWD_CHUNK = 16                # steps between the states the forward saves
-BWD_COLS = {32: 32, 64: 32, 128: 16}   # value columns a block, by dh
+# The backward's tiling (`csrc/wkv_bwd.cu`'s BC, SUB, StatesCfg and
+# ChunkCfg).
+BWD_CHUNK = 16                # steps between the saved chunk matrices
+BWD_WALK = 8                  # steps a thread's register walk holds
+BWD_COLS_PER_THREAD = 8       # chunk pass: one key and 8 columns a thread
+BWD_STATE_COLS = 32           # states pass: value columns a block
+BWD_THREADS = {32: 128, 64: 256, 128: 512}   # chunk pass: threads a block
 
 
 class BwdPlan(NamedTuple):
-    """One launch of `wkv_bwd_launch`."""
-    cols: int                 # value columns a block
-    tiles: int                # blocks a (b, h): dh / cols
-    blocks: int
-    threads: int              # a key and 4 columns a thread
+    """One call of `wkv_bwd_launch`: its three kernels."""
+    state_cols: int           # states pass: value columns a block
+    state_blocks: int         # both directions, column tiles fastest
+    state_threads: int        # a warp per 16 columns
+    state_smem: int
+    key_tiles: int            # chunk pass: blocks a (b, h, chunk)
+    blocks: int               # chunk pass
+    threads: int
     smem_bytes: int
-    chunks: int               # saved states a (b, h)
-    scratch_floats: int       # saved states, tile partials, du partials
+    chunks: int               # chunk matrices a (b, h)
+    scratch_floats: int       # S_c and G_c, du's and dv's partials
 
 
 @functools.lru_cache(maxsize=256)
-def plan_bwd(B: int, S: int, H: int, dh: int) -> BwdPlan:
-    """The backward's tiling at (B, S, H, dh); the library launches
-    exactly this or refuses it."""
+def plan_bwd(B: int, S: int, H: int, dh: int,
+             dtype: torch.dtype = torch.bfloat16) -> BwdPlan:
+    """The backward's tiling at (B, S, H, dh) for r, k, v of `dtype`;
+    the library launches exactly this or refuses it."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"head size {dh} not built; the kernel takes "
                          f"{HEAD_DIMS}")
-    cols = BWD_COLS[dh]
-    tiles, threads = dh // cols, dh * cols // 4
-    chunks = -(-S // BWD_CHUNK)
-    smem = 4 * BWD_CHUNK * (3 * dh + 2 * cols + 2 + threads // 32 * cols)
-    nel = B * S * H * dh
-    scratch = B * H * chunks * dh * dh + 3 * tiles * nel + B * H * tiles * dh
-    return BwdPlan(cols, tiles, B * H * tiles, threads, smem, chunks,
-                   scratch)
+    T, es = BWD_CHUNK, 2 if dtype == torch.bfloat16 else 4
+    # states pass: two stages of raw r or k, w, and v or dout (rows of
+    # cols + 8 at 4 bytes at most); the prepared chunk ({hi, lo} rows of
+    # 2 dh + 8 floats) and its decay
+    cols = min(dh, BWD_STATE_COLS)
+    stage = T * dh * es + T * dh * 4 + T * (cols + 8) * 4
+    state_smem = 2 * stage + T * (2 * dh + 8) * 4 + dh * 4
+    # chunk pass: a key and 8 columns a thread, a tile of keys a block
+    lanes = dh // BWD_COLS_PER_THREAD
+    threads = BWD_THREADS[dh]
+    key_tiles = dh // (threads // lanes)
+    keys = dh // key_tiles
+    smem = 4 * (6 * T * keys + 2 * T * dh + 2 * T
+                + BWD_WALK * threads // 32 * dh)
+    chunks = -(-S // T)
+    scratch = (2 * B * H * chunks * dh * dh + B * H * chunks * dh
+               + (key_tiles * B * S * H * dh if key_tiles > 1 else 0))
+    return BwdPlan(cols, 2 * B * H * (dh // cols), 32 * (cols // 16),
+                   state_smem, key_tiles, B * H * chunks * key_tiles,
+                   threads, smem, chunks, scratch)
 
 
 LAUNCHES: dict[str, int] = {"wkv": 0, "wkv_bwd": 0}
@@ -228,8 +250,8 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_bwd(r, s0, dout, ds_fin) -> None:
     B, S, H, dh = r.shape
-    if plan_bwd(B, S, H, dh).blocks > _MAX_INT:
-        raise ValueError(f"B·H = {B * H} exceeds the backward's grid")
+    if plan_bwd(B, S, H, dh, r.dtype).blocks > _MAX_INT:
+        raise ValueError(f"B·S·H = {B * S * H} exceeds the backward's grid")
     for name, x, shape in (("dout", dout, r.shape),
                            ("ds_fin", ds_fin, (B, H, dh, dh))):
         if x is None:
@@ -257,7 +279,7 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty((H, dh), dtype=torch.float32, device=r.device)
     ds0 = None if s0 is None else torch.empty_like(s0)
-    scratch = torch.empty(plan_bwd(B, S, H, dh).scratch_floats,
+    scratch = torch.empty(plan_bwd(B, S, H, dh, r.dtype).scratch_floats,
                           dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         launch_bwd(r, k, v, w, u, s0, dout, ds_fin, dr, dk, dv, dw, du, ds0,
@@ -277,13 +299,14 @@ def launch_bwd(r, k, v, w, u, s0, dout, ds_fin, dr, dk, dv, dw, du, ds0,
     itself fails."""
     lib = LIBRARY.lib()
     B, S, H, dh = r.shape
-    p = plan_bwd(B, S, H, dh)
+    p = plan_bwd(B, S, H, dh, r.dtype)
     rc = lib.wkv_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         _ptr(s0), dout.data_ptr(), _ptr(ds_fin), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
         _ptr(ds0), scratch.data_ptr(), B, S, H, dh,
-        int(r.dtype == torch.bfloat16), p.blocks, p.threads, p.smem_bytes,
+        int(r.dtype == torch.bfloat16), p.state_blocks, p.state_threads,
+        p.state_smem, p.blocks, p.threads, p.smem_bytes, scratch.numel(),
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"wkv_bwd: CUDA kernel launch failed with "

@@ -28,19 +28,22 @@ PROJ_HEAD = 5                 # the projection's columns before B_ (dt's)
 def bwd_cases() -> list[tuple]:
     """S = 1 and 37 (not a multiple of the chunk of `BWD_CHUNK`) × N 4
     and 16 × bf16/float32 × (h0, dh_fin, D) all given or none; then N =
-    8, the chunk's edges (T, T + 1) and exp's denormal range; then
-    Jamba's 8192 channels."""
+    8 at S 16 and 17 (2T, 2T + 1 for the chunk T) and exp's denormal
+    range; then Jamba's 8192 channels; then N = 8 at the chunk's own
+    edges (T, T + 1)."""
     T = BWD_CHUNK
     cases = [(f"S{S}_N{N}_{dt}_{'full' if full else 'bare'}",
               (2, S, 96, N), dt, full, full, False)
              for S in (1, 37) for N in (4, 16)
              for dt in ("float32", "bfloat16") for full in (True, False)]
     cases += [(f"N8_S{S}_{dt}", (2, S, 40, 8), dt, True, True, False)
-              for S in (T, T + 1) for dt in ("float32", "bfloat16")]
+              for S in (2 * T, 2 * T + 1) for dt in ("float32", "bfloat16")]
     cases += [(f"underflow_{dt}", (2, 40, 24, 16), dt, True, True, True)
               for dt in ("float32", "bfloat16")]
     cases.append(("jamba_width", (2, 20, 8192, 16), "bfloat16", False, True,
                   False))
+    cases += [(f"N8_S{S}_{dt}", (2, S, 40, 8), dt, True, True, False)
+              for S in (T, T + 1) for dt in ("float32", "bfloat16")]
     return cases
 
 

@@ -103,6 +103,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_states.cuh"
+
 #ifndef SCAN_FUSED_NPT
 #define SCAN_FUSED_NPT 16        // states a thread holds (at most)
 #endif
@@ -248,8 +250,8 @@ scan_fused(const float* __restrict__ dt, const float* __restrict__ A,
            const T* __restrict__ Bm, const T* __restrict__ Cm,
            const T* __restrict__ x, const float* __restrict__ Dv,
            const float* __restrict__ h0, float* __restrict__ y,
-           float* __restrict__ h_fin, int S, int D, int N, long long ldb,
-           long long ldc, int blocks_per_b) {
+           float* __restrict__ h_fin, float* __restrict__ states, int S,
+           int D, int N, long long ldb, long long ldc, int blocks_per_b) {
     using L = FusedSmem<NP, NPT>;
     constexpr int G = L::G, DPB = L::DPB, SH = L::SH;
     constexpr int PF = FU * DPB / FT;        // dt (and x) loads a chunk
@@ -257,6 +259,7 @@ scan_fused(const float* __restrict__ dt, const float* __restrict__ A,
     constexpr int PB = (BC + FT - 1) / FT;   // of which a thread loads PB
     static_assert(FT % DPB == 0 && (FU * DPB) % FT == 0, "tiling");
     static_assert(DPB * NP == FT * NPT, "a slice is NPT values a thread");
+    static_assert(FU % SCAN_STATE_STEPS == 0, "states at chunk steps");
 
     extern __shared__ __align__(16) float smem[];
     struct Buf {
@@ -346,12 +349,29 @@ scan_fused(const float* __restrict__ dt, const float* __restrict__ A,
     __syncthreads();                         // buffer 1 is free for chunk 1
 
     const int chunks = (S + FU - 1) / FU;
+    const int n_states = (S + SCAN_STATE_STEPS - 1) / SCAN_STATE_STEPS;
     for (int c = 0; c < chunks; ++c) {
         const int t0 = c * FU, buf = c & 1;
         if (c + 1 < chunks) fetch(t0 + FU);
         const int steps = min(FU, S - t0);
 #pragma unroll 4
         for (int u = 0; u < steps; ++u) {
+            if (states && u % SCAN_STATE_STEPS == 0) {
+                // the state for the backward: the warp's (d, n) rows
+                // through its rows of sH (free in the loop), then out as
+                // consecutive floats
+#pragma unroll
+                for (int k = 0; k < NPT; ++k) sH[dl * SH + n0 + k] = h[k];
+                __syncwarp();
+                const int wd0 = (threadIdx.x >> 5) * (32 / G);
+                const int count = min(32 / G, dcount - wd0) * N;
+                float* st = states + (((size_t)bi * n_states +
+                                       (t0 + u) / SCAN_STATE_STEPS) * D + d0
+                                      + wd0) * N;
+                for (int f = threadIdx.x & 31; f < count; f += 32)
+                    st[f] = sH[(wd0 + f / N) * SH + f % N];
+                __syncwarp();
+            }
             const float dtv = sb[buf].dx[0][u][dl], xv = sb[buf].dx[1][u][dl];
             float bv[NPT], cv[NPT], q[NPT];
             lds<NPT>(&sb[buf].bc[0][u][n0], bv);
@@ -409,9 +429,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned& ready) {
 template <typename T, int NP>
 cudaError_t launch_fused_np(const float* dt, const float* A, const void* Bm,
                             const void* Cm, const void* x, const float* Dv,
-                            const float* h0, float* y, float* h_fin, int B,
-                            int S, int D, int N, long long ldb, long long ldc,
-                            cudaStream_t st) {
+                            const float* h0, float* y, float* h_fin,
+                            float* states, int B, int S, int D, int N,
+                            long long ldb, long long ldc, cudaStream_t st) {
     constexpr int NPT = NP < SCAN_FUSED_NPT ? NP : SCAN_FUSED_NPT;
     using L = FusedSmem<NP, NPT>;
     constexpr size_t bytes = sizeof(float) * L::FLOATS;
@@ -424,21 +444,22 @@ cudaError_t launch_fused_np(const float* dt, const float* A, const void* Bm,
     const int blocks_per_b = (D + L::DPB - 1) / L::DPB;
     scan_fused<T, NP, NPT><<<dim3(B * blocks_per_b), dim3(FT), bytes, st>>>(
         dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-        static_cast<const T*>(x), Dv, h0, y, h_fin, S, D, N, ldb, ldc,
-        blocks_per_b);
+        static_cast<const T*>(x), Dv, h0, y, h_fin, states, S, D, N, ldb,
+        ldc, blocks_per_b);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_fused_t(const float* dt, const float* A, const void* Bm,
                            const void* Cm, const void* x, const float* Dv,
-                           const float* h0, float* y, float* h_fin, int B,
-                           int S, int D, int N, long long ldb, long long ldc,
-                           int np, cudaStream_t st) {
+                           const float* h0, float* y, float* h_fin,
+                           float* states, int B, int S, int D, int N,
+                           long long ldb, long long ldc, int np,
+                           cudaStream_t st) {
 #define SCAN_FUSED_CASE(P)                                                  \
     case P:                                                                 \
-        return launch_fused_np<T, P>(dt, A, Bm, Cm, x, Dv, h0, y, h_fin, B, \
-                                     S, D, N, ldb, ldc, st);
+        return launch_fused_np<T, P>(dt, A, Bm, Cm, x, Dv, h0, y, h_fin,    \
+                                     states, B, S, D, N, ldb, ldc, st);
     switch (np) {
         SCAN_FUSED_CASE(1)
         SCAN_FUSED_CASE(2)
@@ -483,14 +504,17 @@ int selective_scan_launch(const float* a, const float* b, const float* c,
 // N at row strides ldb and ldc (elements; row b·S + t), x (B, S, D); x, B_
 // and C_ bfloat16 (bf16 = 1) or float32 (bf16 = 0); Dv (D,) or null, h0
 // (B, D, N) or null, y (B, S, D), h_fin (B, D, N) float32; dt, A, x, Dv,
-// h0, y and h_fin contiguous; 1 <= N <= 32. Returns the launch's
+// h0, y and h_fin contiguous; 1 <= N <= 32; states (B, ceil(S /
+// SCAN_STATE_STEPS), D, N) float32 contiguous or null: the state before
+// every SCAN_STATE_STEPS-th step, for the backward. Returns the launch's
 // cudaError_t (0 on success).
 int selective_scan_fused_launch(const float* dt, const float* A,
                                 const void* Bm, const void* Cm,
                                 const void* x, const float* Dv,
                                 const float* h0, float* y, float* h_fin,
-                                int B, int S, int D, int N, long long ldb,
-                                long long ldc, int bf16, void* stream) {
+                                float* states, int B, int S, int D, int N,
+                                long long ldb, long long ldc, int bf16,
+                                void* stream) {
     if (B < 1 || S < 1 || D < 1 || N < 1 || N > 32 || ldb < 0 || ldc < 0)
         return (int)cudaErrorInvalidValue;
     int np = 1;
@@ -501,11 +525,11 @@ int selective_scan_fused_launch(const float* dt, const float* A,
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return (int)(bf16 ? launch_fused_t<__nv_bfloat16>(dt, A, Bm, Cm, x, Dv, h0,
-                                                     y, h_fin, B, S, D, N,
-                                                     ldb, ldc, np, st)
+                                                     y, h_fin, states, B, S,
+                                                     D, N, ldb, ldc, np, st)
                       : launch_fused_t<float>(dt, A, Bm, Cm, x, Dv, h0, y,
-                                              h_fin, B, S, D, N, ldb, ldc,
-                                              np, st));
+                                              h_fin, states, B, S, D, N, ldb,
+                                              ldc, np, st));
 }
 
 }  // extern "C"

@@ -25,23 +25,28 @@
 // The trap: da_t needs h_{t-1} while G runs backwards. h_{t-1} is never
 // recovered by dividing by a (exp(dt·A) underflows to 0 for dt·A below
 // about -104), and not every state is stored (4.3 GB a layer at the
-// Jamba train shape). A forward sweep saves the state before each chunk
-// of BC = 16 steps in the scratch buffer; the reverse sweep reloads it,
-// recomputes the chunk's 16 states into registers with the forward's
-// roundings (so they equal the forward kernel's bit for bit), then walks
-// the chunk backwards with G in registers.
+// Jamba train shape). The forward kernel (scan_fused) writes the state
+// before each chunk of BC = SCAN_STATE_STEPS = 8 steps when asked
+// (`states`, (B, S / 8, D, N)); this kernel reloads it, recomputes the
+// chunk's 8 states and their a_t into registers with the forward's
+// roundings (so the states equal the forward kernel's bit for bit), then
+// walks the chunk backwards with G in registers: one exponential an
+// element, the recomputation's. Where no forward saved the states, the
+// wrapper runs scan_fused for them first, in the same launch call.
 //
-// Design: scan_fused's layout with fewer states a thread: a block of BT =
-// 256 threads takes one b and DPB columns d; a thread holds NPT = 4
-// states of one d (all of them when N <= 4), G = NP / NPT consecutive
-// lanes sharing a d. Each chunk of dt, x, dy (the block's columns) and of
-// the B_ and C_ rows goes to shared memory. d(dt) and dx sum over n in
-// the thread and over the d's lanes by shuffles. dB_ and dC_ sum over d,
-// across blocks: every U = 4 steps the block's per-(d, n) terms go
-// through shared memory and are added over its DPB columns in one order;
+// Design: a block of BT = 256 threads takes one b and DPB columns d; a
+// thread holds NPT = 4 states of one d (all of them when N <= 4), G = NP /
+// NPT consecutive lanes sharing a d. Each chunk of dt, x, dy (the block's
+// columns) and of the B_ and C_ rows goes to shared memory, the next
+// chunk's loads in flight in registers while this one is walked. d(dt)
+// and dx sum over n in the thread and over the d's lanes by a
+// reduce-scatter of shuffles (one lane ends with d(dt), the next with
+// dx's sum). dB_ and dC_ sum over d: within the warp by a reduce-scatter
+// of shuffles over its d's (each lane ends with one (n, B_ or C_) sum),
+// then over the warps once a chunk through shared memory in warp order;
 // each block writes its partial sums, and `scan_bwd_finish` adds the
-// blocks in block order (and dA and dD over b). No float atomics: two
-// calls agree bit for bit.
+// blocks in block order (and dA and dD over b). No block-wide barrier in
+// the step loop, and no float atomics: two calls agree bit for bit.
 //
 // Bound on an H100 SXM (700 W) at the Jamba train shape (2, 4096, 8192,
 // 16) bf16: dt, x, dy read and d(dt), dx written once per (b, t, d), B_,
@@ -50,42 +55,89 @@
 // (the state again, G, da, dA, d(dt)'s sum, the sum of G B_ that d(dt)
 // and dx share, dB_, dC_, the carry), and 8 per (b, t, d), against 67
 // TFLOP/s: 0.31 ms; one exponential per (b, t, d, n) on the
-// special-function units, 0.26 ms. This kernel takes the exponential three times (the
-// saving sweep, the chunk's recomputed states, the step's own a_t), and
-// its saved states (B, S/16, D, N) and the blocks' partials of dB_ and
-// dC_ are its own traffic.
+// special-function units, 0.26 ms. The saved states (B, S/8, D, N) and
+// the blocks' partials of dB_ and dC_ are its own traffic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_states.cuh"
+
 namespace {
 
 constexpr int BT = 256;                      // threads a block
-constexpr int BC = 16;                       // steps a chunk
-constexpr int U = 4;                         // steps a dB_/dC_ reduction
+constexpr int BC = SCAN_STATE_STEPS;         // steps a chunk
 
 template <int NP>
 struct ScanBwdCfg {
     static constexpr int NPT = NP < 4 ? NP : 4, G = NP / NPT, DPB = BT / G;
+    static constexpr int NW = BT / 32;
     // floats of shared memory: dt, x, dy [BC][DPB]; B_, C_ rows [BC][NP];
-    // the dB_/dC_ terms of U steps [U][DPB][2 NP]
-    static constexpr int SMEM = 3 * BC * DPB + 2 * BC * NP + U * DPB * 2 * NP;
+    // the warps' dB_/dC_ sums [BC][NW][2 NP]
+    static constexpr int SMEM = 3 * BC * DPB + 2 * BC * NP + BC * NW * 2 * NP;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
+template <typename T> __device__ __forceinline__ T zero_of();
+template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+    return __ushort_as_bfloat16((unsigned short)0);
+}
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
 }
 
+// Sums v[0..CUR) over the lanes that differ in the bits O, 2 O, ... below
+// END of the lane index, scattering: at each bit while CUR > 1 a lane
+// keeps the half of the values its bit names (the upper half when set)
+// and adds its partner's copy of it; once one value is left the rest of
+// the bits add it whole. The order of every sum is fixed.
+template <int CUR, int O, int END>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+    if constexpr (O < END) {
+        if constexpr (CUR > 1) {
+            const bool up = (lane & O) != 0;
+#pragma unroll
+            for (int i = 0; i < CUR / 2; ++i) {
+                const float keep = up ? v[i + CUR / 2] : v[i];
+                const float send = up ? v[i] : v[i + CUR / 2];
+                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+            }
+            reduce_scatter<CUR / 2, O * 2, END>(v, lane);
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+            reduce_scatter<1, O * 2, END>(v, lane);
+        }
+    }
+}
+
+// Which of the V values a lane holds after reduce_scatter<V, O, END>
+// (the first of the values left), and whether it is the lane that
+// writes them (its bits past the scattering ones are 0).
+template <int V, int O, int END>
+__device__ __forceinline__ int scatter_index(int lane, bool& writer) {
+    int idx = 0, cur = V;
+    writer = true;
+    for (int o = O; o < END; o <<= 1) {
+        if (cur > 1) {
+            if (lane & o) idx += cur / 2;
+            cur /= 2;
+        } else if (lane & o) {
+            writer = false;
+        }
+    }
+    return idx;
+}
+
 struct ScanBwdArgs {
     const float *dt, *A;
     const void *Bm, *Cm, *x;
-    const float *Dv, *h0, *dy, *dh_fin;
+    const float *Dv, *h0, *dy, *dh_fin, *states;
     float *ddt, *dA;
     void *dB, *dC, *dx;
     float *dD, *dh0, *scratch;
@@ -98,30 +150,32 @@ template <typename T, int NP>
 __global__ void __launch_bounds__(BT, 2)
 scan_bwd(const ScanBwdArgs a) {
     using C = ScanBwdCfg<NP>;
-    constexpr int NPT = C::NPT, G = C::G, DPB = C::DPB;
-    constexpr int OUT = U * 2 * NP, TPO = BT / OUT;   // threads an output
-    static_assert(BC % U == 0 && BT % OUT == 0 && TPO <= 32, "tiling");
+    constexpr int NPT = C::NPT, G = C::G, DPB = C::DPB, NW = C::NW;
+    constexpr int V = 2 * NPT;               // dB_, dC_ terms a thread
+    constexpr int PF = BC * DPB / BT;        // dt, x, dy loads a chunk
+    constexpr int PB = (2 * BC * NP + BT - 1) / BT;   // B_, C_ loads
+    static_assert((BC * DPB) % BT == 0, "tiling");
     extern __shared__ __align__(16) float sm[];
     float* sdt = sm;                         // [BC][DPB]
     float* sx = sdt + BC * DPB;
     float* sdy = sx + BC * DPB;
     float* sb = sdy + BC * DPB;              // [BC][NP]
     float* sc = sb + BC * NP;
-    float* sred = sc + BC * NP;              // [U][DPB][2 NP]
+    float* sred = sc + BC * NP;              // [BC][NW][2 NP]
 
     const int S = a.S, D = a.D, N = a.N;
     const int bi = blockIdx.x / a.blocks_per_b;
     const int blk = blockIdx.x % a.blocks_per_b;
     const int d0 = blk * DPB;
-    const int tid = threadIdx.x, dl = tid / G, g = tid % G, n0 = g * NPT;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int dl = tid / G, g = tid % G, n0 = g * NPT;
     const int d = d0 + dl;
     const bool live = d < D;
     const size_t row0 = (size_t)bi * S;      // (b, t) row of t = 0
     const T* Bm = static_cast<const T*>(a.Bm);
     const T* Cm = static_cast<const T*>(a.Cm);
     const T* x = static_cast<const T*>(a.x);
-    float* ckpt = a.scratch;                 // (B, chunks, D, N)
-    float* pbc = ckpt + (size_t)a.B * a.chunks * D * N;  // (blocks, B, S, 2, N)
+    float* pbc = a.scratch;                  // (blocks, B, S, 2, N)
     float* pA = pbc + (size_t)a.blocks_per_b * a.B * S * 2 * N;   // (B, D, N)
     float* pD = pA + (size_t)a.B * D * N;    // (B, D)
 
@@ -130,55 +184,48 @@ scan_bwd(const ScanBwdArgs a) {
     for (int k = 0; k < NPT; ++k)
         Ar[k] = (live && n0 + k < N) ? a.A[(size_t)d * N + n0 + k] : 0.f;
 
-    // One chunk into shared memory; steps past S, columns past D and
-    // states past N read zeros (dt = 0: a = 1 and b = 0, h stays).
-    auto stage = [&](int t0) {
-        for (int e = tid; e < BC * DPB; e += BT) {
-            const int t = t0 + e / DPB, col = e % DPB;
+    // A chunk's loads into registers, then into shared memory; steps past
+    // S, columns past D and states past N read zeros (dt = 0: a = 1 and b
+    // = 0, h stays).
+    const int col = tid % DPB;               // the column this thread loads
+    float pdt[PF], pdy[PF];
+    T px[PF], pbcv[PB];
+    auto fetch = [&](int t0) {
+#pragma unroll
+        for (int i = 0; i < PF; ++i) {
+            const int t = t0 + (tid + i * BT) / DPB;
             const bool ok = t < S && d0 + col < D;
             const size_t off = (row0 + t) * D + d0 + col;
-            sdt[e] = ok ? a.dt[off] : 0.f;
-            sx[e] = ok ? to_f(x[off]) : 0.f;
-            sdy[e] = ok ? a.dy[off] : 0.f;
+            pdt[i] = ok ? a.dt[off] : 0.f;
+            px[i] = ok ? x[off] : zero_of<T>();
+            pdy[i] = ok ? a.dy[off] : 0.f;
         }
-        for (int e = tid; e < BC * NP; e += BT) {
-            const int t = t0 + e / NP, n = e % NP;
-            const bool ok = t < S && n < N;
-            sb[e] = ok ? to_f(Bm[(row0 + t) * a.ldb + n]) : 0.f;
-            sc[e] = ok ? to_f(Cm[(row0 + t) * a.ldc + n]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < PB; ++i) {
+            const int e = tid + i * BT;
+            const int which = e / (BC * NP), r = e % (BC * NP);
+            const int t = t0 + r / NP, n = r % NP;
+            const bool ok = e < 2 * BC * NP && t < S && n < N;
+            pbcv[i] = !ok ? zero_of<T>()
+                    : which ? Cm[(row0 + t) * a.ldc + n]
+                            : Bm[(row0 + t) * a.ldb + n];
         }
-        __syncthreads();
     };
-    auto ckpt_at = [&](int c, int k) {
-        return ckpt + (((size_t)bi * a.chunks + c) * D + d) * N + n0 + k;
+    auto stash = [&]() {
+#pragma unroll
+        for (int i = 0; i < PF; ++i) {
+            const int e = tid + i * BT;
+            sdt[e] = pdt[i];
+            sx[e] = to_f(px[i]);
+            sdy[e] = pdy[i];
+        }
+#pragma unroll
+        for (int i = 0; i < PB; ++i) {
+            const int e = tid + i * BT;
+            if (e < 2 * BC * NP) sb[e] = to_f(pbcv[i]);   // sb, then sc
+        }
     };
 
-    // ---- forward sweep: the state before each chunk, saved
-    float h[NPT];
-#pragma unroll
-    for (int k = 0; k < NPT; ++k)
-        h[k] = (a.h0 && live && n0 + k < N)
-                   ? a.h0[((size_t)bi * D + d) * N + n0 + k] : 0.f;
-    for (int c = 0; c < a.chunks; ++c) {
-        stage(c * BC);
-#pragma unroll
-        for (int k = 0; k < NPT; ++k)
-            if (live && n0 + k < N) *ckpt_at(c, k) = h[k];
-#pragma unroll 4
-        for (int uu = 0; uu < BC; ++uu) {
-            const float dtv = sdt[uu * DPB + dl], xv = sx[uu * DPB + dl];
-#pragma unroll
-            for (int k = 0; k < NPT; ++k) {
-                const float av = expf(__fmul_rn(dtv, Ar[k]));
-                const float bv = __fmul_rn(__fmul_rn(dtv, sb[uu * NP + n0 + k]),
-                                           xv);
-                h[k] = __fadd_rn(__fmul_rn(av, h[k]), bv);
-            }
-        }
-        __syncthreads();                     // before the next stage
-    }
-
-    // ---- reverse sweep
     float carry[NPT], dA_acc[NPT];
 #pragma unroll
     for (int k = 0; k < NPT; ++k) {
@@ -189,13 +236,28 @@ scan_bwd(const ScanBwdArgs a) {
     const float Dd = (a.Dv && live) ? a.Dv[d] : 0.f;
     float dD_acc = 0.f;
     T* dx = static_cast<T*>(a.dx);
+    // the lane that writes d(dt) (idx 0) and dx's (idx 1) of its d
+    bool dd_writer;
+    const int dd_idx = scatter_index<2, 1, G>(lane, dd_writer);
+    // the lane's (B_ or C_, n) sums of dB_ and dC_ over the warp's d's
+    bool bc_writer;
+    const int bc_idx = scatter_index<V, G, 32>(lane, bc_writer);
+    constexpr int BC_R = V >= 32 / G ? V / (32 / G) : 1;  // values it holds
+
+    fetch((a.chunks - 1) * BC);
+    stash();
+    __syncthreads();
     for (int c = a.chunks - 1; c >= 0; --c) {
         const int t0 = c * BC;
-        stage(t0);
+        if (c > 0) fetch(t0 - BC);           // in flight during the walk
+        float h[NPT];
 #pragma unroll
         for (int k = 0; k < NPT; ++k)
-            h[k] = (live && n0 + k < N) ? *ckpt_at(c, k) : 0.f;
-        float hs[BC][NPT];                   // h_{t-1} of the chunk's steps
+            h[k] = (live && n0 + k < N)
+                       ? a.states[(((size_t)bi * a.chunks + c) * D + d) * N +
+                                  n0 + k]
+                       : 0.f;
+        float hs[BC][NPT], as[BC][NPT];      // h_{t-1} and a_t of each step
 #pragma unroll
         for (int uu = 0; uu < BC; ++uu) {
             const float dtv = sdt[uu * DPB + dl], xv = sx[uu * DPB + dl];
@@ -203,6 +265,7 @@ scan_bwd(const ScanBwdArgs a) {
             for (int k = 0; k < NPT; ++k) {
                 hs[uu][k] = h[k];
                 const float av = expf(__fmul_rn(dtv, Ar[k]));
+                as[uu][k] = av;
                 const float bv = __fmul_rn(__fmul_rn(dtv, sb[uu * NP + n0 + k]),
                                            xv);
                 h[k] = __fadd_rn(__fmul_rn(av, h[k]), bv);
@@ -214,57 +277,63 @@ scan_bwd(const ScanBwdArgs a) {
             const int t = t0 + uu;
             const float dtv = sdt[uu * DPB + dl], xv = sx[uu * DPB + dl],
                         dyv = sdy[uu * DPB + dl];
-            float pdt = 0.f, pgb = 0.f, vb[NPT], vc[NPT];
+            const float dtx = dtv * xv;
+            float dd[2] = {0.f, 0.f};        // sum of da A, sum of G B_
+            float v[V];                      // dB_ terms, then dC_ terms
 #pragma unroll
             for (int k = 0; k < NPT; ++k) {
-                const float bn = sb[uu * NP + n0 + k], cn = sc[uu * NP + n0 + k];
-                const float av = expf(__fmul_rn(dtv, Ar[k]));
-                const float gk = carry[k] + dyv * cn;
-                vc[k] = dyv * h[k];
-                const float da = gk * hs[uu][k] * av;
-                dA_acc[k] += da * dtv;
-                pdt += da * Ar[k] + gk * bn * xv;
-                pgb += gk * bn;
-                vb[k] = gk * dtv * xv;
-                carry[k] = av * gk;
+                const float bn = sb[uu * NP + n0 + k],
+                            cn = sc[uu * NP + n0 + k];
+                const float gk = fmaf(dyv, cn, carry[k]);
+                v[NPT + k] = dyv * h[k];
+                carry[k] = as[uu][k] * gk;   // a_t G_t, also da's factor
+                const float da = carry[k] * hs[uu][k];
+                dA_acc[k] = fmaf(da, dtv, dA_acc[k]);
+                dd[0] = fmaf(da, Ar[k], dd[0]);
+                dd[1] = fmaf(gk, bn, dd[1]);
+                v[k] = gk * dtx;
                 h[k] = hs[uu][k];
             }
-#pragma unroll
-            for (int o = 1; o < G; o <<= 1) {         // the d's lanes
-                pdt += __shfl_xor_sync(0xffffffffu, pdt, o);
-                pgb += __shfl_xor_sync(0xffffffffu, pgb, o);
-            }
-            if (g == 0 && live && t < S) {
+            dd[0] = fmaf(dd[1], xv, dd[0]);  // d(dt)'s part: + x sum G B_
+            reduce_scatter<2, 1, G>(dd, lane);       // the d's lanes
+            reduce_scatter<V, G, 32>(v, lane);       // the warp's d's
+            if (live && t < S && dd_writer) {
                 const size_t off = (row0 + t) * D + d;
-                a.ddt[off] = pdt;
-                put(dx + off, pgb * dtv + Dd * dyv);
-                dD_acc += dyv * xv;
+                if constexpr (G == 1) {
+                    a.ddt[off] = dd[0];
+                    put(dx + off, fmaf(dd[1], dtv, Dd * dyv));
+                    dD_acc = fmaf(dyv, xv, dD_acc);
+                } else if (dd_idx == 0) {
+                    a.ddt[off] = dd[0];
+                    dD_acc = fmaf(dyv, xv, dD_acc);
+                } else {
+                    put(dx + off, fmaf(dd[0], dtv, Dd * dyv));
+                }
             }
-            const int slot = uu % U;
+            if (bc_writer) {
 #pragma unroll
-            for (int k = 0; k < NPT; ++k) {
-                float* at = sred + ((size_t)slot * DPB + dl) * 2 * NP + n0 + k;
-                at[0] = vb[k];
-                at[NP] = vc[k];
-            }
-            if (slot == 0) {                  // steps uu .. uu + U - 1
-                __syncthreads();
-                const int o = tid / TPO, part = tid % TPO;
-                const int s = o / (2 * NP), wn = o % (2 * NP);
-                float acc = 0.f;
-                for (int dd = part; dd < DPB; dd += TPO)
-                    acc += sred[((size_t)s * DPB + dd) * 2 * NP + wn];
-#pragma unroll
-                for (int q = 1; q < TPO; q <<= 1)
-                    acc += __shfl_xor_sync(0xffffffffu, acc, q);
-                const int ts = t + s, w = wn / NP, n = wn % NP;
-                if (part == 0 && ts < S && n < N)
-                    pbc[(((size_t)blk * a.B + bi) * S + ts) * 2 * N + w * N +
-                        n] = acc;
-                __syncthreads();
+                for (int r = 0; r < BC_R; ++r) {
+                    const int vi = bc_idx + r;   // (B_ or C_, k) of lane's n0
+                    sred[(uu * NW + warp) * 2 * NP + (vi / NPT) * NP + n0 +
+                         vi % NPT] = v[r];
+                }
             }
         }
-        __syncthreads();                     // before the next stage
+        __syncthreads();                     // the warps' sums are in
+        for (int e = tid; e < BC * 2 * NP; e += BT) {
+            const int uu = e / (2 * NP), wn = e % (2 * NP);
+            const int w = wn / NP, n = wn % NP, t = t0 + uu;
+            if (t < S && n < N) {
+                float acc = 0.f;
+#pragma unroll
+                for (int ww = 0; ww < NW; ++ww)
+                    acc += sred[(uu * NW + ww) * 2 * NP + wn];
+                pbc[(((size_t)blk * a.B + bi) * S + t) * 2 * N + w * N + n] =
+                    acc;
+            }
+        }
+        if (c > 0) stash();                  // the walk is done with it
+        __syncthreads();
     }
 #pragma unroll
     for (int k = 0; k < NPT; ++k) {
@@ -273,7 +342,8 @@ scan_bwd(const ScanBwdArgs a) {
         if (a.dh0) a.dh0[at] = carry[k];
         pA[at] = dA_acc[k];
     }
-    if (live && g == 0) pD[(size_t)bi * D + d] = dD_acc;
+    if (live && dd_writer && (G == 1 || dd_idx == 0))
+        pD[(size_t)bi * D + d] = dD_acc;
 }
 
 // dB_ and dC_ (cast to T): the blocks' partial sums added in block order;
@@ -331,8 +401,7 @@ cudaError_t launch_bwd_np(ScanBwdArgs a, long long scratch_floats,
     using C = ScanBwdCfg<NP>;
     a.blocks_per_b = (a.D + C::DPB - 1) / C::DPB;
     a.chunks = (a.S + BC - 1) / BC;
-    const long long want = (long long)a.B * a.chunks * a.D * a.N +
-                           (long long)a.blocks_per_b * a.B * a.S * 2 * a.N +
+    const long long want = (long long)a.blocks_per_b * a.B * a.S * 2 * a.N +
                            (long long)a.B * a.D * a.N + (long long)a.B * a.D;
     const long long blocks = (long long)a.B * a.blocks_per_b;
     if (scratch_floats != want || blocks > 0x7fffffffLL)
@@ -347,7 +416,7 @@ cudaError_t launch_bwd_np(ScanBwdArgs a, long long scratch_floats,
     const size_t rows = (size_t)a.B * a.S * a.N, dn = (size_t)a.D * a.N;
     const size_t total = rows > dn ? rows : dn;
     const size_t grid = (total + 255) / 256;
-    float* pbc = a.scratch + (size_t)a.B * a.chunks * a.D * a.N;
+    float* pbc = a.scratch;
     float* pA = pbc + (size_t)a.blocks_per_b * a.B * a.S * 2 * a.N;
     scan_bwd_finish<T><<<(unsigned)(grid < 132 * 16 ? grid : 132 * 16), 256, 0,
                          st>>>(pbc, pA, pA + dn * a.B, static_cast<T*>(a.dB),
@@ -374,26 +443,28 @@ cudaError_t launch_bwd_t(const ScanBwdArgs& a, int np,
 extern "C" {
 
 // The fused scan's inputs as selective_scan_fused_launch takes them, dy
-// (B, S, D) float32 contiguous and dh_fin (B, D, N) float32 or null; out:
-// ddt (B, S, D) float32, dA (D, N) float32, dB, dC (B, S, N) and dx (B, S,
-// D) in x's dtype, dD (D,) float32 (null when Dv is), dh0 (B, D, N)
-// float32 or null; scratch of `scratch_floats` floats, which must be
+// (B, S, D) float32 contiguous, dh_fin (B, D, N) float32 or null and the
+// forward's chunk states (B, ceil(S / SCAN_STATE_STEPS), D, N) float32;
+// out: ddt (B, S, D) float32, dA (D, N) float32, dB, dC (B, S, N) and dx
+// (B, S, D) in x's dtype, dD (D,) float32 (null when Dv is), dh0 (B, D,
+// N) float32 or null; scratch of `scratch_floats` floats, which must be
 // ../kernel.py's `plan_fused_bwd` size. Launches scan_bwd, then
 // scan_bwd_finish. Returns the cudaError_t (0 on success).
 int selective_scan_fused_bwd_launch(
         const float* dt, const float* A, const void* Bm, const void* Cm,
         const void* x, const float* Dv, const float* h0, const float* dy,
-        const float* dh_fin, float* ddt, float* dA, void* dB, void* dC,
-        void* dx, float* dD, float* dh0, float* scratch, int B, int S, int D,
-        int N, long long ldb, long long ldc, int bf16,
+        const float* dh_fin, const float* states, float* ddt, float* dA,
+        void* dB, void* dC, void* dx, float* dD, float* dh0, float* scratch,
+        int B, int S, int D, int N, long long ldb, long long ldc, int bf16,
         long long scratch_floats, void* stream) {
     if (B < 1 || S < 1 || D < 1 || N < 1 || N > 32 || ldb < 0 || ldc < 0 ||
-        (dD != nullptr) != (Dv != nullptr))
+        states == nullptr || (dD != nullptr) != (Dv != nullptr))
         return (int)cudaErrorInvalidValue;
     int np = 1;
     while (np < N) np <<= 1;
-    const ScanBwdArgs a{dt, A, Bm, Cm, x, Dv, h0, dy, dh_fin, ddt, dA, dB, dC,
-                        dx, dD, dh0, scratch, B, S, D, N, ldb, ldc, 0, 0};
+    const ScanBwdArgs a{dt, A, Bm, Cm, x, Dv, h0, dy, dh_fin, states, ddt,
+                        dA, dB, dC, dx, dD, dh0, scratch, B, S, D, N, ldb,
+                        ldc, 0, 0};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return (int)(bf16 ? launch_bwd_t<__nv_bfloat16>(a, np, scratch_floats, st)
                       : launch_bwd_t<float>(a, np, scratch_floats, st));

@@ -10,20 +10,25 @@ d_state is 16).
 S, D) float32, A (D, N) float32, B_ and C_ (B, S, N), x (B, S, D), with
 x, B_ and C_ all bfloat16 or all float32, optional D (D,) and h0 (B, D,
 N) float32 — builds a = exp(dt·A) and b = dt·B_·x in registers and
-returns (y + D·x (B, S, D) float32, h_fin (B, D, N) float32). B_ and C_
-may be strided views, such as the model's slices of its x projection:
-each is read as rows of N at one row stride.
+returns (y + D·x (B, S, D) float32, h_fin (B, D, N) float32), and with
+`states=True` also the state before every `BWD_CHUNK`-th step (B,
+ceil(S / BWD_CHUNK), D, N) float32, which the backward recomputes its
+chunks from. B_ and C_ may be strided views, such as the model's slices
+of its x projection: each is read as rows of N at one row stride.
 
 `selective_scan_fused_bwd_cuda` is the fused scan's backward
 (`csrc/selective_scan_bwd.cu`, port only): given the forward's inputs,
 y's gradient dy (B, S, D) float32 and optionally the final state's
 dh_fin, it returns (d(dt) (B, S, D) float32, dA (D, N) float32, dB_ and
 dC_ (B, S, N) and dx (B, S, D) in x's dtype, dD (D,) float32 or None,
-dh0 (B, D, N) float32 or None). A forward sweep saves the state before
-each chunk of `BWD_CHUNK` steps in a scratch buffer (`plan_fused_bwd`
-sizes it) and a reverse sweep recomputes each chunk from it; dB_, dC_,
-dA and dD are added across blocks in one order by a second kernel of
-the same launch call.
+dh0 (B, D, N) float32 or None). It recomputes each chunk of `BWD_CHUNK`
+steps from the forward's saved state before it, one exponential an
+element; dB_, dC_, dA and dD are added across blocks in one order by a
+second kernel of the same launch call. Two routes, counted in
+`BWD_ROUTES`: "saved" takes the states a `states=True` forward wrote
+(`ops._ScanFused` saves them), "recomputed" (no states given) first
+runs the forward kernel for them in the same launch call.
+`plan_fused_bwd` sizes the scratch.
 
 `LAUNCHES[name]` counts each kernel's launches and `LAUNCH_SHAPES[name]`
 counts them by shape: (B, S, D, N, h0 given) for "selective_scan", (B,
@@ -53,30 +58,33 @@ def _declare(handle: ctypes.CDLL) -> None:
     handle.selective_scan_launch.argtypes = [vp] * 6 + [i] * 4 + [vp]
     handle.selective_scan_launch.restype = i
     handle.selective_scan_fused_launch.argtypes = \
-        [vp] * 9 + [i] * 4 + [ll, ll, i, vp]
+        [vp] * 10 + [i] * 4 + [ll, ll, i, vp]
     handle.selective_scan_fused_launch.restype = i
     handle.selective_scan_fused_bwd_launch.argtypes = \
-        [vp] * 17 + [i] * 4 + [ll, ll, i, ll, vp]
+        [vp] * 18 + [i] * 4 + [ll, ll, i, ll, vp]
     handle.selective_scan_fused_bwd_launch.restype = i
 
 
 LIBRARY = Library("ssm", Path(__file__).resolve().parent / "csrc", _declare)
 
-# The backward's tiling (`csrc/selective_scan_bwd.cu`'s BT, BC and
-# ScanBwdCfg).
+# The backward's tiling (`csrc/selective_scan_bwd.cu`'s BT and ScanBwdCfg;
+# `csrc/scan_states.cuh`'s SCAN_STATE_STEPS).
 BWD_THREADS = 256             # threads a block
-BWD_CHUNK = 16                # steps between the states the forward saves
+BWD_CHUNK = 8                 # steps between the states the forward saves
 BWD_STATES = 4                # states a thread (all of them when N <= 4)
+BWD_ROUTE_NAMES = ("saved", "recomputed")
 
 LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0,
                             "selective_scan_fused_bwd": 0}
 LAUNCH_SHAPES: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
+BWD_ROUTES: Counter = Counter()   # the backward's launches by route
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         LAUNCH_SHAPES[name].clear()
+    BWD_ROUTES.clear()
 
 
 def check_inputs(a, b, c, h0) -> None:
@@ -191,25 +199,35 @@ def selective_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return y, h_fin
 
 
+def states_shape(Bsz: int, S: int, Di: int, N: int) -> tuple:
+    """The forward's saved states: the state before every `BWD_CHUNK`-th
+    step."""
+    return (Bsz, -(-S // BWD_CHUNK), Di, N)
+
+
 def selective_scan_fused_cuda(dt: torch.Tensor, A: torch.Tensor,
                               B_: torch.Tensor, C_: torch.Tensor,
                               x: torch.Tensor, D: torch.Tensor | None = None,
-                              h0: torch.Tensor | None = None
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused scan on the card. Raises on what the kernel does not take
-    and when the launch fails; there is no other path."""
+                              h0: torch.Tensor | None = None, *,
+                              states: bool = False) -> tuple:
+    """The fused scan on the card: (y, h_fin), and with `states` the
+    state before every `BWD_CHUNK`-th step as a third output. Raises on
+    what the kernel does not take and when the launch fails; there is no
+    other path."""
     _check_fused(dt, A, B_, C_, x, D, h0)
     Bsz, S, Di = dt.shape
     N = A.shape[1]
     y = torch.empty((Bsz, S, Di), dtype=torch.float32, device=dt.device)
     h_fin = torch.empty((Bsz, Di, N), dtype=torch.float32, device=dt.device)
+    saved = (torch.empty(states_shape(Bsz, S, Di, N), dtype=torch.float32,
+                         device=dt.device) if states else None)
     with torch.cuda.device(dt.device):
-        launch_fused(dt, A, B_, C_, x, D, h0, y, h_fin)
+        launch_fused(dt, A, B_, C_, x, D, h0, y, h_fin, saved)
     LAUNCHES["selective_scan_fused"] += 1
     LAUNCH_SHAPES["selective_scan_fused"][
         (Bsz, S, Di, N, str(x.dtype).removeprefix("torch."), h0 is not None,
          D is not None)] += 1
-    return y, h_fin
+    return (y, h_fin, saved) if states else (y, h_fin)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -235,15 +253,18 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 def launch_fused(dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
                  C_: torch.Tensor, x: torch.Tensor, D: torch.Tensor | None,
                  h0: torch.Tensor | None, y: torch.Tensor,
-                 h_fin: torch.Tensor) -> None:
+                 h_fin: torch.Tensor,
+                 states: torch.Tensor | None = None) -> None:
     """Bare launch of the fused scan on the current stream into
-    preallocated `y` and `h_fin`. Raises if the launch itself fails."""
+    preallocated `y`, `h_fin` and, when given, `states` (`states_shape`).
+    Raises if the launch itself fails."""
     lib = LIBRARY.lib()
     Bsz, S, Di = dt.shape
     rc = lib.selective_scan_fused_launch(
         dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
         x.data_ptr(), _ptr(D), _ptr(h0), y.data_ptr(), h_fin.data_ptr(),
-        Bsz, S, Di, A.shape[1], row_stride(B_), row_stride(C_),
+        _ptr(states), Bsz, S, Di, A.shape[1], row_stride(B_),
+        row_stride(C_),
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     if rc:
@@ -252,30 +273,32 @@ def launch_fused(dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
 
 
 def plan_fused_bwd(B: int, S: int, D: int, N: int) -> dict:
-    """The backward's blocks a batch row, chunks and scratch floats (the
-    saved states, the blocks' partial dB_ and dC_, the per-b dA and dD);
-    the library refuses another scratch size."""
+    """The backward's blocks a batch row, chunks (saved states a row)
+    and scratch floats (the blocks' partial dB_ and dC_, the per-b dA and
+    dD); the library refuses another scratch size."""
     npow = 1 << (N - 1).bit_length()
     dpb = BWD_THREADS // (npow // min(npow, BWD_STATES))
     per_b = -(-D // dpb)
     chunks = -(-S // BWD_CHUNK)
-    scratch = (B * chunks * D * N + per_b * B * S * 2 * N + B * D * N
-               + B * D)
+    scratch = per_b * B * S * 2 * N + B * D * N + B * D
     return {"columns": dpb, "blocks_per_b": per_b, "blocks": B * per_b,
             "chunks": chunks, "scratch_floats": scratch}
 
 
 def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
-                                  dh_fin=None) -> tuple:
+                                  dh_fin=None, states=None) -> tuple:
     """The gradients of `selective_scan_fused_cuda(dt, A, B_, C_, x, D,
-    h0)` on the card, as `ref.selective_scan_fused_bwd_ref` gives them.
-    Raises on what the kernel does not take and when the launch fails;
-    there is no other path."""
+    h0)` on the card, as `ref.selective_scan_fused_bwd_ref` gives them,
+    from the forward's `states` (route "saved") or, without them, from
+    states the forward kernel writes first in this call (route
+    "recomputed"). Raises on what the kernel does not take and when the
+    launch fails; there is no other path."""
     _check_fused(dt, A, B_, C_, x, D, h0)
     Bsz, S, Di = dt.shape
     N = A.shape[1]
     for name, t, want in (("dy", dy, (Bsz, S, Di)),
-                          ("dh_fin", dh_fin, (Bsz, Di, N))):
+                          ("dh_fin", dh_fin, (Bsz, Di, N)),
+                          ("states", states, states_shape(Bsz, S, Di, N))):
         if t is None:
             continue
         if t.shape != want or t.dtype != torch.float32:
@@ -296,25 +319,32 @@ def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
     dD = None if D is None else torch.empty((Di,), **f32)
     dh0 = None if h0 is None else torch.empty((Bsz, Di, N), **f32)
     scratch = torch.empty(plan["scratch_floats"], **f32)
+    route = "saved" if states is not None else "recomputed"
     with torch.cuda.device(dt.device):
-        launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, ddt, dA, dB, dC, dx,
-                   dD, dh0, scratch)
+        if states is None:           # the forward kernel writes them first
+            states = torch.empty(states_shape(Bsz, S, Di, N), **f32)
+            launch_fused(dt, A, B_, C_, x, D, h0, torch.empty_like(ddt),
+                         torch.empty((Bsz, Di, N), **f32), states)
+        launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, states, ddt, dA, dB,
+                   dC, dx, dD, dh0, scratch)
     LAUNCHES["selective_scan_fused_bwd"] += 1
+    BWD_ROUTES[route] += 1
     return ddt, dA, dB, dC, dx, dD, dh0
 
 
-def launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, ddt, dA, dB, dC, dx, dD,
-               dh0, scratch) -> None:
+def launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, states, ddt, dA, dB, dC,
+               dx, dD, dh0, scratch) -> None:
     """Bare launch of the fused scan's backward on the current stream
-    into preallocated gradients and `plan_fused_bwd`'s scratch. Raises if
-    the launch itself fails."""
+    from the forward's `states` into preallocated gradients and
+    `plan_fused_bwd`'s scratch. Raises if the launch itself fails."""
     lib = LIBRARY.lib()
     Bsz, S, Di = dt.shape
     rc = lib.selective_scan_fused_bwd_launch(
         dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
         x.data_ptr(), _ptr(D), _ptr(h0), dy.data_ptr(), _ptr(dh_fin),
-        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dx.data_ptr(), _ptr(dD), _ptr(dh0), scratch.data_ptr(), Bsz, S, Di,
+        states.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dx.data_ptr(), _ptr(dD), _ptr(dh0),
+        scratch.data_ptr(), Bsz, S, Di,
         A.shape[1], row_stride(B_), row_stride(C_),
         int(x.dtype == torch.bfloat16), scratch.numel(),
         torch.cuda.current_stream().cuda_stream)

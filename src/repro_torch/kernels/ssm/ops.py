@@ -29,23 +29,25 @@ from .ref import selective_scan_fused_ref, selective_scan_ref
 class _ScanFused(torch.autograd.Function):
     """The fused scan kernel forward, its backward kernel backward:
     gradients for dt, A, B_, C_, x, D and h0 from y's and the final
-    state's."""
+    state's. The forward saves the state before every `BWD_CHUNK`-th step
+    for the backward (its "saved" route)."""
 
     @staticmethod
     def forward(ctx, dt, A, B_, C_, x, D, h0):
         ctx.set_materialize_grads(False)
-        y, h_fin = selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0)
-        ctx.save_for_backward(dt, A, B_, C_, x, D, h0)
+        y, h_fin, states = selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0,
+                                                     states=True)
+        ctx.save_for_backward(dt, A, B_, C_, x, D, h0, states)
         return y, h_fin
 
     @staticmethod
     def backward(ctx, dy, dh_fin):
-        dt, A, B_, C_, x, D, h0 = ctx.saved_tensors
+        dt, A, B_, C_, x, D, h0, states = ctx.saved_tensors
         dy = (torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
               if dy is None else dy.contiguous())
         return selective_scan_fused_bwd_cuda(
             dt, A, B_, C_, x, D, h0, dy,
-            None if dh_fin is None else dh_fin.contiguous())
+            None if dh_fin is None else dh_fin.contiguous(), states)
 
 
 def _impl(impl: str) -> str:

@@ -28,7 +28,10 @@ C_{S-1} + dh_fin) and h_{t-1} the state before step t,
     dh0   = a_0 G_0
 
 It keeps every h_{t-1} of the forward loop rather than divide by a,
-which underflows to 0 for dt·A below about -104.
+which underflows to 0 for dt·A below about -104. Given the forward's
+saved `states` (the state before every chunk-th step, as
+`selective_scan_fused_ref(..., states=True)` returns them) it restarts
+the loop from each instead, as the kernel recomputes its chunks.
 """
 
 from __future__ import annotations
@@ -55,35 +58,52 @@ def selective_scan_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 def selective_scan_fused_ref(dt: torch.Tensor, A: torch.Tensor,
                              B_: torch.Tensor, C_: torch.Tensor,
                              x: torch.Tensor, D: torch.Tensor | None = None,
-                             h0: torch.Tensor | None = None
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
+                             h0: torch.Tensor | None = None, *,
+                             states: bool = False,
+                             chunk: int = 8) -> tuple:
     """dt (B, S, D) float32, A (D, N) float32, B_ and C_ (B, S, N), x (B,
     S, D), D (D,) or None, h0 (B, D, N) or None. Returns (y + D·x (B, S,
-    D) float32, final h (B, D, N) float32). a and b are built with one
-    temporary each, the rest in place, rounding as the JAX expressions
-    do."""
+    D) float32, final h (B, D, N) float32), and with `states` the state
+    before every `chunk`-th step (B, ceil(S / chunk), D, N) as a third
+    output. a and b are built with one temporary each, the rest in place,
+    rounding as the JAX expressions do."""
     a = torch.mul(dt[..., None], A).exp_()
     b = torch.mul(dt[..., None], B_[:, :, None, :].float()).mul_(
         x[..., None].float())
-    y, h = selective_scan_ref(a, b, C_.float(), h0)
+    if states:
+        Bsz, S, Di, N = a.shape
+        h = (torch.zeros((Bsz, Di, N), dtype=torch.float32,
+                         device=dt.device) if h0 is None else h0.float())
+        saved, ys = [], []
+        for t0 in range(0, S, chunk):
+            saved.append(h)
+            y, h = selective_scan_ref(a[:, t0:t0 + chunk],
+                                      b[:, t0:t0 + chunk],
+                                      C_[:, t0:t0 + chunk].float(), h)
+            ys.append(y)
+        y = torch.cat(ys, 1)
+    else:
+        y, h = selective_scan_ref(a, b, C_.float(), h0)
     del a, b
     if D is not None:
         y = y + D * x.float()
-    return y, h
+    return (y, h, torch.stack(saved, 1)) if states else (y, h)
 
 
 def selective_scan_fused_bwd_ref(dt: torch.Tensor, A: torch.Tensor,
                                  B_: torch.Tensor, C_: torch.Tensor,
                                  x: torch.Tensor, D: torch.Tensor | None,
                                  h0: torch.Tensor | None, dy: torch.Tensor,
-                                 dh_fin: torch.Tensor | None = None
-                                 ) -> tuple:
+                                 dh_fin: torch.Tensor | None = None,
+                                 states: torch.Tensor | None = None,
+                                 chunk: int = 8) -> tuple:
     """The gradients of `selective_scan_fused_ref(dt, A, B_, C_, x, D,
     h0)` for y's gradient `dy` (B, S, D) and the final state's `dh_fin`
     (B, D, N) or None (zeros). Returns (d(dt) (B, S, D) float32, dA (D, N)
     float32, dB_ and dC_ (B, S, N) and dx (B, S, D) in x's dtype, dD (D,)
     float32 or None when D is None, dh0 (B, D, N) float32 or None when h0
-    is None)."""
+    is None). With the forward's `states` (B, ceil(S / chunk), D, N), the
+    loop restarts from states[:, c] at step c·chunk."""
     Bsz, S, Di = dt.shape
     N = A.shape[1]
     dtf, Af, dyf = dt.float(), A.float(), dy.float()
@@ -92,6 +112,8 @@ def selective_scan_fused_bwd_ref(dt: torch.Tensor, A: torch.Tensor,
          if h0 is None else h0.float())
     before = []                                   # h_{t-1} of each step
     for t in range(S):
+        if states is not None and t % chunk == 0:
+            h = states[:, t // chunk].float()
         before.append(h)
         a = torch.exp(dtf[:, t, :, None] * Af)
         h = a * h + (dtf[:, t, :, None] * Bf[:, t, None, :]) * xf[:, t, :,

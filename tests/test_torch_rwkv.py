@@ -497,16 +497,87 @@ def test_wkv_function_with_the_plain_halves_equals_autograd(
         assert _rel_err(g, a.numpy()) <= 1e-5
 
 
+def _step_matrices(r, k, v, w, s0, dout, ds_fin, chunk):
+    """The state before each chunk and the gradient after each chunk's
+    last step, (B, H, C, dh, dh), by the step-by-step recurrences of
+    `wkv_bwd_ref`."""
+    B, S, H, dh = r.shape
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    zeros = torch.zeros((B, H, dh, dh))
+    s = zeros if s0 is None else s0.float()
+    g = zeros if ds_fin is None else ds_fin.float()
+    states, grads = [], [None] * (-(-S // chunk))
+    for t in range(S):
+        if t % chunk == 0:
+            states.append(s)
+        s = wf[:, t, ..., None] * s + kf[:, t, ..., None] * vf[:, t, :,
+                                                                None, :]
+    for t in reversed(range(S)):
+        if t % chunk == chunk - 1 or t == S - 1:
+            grads[t // chunk] = g
+        g = wf[:, t, ..., None] * g + rf[:, t, ..., None] * df[:, t, :,
+                                                                None, :]
+    return torch.stack(states, 2), torch.stack(grads, 2), g
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_wkv_chunk_matrices_ref_match_the_step_recurrences(case):
+    """The backward's states pass in plain PyTorch (`wkv_chunk_matrices_
+    ref`: chunked products of w, as the kernel's TF32 passes form them)
+    against the step-by-step recurrences on every backward edge case:
+    S_c, G_c and ds0 within 1e-4 of their scale (float32 sums in another
+    order)."""
+    r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 7, "cpu")
+    got = tr.wkv_chunk_matrices_ref(r, k, v, w, s0, dout, ds_fin,
+                                    bwd.BWD_CHUNK)
+    want = _step_matrices(r, k, v, w, s0, dout, ds_fin, bwd.BWD_CHUNK)
+    for name, g, a in zip(("S_c", "G_c", "ds0"), got, want):
+        assert g.shape == a.shape, name
+        assert _rel_err(g, a.numpy()) <= bwd.BWD_TOL["float32"], name
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_wkv_bwd_chunks_ref_matches_the_step_backward(case):
+    """The backward's chunk pass in plain PyTorch (`wkv_bwd_chunks_ref`:
+    every chunk at once from S_c and G_c) against the step-by-step
+    `wkv_bwd_ref` on every backward edge case, within the same
+    tolerances; ds0 is the states pass's last gradient."""
+    r, k, v, w, u, s0, dout, ds_fin = bwd.bwd_inputs(case, 8, "cpu")
+    smat, gmat, ds0 = tr.wkv_chunk_matrices_ref(r, k, v, w, s0, dout,
+                                                ds_fin, bwd.BWD_CHUNK)
+    got = tr.wkv_bwd_chunks_ref(r, k, v, w, u, dout, smat, gmat,
+                                bwd.BWD_CHUNK) + (
+        None if s0 is None else ds0,)
+    want = tr.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds_fin)
+    for name, g, a in zip(bwd.GRADS, got, want):
+        assert (g is None) == (a is None), name
+        if g is None:
+            continue
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        assert _rel_err(g, a.float().numpy()) <= _bwd_tol(g), name
+
+
 def test_wkv_bwd_plan_and_refusals():
-    """`plan_bwd`: a block a (b, h, column tile), 4 columns a thread,
-    the shared memory and scratch the library checks; the wrapper
-    refuses CPU tensors and a dout of the wrong shape, before any
-    library is loaded."""
+    """`plan_bwd`: the states pass a block a (direction, b, h, 32
+    columns), a warp per 16 columns; the chunk pass a block a (b, h,
+    chunk, key tile), a key and 8 columns a thread; the shared memory
+    and scratch the library checks; the wrapper refuses CPU tensors and
+    a dout of the wrong shape, before any library is loaded."""
     from repro_torch.kernels.rwkv import kernel as rk
     p = rk.plan_bwd(2, 4096, 40, 64)
-    assert (p.cols, p.tiles, p.blocks, p.threads) == (32, 2, 160, 512)
+    assert (p.state_cols, p.state_blocks, p.state_threads) == (32, 320, 64)
+    assert (p.key_tiles, p.blocks, p.threads) == (2, 2 * 80 * 256, 256)
     assert p.chunks == 256 and p.smem_bytes <= 227 * 1024
-    assert rk.plan_bwd(1, 1, 1, 128)[:4] == (16, 8, 8, 512)
+    assert p.state_smem <= 227 * 1024
+    assert p.scratch_floats == (2 * 80 * 256 * 64 * 64 + 80 * 256 * 64
+                                + 2 * 2 * 4096 * 40 * 64)
+    p = rk.plan_bwd(1, 1, 1, 128)
+    assert (p.state_blocks, p.state_threads, p.key_tiles, p.blocks,
+            p.threads) == (8, 64, 4, 4, 512)
+    big = rk.plan_bwd(1, 1, 1, 128, torch.float32)
+    assert big.smem_bytes <= 227 * 1024 and big.state_smem <= 227 * 1024
+    assert big.scratch_floats == 2 * 128 * 128 + 128 + 4 * 128
+    assert rk.plan_bwd(1, 17, 1, 32)[4:7] == (1, 2, 128)
     assert rk.plan_bwd(1, 17, 1, 32).chunks == 2
     r, k, v, w, u, s0, dout, _ = bwd.bwd_inputs(BWD_CASES[0], 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):

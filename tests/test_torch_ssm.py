@@ -446,17 +446,62 @@ def test_scan_fused_function_with_the_plain_halves_equals_autograd(
         assert _scaled_err(g, w.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_fused_ref_saves_the_prefix_states(case):
+    """The forward that writes states, in plain PyTorch
+    (`selective_scan_fused_ref(..., states=True)`): y and the final state
+    equal the plain forward's bit for bit, and the state before every
+    `BWD_CHUNK`-th step equals the final state of that prefix (h0 or
+    zeros first), bit for bit, on every backward edge case."""
+    dt, A, B_, C_, x, D, h0, _, _ = scan_cases.bwd_inputs(case, 9, "cpu")
+    T = scan_cases.BWD_CHUNK
+    y, h, states = ssm.selective_scan_fused_ref(dt, A, B_, C_, x, D, h0,
+                                                states=True, chunk=T)
+    y1, h1 = ssm.selective_scan_fused_ref(dt, A, B_, C_, x, D, h0)
+    assert torch.equal(y, y1) and torch.equal(h, h1)
+    Bsz, S, Di = dt.shape
+    assert states.shape == ssm.states_shape(Bsz, S, Di, A.shape[1])
+    for c in range(states.shape[1]):
+        want = (h0 if h0 is not None else torch.zeros_like(h)) if c == 0 \
+            else ssm.selective_scan_fused_ref(
+                dt[:, :c * T], A, B_[:, :c * T], C_[:, :c * T],
+                x[:, :c * T], None, h0)[1]
+        assert torch.equal(states[:, c], want), c
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_scan_fused_bwd_ref_from_saved_states_equals_the_step_backward(case):
+    """The backward recomputing each chunk from the forward's saved
+    states (`selective_scan_fused_bwd_ref(..., states)`, the kernel's
+    route) against the same backward walking from h0, on every backward
+    edge case: the recomputed states carry the forward's roundings, so
+    every gradient is equal bit for bit."""
+    args = scan_cases.bwd_inputs(case, 10, "cpu")
+    _, _, states = ssm.selective_scan_fused_ref(*args[:7], states=True)
+    got = ssm.selective_scan_fused_bwd_ref(*args, states)
+    want = ssm.selective_scan_fused_bwd_ref(*args)
+    for name, g, w in zip(scan_cases.GRADS, got, want):
+        assert (g is None) == (w is None), name
+        assert g is None or torch.equal(g, w), name
+
+
 def test_scan_fused_bwd_plan_and_refusals():
     """`plan_fused_bwd`: 4 states a thread, 64 columns a block at N = 16,
-    the scratch the library checks; the wrapper refuses CPU tensors and
-    a dy of the wrong shape before any library is loaded."""
+    a saved state every 8 steps, the scratch the library checks (the
+    blocks' dB_ and dC_ partials, dA's and dD's per b); the wrapper
+    refuses CPU tensors, a dy and saved states of the wrong shape before
+    any library is loaded."""
     from repro_torch.kernels.ssm import kernel as sk
     plan = sk.plan_fused_bwd(2, 4096, 8192, 16)
     assert (plan["columns"], plan["blocks_per_b"], plan["chunks"]) == (
-        64, 128, 256)
+        64, 128, 512)
+    assert plan["scratch_floats"] == 128 * 2 * 4096 * 32 + 2 * 8192 * 17
+    assert sk.states_shape(2, 4096, 8192, 16) == (2, 512, 8192, 16)
+    assert sk.states_shape(1, 17, 5, 3) == (1, 3, 5, 3)
     assert sk.plan_fused_bwd(1, 1, 5, 3)["columns"] == 256
     args = scan_cases.bwd_inputs(BWD_CASES[0], 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         sk.selective_scan_fused_bwd_cuda(*args)
     sk.reset_launches()
     assert sk.LAUNCHES["selective_scan_fused_bwd"] == 0
+    assert not sk.BWD_ROUTES
