@@ -42,7 +42,9 @@ against `wkv_bwd_ref` and `selective_scan_fused_bwd_ref` on
 final state's gradient, dh 32/64/128, S = 1 and off the chunk, bf16 and
 float32, decays held at 0 and 1, strided B_ and C_, D omitted, exp's
 denormal range), float32 gradients within 1e-4 of their scale and bf16
-ones one rounding more, every third case twice, bit for bit).
+ones one rounding more, every third case twice, bit for bit; the scan's
+by both routes, from states a forward launch saved and without them,
+its launches counted by route exactly).
 Then it drives fifteen paths at a real size, each with the launch
 counts zeroed just before it and read just after:
 
@@ -163,7 +165,8 @@ of their scale;
   at its published widths, 8 of 32 layers (2 wkv and 1 `wkv_bwd` launch
   a layer and step); `jamba-v0.1-52b` at its published widths as one
   period of 8 layers without experts (2 fused scan and 1 backward launch
-  a Mamba layer and step, 2 attention and 1 `flash_bwd`); and
+  a Mamba layer and step, every backward on the route that reads the
+  forward's saved states; 2 attention and 1 `flash_bwd`); and
   `seamless-m4t-medium` whole with seeded frames of 4096 a row (2 forward
   and 1 backward launch for each of its 36 attentions a step, all on the
   tensor cores); each with a gradient check through the kernels vs
@@ -191,7 +194,10 @@ log-sum-exp write; both scan kernels, the fused one at the Jamba
 path's shapes and the unfused one at the same (B, S, D, N), also by the
 profiler's device time; the wkv and fused scan backwards at their
 training paths' shapes, (2, 4096, 40, 64) and (2, 4096, 8192, 16) bf16,
-beside their plain versions and the forward kernel at the same shape.
+with the profiler's device time of each of their kernels, beside their
+plain versions, the forward kernel at the same shape as the training
+path runs it (the fused scan's saving its states) and the two together,
+and their time before this redesign (`earlier_ms`).
 
 Every phase prints one JSON line; any failure raises and the script
 exits nonzero. The last lines are the kernels line, the card's name and

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Time the wkv backward kernel under other tuning constants.
 
-    python3 scripts/wkv_bwd_variants.py [--variants 256:32 512:64 ...]
+    python3 scripts/wkv_bwd_variants.py [--variants 32:2 32:4 64:2
+                                         32:2+no_products ...]
 
-Builds `src/repro_torch/kernels/rwkv/csrc/` once per variant
-THREADS:COLS (`-DWKV_BWD_THREADS_64=THREADS -DWKV_BWD_STATE_COLS=COLS`:
-the chunk pass's threads a block at dh = 64, 8 columns of one key a
-thread, so 512 holds all 64 keys and 256 half of them; the states pass's
-value columns a block), one nvcc each, all started together, with
-`kernel.py`'s plan set to match. For each build it holds the backward
+Builds `src/repro_torch/kernels/rwkv/csrc/` once per variant COLS:KSPLIT
+(`-DWKV_BWD_STATE_COLS=COLS -DWKV_BWD_STATE_KSPLIT=KSPLIT`: the states
+pass's value columns a block, and the warps that split a 16 columns'
+keys), one nvcc each, all started together, with `kernel.py`'s plan set
+to match. A variant may add `+EDIT`s from `EDITS`, diagnostic changes of
+the chunk pass made in a copy under `build/wkv_bwd_variants/` (wrong
+results; they show what a stage costs): `no_products` (the mma products
+X, Y, B and Z skipped), `no_keys` (the per-key sums skipped), `no_A`
+(the sum over the keys for dv skipped), `no_dv` (dv's sum skipped). For
+each build without edits it holds the backward
 against `wkv_bwd_ref` on the `heads40` edge case and times it at the
 RWKV train path's shape (2, 4096, 40, 64) bf16 from the model's decays:
 median of 10 CUDA-event timings, L2 flushed, and the profiler's device
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -29,11 +35,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
+EDITS = {
+    "no_products": [
+        ("for (int task = warp; task < KT / 4 + 2; task += NW) {",
+         "for (int task = warp; task < 0; task += NW) {"),
+        ("for (int n0 = 8 * warp; n0 < DH; n0 += 8 * NW) {",
+         "for (int n0 = 8 * warp; n0 < 0; n0 += 8 * NW) {")],
+    "no_keys": [("    switch (part) {", "    switch (part + 16) {")],
+    "no_A": [("        if (e < CWS - 1)\n", "        if (false)\n")],
+    "no_dv": [("            for (int s2 = t; s2 < BC; ++s2)\n"
+               "                acc = fmaf(sA[s2 * TS + t], sd[s2 * RS + j], "
+               "acc);\n", "")],
+}
+
+
+def edited_csrc(src_dir: Path, name: str, edits: list[str]) -> Path:
+    """A copy of the kernels' sources with `edits` applied, under build/."""
+    out = ROOT / "build" / "wkv_bwd_variants" / name.replace(":", "_")
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(src_dir, out)
+    path = out / "wkv_bwd.cu"
+    text = path.read_text()
+    for edit in edits:
+        for old, new in EDITS[edit]:
+            if old not in text:
+                raise SystemExit(f"edit {edit}: {old!r} is not in the source")
+            text = text.replace(old, new)
+    path.write_text(text)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+",
-                    default=["256:32", "512:32", "256:64", "256:16"])
+                    default=["32:2", "32:4", "64:2", "32:2"])
     args = ap.parse_args()
 
     import torch
@@ -47,11 +83,13 @@ def main() -> int:
 
     libs = {}
     for name in dict.fromkeys(args.variants):
-        threads, cols = (int(x) for x in name.split(":"))
-        libs[name] = _build.Library(
-            "rwkv", rk.LIBRARY.csrc, rk._declare,
-            (f"-DWKV_BWD_THREADS_64={threads}",
-             f"-DWKV_BWD_STATE_COLS={cols}"))
+        tuning, *edits = name.split("+")
+        cols, ksplit = tuning.split(":")
+        csrc = (edited_csrc(rk.LIBRARY.csrc, name, edits) if edits
+                else rk.LIBRARY.csrc)
+        libs[name] = _build.Library("rwkv", csrc, rk._declare,
+                                    (f"-DWKV_BWD_STATE_COLS={cols}",
+                                     f"-DWKV_BWD_STATE_KSPLIT={ksplit}"))
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
 
@@ -60,15 +98,15 @@ def main() -> int:
     B, S, H, dh = 2, 4096, 40, 64
     train = ("train", (B, S, H, dh), "bfloat16", False, "model")
     for name in args.variants:
-        threads, cols = (int(x) for x in name.split(":"))
+        tuning, *edits = name.split("+")
         rk.LIBRARY = libs[name]
-        rk.BWD_THREADS = {**rk.BWD_THREADS, 64: threads}
-        rk.BWD_STATE_COLS = cols
+        rk.BWD_STATE_COLS, rk.BWD_STATE_KSPLIT = (int(x) for x in
+                                                  tuning.split(":"))
         rk.plan_bwd.cache_clear()
         small = cases.bwd_inputs(edge, 3, "cuda")
-        errs = cs.bwd_kernel_check(f"wkv_bwd {name}", rk.wkv_bwd_cuda(*small),
-                                   wkv_bwd_ref(*small), cases.GRADS,
-                                   cases.BWD_TOL)
+        errs = None if edits else cs.bwd_kernel_check(
+            f"wkv_bwd {name}", rk.wkv_bwd_cuda(*small), wkv_bwd_ref(*small),
+            cases.GRADS, cases.BWD_TOL)
         r, k, v, w, u, _, dout, _ = cases.bwd_inputs(train, 11, "cuda")
         f32 = dict(dtype=torch.float32, device="cuda")
         grads = [torch.empty_like(r) for _ in range(3)] + [

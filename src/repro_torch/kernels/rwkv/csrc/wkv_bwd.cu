@@ -29,9 +29,10 @@
 // 16 steps where the recurrence allows it.
 //   wkv_bwd_states: the two serial passes, over chunks rather than steps,
 //     in the chunked product form of wkv_prefill (its TF32 helpers in
-//     wkv_chunk.cuh). A block walks one (b, h)'s chunks for 64 value
-//     columns (32 at dh = 32), a warp holding 16 columns of the state in
-//     the mma accumulator layout:
+//     wkv_chunk.cuh). A block walks one (b, h)'s chunks for 32 value
+//     columns, a warp holding 16 columns and half the keys of the state in
+//     the mma accumulator layout, the inputs three stages deep by
+//     cp.async:
 //       forward  (k~_t = k_t prod_{s>t} w_s):  S <- W S + sum_t k~_t v_t^T
 //       backward (r~_t = r_t prod_{s<t} w_s):  G <- W G + sum_t r~_t dout_t^T
 //     (W = prod_t w_t of the chunk, the rows i scaled), the second walking
@@ -41,19 +42,28 @@
 //     pass's last G is ds0. Products of w only, so w = 0 and 1 need no
 //     care. The chunk's product runs as mma.sync m16n8k8 TF32 with split
 //     operands (bf16 v is exact in TF32 and is not split).
-//   wkv_bwd_chunk: a block per (b, h, chunk) and tile of KT keys (all dh
-//     keys up to dh = 64, 32 at dh = 128) with all dh columns, so the sums
-//     over j of dr, dk and dw stay in the block. A thread owns one key and
-//     E = 8 columns; from S_c it recomputes SUB = 8 states of the chunk
-//     into registers (the later half first, walking the earlier half once
-//     more), then walks them backwards from G_c with G in registers. A
-//     step's three sums over j go to the key's L = dh / 8 lanes by a
-//     reduce-scatter of shuffles (a lane ends with one of them), dv's
-//     sum over the warp's keys by a reduce-scatter too, then over the
-//     warps in warp order through shared memory once every SUB steps.
-//     dr, dk and dw leave through shared memory, coalesced, once a chunk.
+//   wkv_bwd_chunk: a block per (b, h, chunk) and tile of 64 keys (all of
+//     them up to dh = 64), two blocks an SM. It never forms S_{t-1} or G_t
+//     of a step: expanding both over the chunk from S_c and G_c turns every
+//     gradient into chunk products and per-key sums over the chunk's steps
+//     (`wkv_bwd_chunks_ref` in ../ref.py spells them out), with P_t =
+//     prod_{s<t} w_s, Q_t = prod_{s>t} w_s and pi(a, b) = prod_{a<s<b} w_s:
+//       X = S_c Dout^T, Y = G_c V^T, B = Dout V^T, Z = (K Q) G_c   (mma)
+//       g = rowsum(G_c . S_c)
+//       dr_t = P_t X[t] + sum_{s<t} k_s pi(s, t) B[t][s] + u k_t B[t][t]
+//       dk_t = Q_t Y[t] + sum_{s>t} r_s pi(t, s) B[s][t] + r_t u B[t][t]
+//       dw_t = Q_t P_t g + Q_t sum_{s<t} k_s pi(s, t) Y[s]
+//              + P_t sum_{s>t} r_s pi(t, s) X[s] + (the two chunk sums
+//              crossed through B)
+//       dv_t = Z_t + sum_{s>=t} A[s][t] dout_s,  A the chunk's r.k decays
+//     The products are mma.sync TF32 with split operands; the per-key sums
+//     are four threads a key (steps [0, 8), [8, 11), [11, 14), [14, 16):
+//     a step's sums grow with t), forward for dr and backward for dk and
+//     dw, each range starting from its sums formed directly. No sum over a key's columns or a
+//     column's keys crosses a block; at dh = 128 a tile's dv is a float
+//     partial.
 //   wkv_bwd_finish: du over (b, chunk) in order, and at dh = 128 dv over
-//     the four key tiles in order (there a tile's dv is a float partial).
+//     the two key tiles in order.
 // No float atomics: every sum has one order, so two calls agree bit for
 // bit.
 //
@@ -61,13 +71,15 @@
 // dout read and dr, dk, dv, dw written once (0.15 ms at 3.35 TB/s);
 // 14 float32 flops per (b, t, h) and state entry (the state once, G's
 // update, one FMA each of dr, dk, dv and dw's sums) against 67 TFLOP/s:
-// 0.28 ms, so operations bound it. This kernel recomputes the state 1.5
-// times in the walk, and its chunk matrices S_c and G_c (0.67 GB written
-// and read again at that shape) are its own traffic.
+// 0.28 ms, so operations bound it. This kernel's chunk matrices S_c and
+// G_c (0.67 GB written and read again at that shape) are its own
+// traffic.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wkv_chunk.cuh"
 
@@ -78,27 +90,27 @@ namespace {
 #ifndef WKV_BWD_STATE_COLS
 #define WKV_BWD_STATE_COLS 32    // states pass: value columns a block
 #endif
-#ifndef WKV_BWD_THREADS_64
-#define WKV_BWD_THREADS_64 256   // chunk pass at dh = 64: threads a block
+#ifndef WKV_BWD_STATE_KSPLIT
+#define WKV_BWD_STATE_KSPLIT 2   // states pass: warps a 16 columns' keys
 #endif
 
 constexpr int BC = 16;                       // steps a chunk
-constexpr int SUB = 8;                       // steps a walk holds
-constexpr int NSUB = BC / SUB;
+constexpr int NSTAGE = 3;                    // states pass: input stages
 
 // ---------------------------------------------------------- wkv_bwd_states
 template <int DH>
 struct StatesCfg {
     static constexpr int JT = DH < WKV_BWD_STATE_COLS ? DH
                                                       : WKV_BWD_STATE_COLS;
-    static constexpr int NW = JT / 16;               // a warp per 16
-    static constexpr int THREADS = 32 * NW;
+    static constexpr int KSP = WKV_BWD_STATE_KSPLIT; // key parts
+    static constexpr int NW = JT / 16 * KSP;         // a warp per 16
+    static constexpr int THREADS = 32 * NW;          // columns and half
     static constexpr int CT = DH / JT;               // column tiles
     static constexpr int KS = 2 * DH + 8;            // floats a row of a~
     static constexpr int BS = JT + 8;                // elements a row of b
 };
 
-// Byte offsets of the states kernel's shared memory: two stages of raw
+// Byte offsets of the states kernel's shared memory: NSTAGE stages of raw
 // input (a: r or k, all keys, in r's dtype; w; b: v or dout, the block's
 // columns, in rows of BS elements of at most 4 bytes), then the prepared
 // chunk: a~ as {hi, lo} pairs in rows of KS floats, and W.
@@ -109,7 +121,7 @@ struct StatesSmem {
     static constexpr size_t W = A + (size_t)BC * DH * sizeof(T);
     static constexpr size_t B = W + (size_t)BC * DH * 4;
     static constexpr size_t STAGE = B + (size_t)BC * C::BS * 4;
-    static constexpr size_t AT = 2 * STAGE;
+    static constexpr size_t AT = NSTAGE * STAGE;
     static constexpr size_t WC = AT + (size_t)BC * C::KS * 4;
     static constexpr size_t BYTES = WC + (size_t)DH * 4;
 };
@@ -128,12 +140,13 @@ __device__ __forceinline__ void states_pass(
     using C = StatesCfg<DH>;
     using L = StatesSmem<DH, TA>;
     constexpr int JT = C::JT, TH = C::THREADS, KS = C::KS, BS = C::BS;
-    constexpr int NK = DH / 8;
+    constexpr int NK = DH / 8 / C::KSP;      // the warp's tiles of 8 keys
     constexpr bool SPLIT_B = sizeof(TB) == 4;  // bf16 is exact in TF32
     constexpr int AU = DH * (int)sizeof(TA) / 16;    // 16-byte pieces a row
     constexpr int WU = DH / 4, BU = JT * (int)sizeof(TB) / 16;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, c = lane & 3, jw = 16 * warp;
+    const int g = lane >> 2, c = lane & 3, jw = 16 * (warp % (JT / 16));
+    const int kb = warp / (JT / 16) * (DH / C::KSP);   // its first key
     const int j0 = tile * JT;
     const int b = (int)(bh / H), h = (int)(bh % H);
     const size_t row = (size_t)H * DH;
@@ -170,10 +183,11 @@ __device__ __forceinline__ void states_pass(
         cp_async_commit();
     };
 
-    // the warp's columns of the matrix, s[nu][e] = M[8 nu + 2c + (e & 1)]
-    // [j0 + jw + g + 8 (e >> 1)] (the m16n8 accumulator, m = column)
+    // the warp's columns and keys of the matrix, s[nu][e] = M[kb + 8 nu +
+    // 2c + (e & 1)][j0 + jw + g + 8 (e >> 1)] (the m16n8 accumulator, m =
+    // column)
     float s[NK][4];
-    const size_t mat0 = (size_t)bh * DH * DH + j0 + jw + g;
+    const size_t mat0 = (size_t)bh * DH * DH + (size_t)kb * DH + j0 + jw + g;
 #pragma unroll
     for (int nu = 0; nu < NK; ++nu)
 #pragma unroll
@@ -182,17 +196,21 @@ __device__ __forceinline__ void states_pass(
                                    * DH + 8 * (e >> 1)]
                             : 0.f;
 
-    issue(BACK ? chunks - 1 : 0, 0);
+    auto order = [&](int it) { return BACK ? chunks - 1 - it : it; };
+    issue(order(0), 0);
+    if (chunks > 1) issue(order(1), 1);
     for (int it = 0; it < chunks; ++it) {
-        const int ch = BACK ? chunks - 1 - it : it;
-        if (it + 1 < chunks) {
-            issue(BACK ? ch - 1 : ch + 1, (it + 1) & 1);
+        const int ch = order(it);
+        if (it + 2 < chunks) {               // two chunks ahead
+            issue(order(it + 2), (it + 2) % NSTAGE);
+            cp_async_wait<2>();
+        } else if (it + 1 < chunks) {
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
-        __syncthreads();                     // stage it & 1 is in
-        const unsigned char* stage = smem + (it & 1) * L::STAGE;
+        __syncthreads();                     // stage it % NSTAGE is in
+        const unsigned char* stage = smem + (it % NSTAGE) * L::STAGE;
         const TA* ar = reinterpret_cast<const TA*>(stage + L::A);
         const float* wr = reinterpret_cast<const float*>(stage + L::W);
         const TB* br = reinterpret_cast<const TB*>(stage + L::B);
@@ -212,7 +230,8 @@ __device__ __forceinline__ void states_pass(
         __syncthreads();                     // the prepared chunk is in
 
         // the matrix at this chunk's boundary, then X^T = B^T a~
-        float* mo = out + ((size_t)bh * chunks + ch) * DH * DH + j0 + jw + g;
+        float* mo = out + ((size_t)bh * chunks + ch) * DH * DH +
+                    (size_t)kb * DH + j0 + jw + g;
 #pragma unroll
         for (int nu = 0; nu < NK; ++nu)
 #pragma unroll
@@ -243,15 +262,15 @@ __device__ __forceinline__ void states_pass(
 #pragma unroll
             for (int ks = 0; ks < 2; ++ks) {
                 const float2 b0 = *reinterpret_cast<const float2*>(
-                    at + (8 * ks + c) * KS + 2 * (8 * kk + g));
+                    at + (8 * ks + c) * KS + 2 * (kb + 8 * kk + g));
                 const float2 b1 = *reinterpret_cast<const float2*>(
-                    at + (8 * ks + c + 4) * KS + 2 * (8 * kk + g));
+                    at + (8 * ks + c + 4) * KS + 2 * (kb + 8 * kk + g));
                 mma(x[ks], va[ks], b0.x, b1.x);
                 mma(x[ks], va[ks], b0.y, b1.y);
                 if constexpr (SPLIT_B) mma(x[ks], vl[ks], b0.x, b1.x);
             }
             const float2 wv = *reinterpret_cast<const float2*>(
-                wc + 8 * kk + 2 * c);
+                wc + kb + 8 * kk + 2 * c);
             s[kk][0] = fmaf(wv.x, s[kk][0], x[0][0] + x[1][0]);
             s[kk][1] = fmaf(wv.y, s[kk][1], x[0][1] + x[1][1]);
             s[kk][2] = fmaf(wv.x, s[kk][2], x[0][2] + x[1][2]);
@@ -302,21 +321,37 @@ wkv_bwd_states(const BwdArgs a) {
 }
 
 // ----------------------------------------------------------- wkv_bwd_chunk
+// A block per (b, h, chunk, tile of KT keys): the chunk's gradients as
+// chunk products of S_c, G_c and its inputs (see the header), no walk over
+// the steps' states.
 template <int DH>
 struct ChunkCfg {
-    static constexpr int E = 8;                      // columns a thread
-    static constexpr int L = DH / E;                 // lanes a key
-    static constexpr int THREADS = DH == 32 ? 128
-                                 : DH == 64 ? WKV_BWD_THREADS_64 : 512;
-    static constexpr int KT = THREADS / L;           // keys a block
+    static constexpr int KT = DH < 64 ? DH : 64;     // keys a block
     static constexpr int KTILES = DH / KT;
-    static constexpr int NW = THREADS / 32;
-    static constexpr int MIN_BLOCKS = 512 / THREADS; // at most 128 registers
-    // floats of shared memory: r, k, w [BC][KT]; v, dout [BC][DH]; v.dout
-    // and r.(u k) over the block's keys [BC]; dv's warp sums [SUB][NW][DH];
-    // dr, dk, dw [BC][KT]
-    static constexpr int SMEM = 6 * BC * KT + 2 * BC * DH + 2 * BC +
-                                SUB * NW * DH;
+    static constexpr int THREADS = 256, NW = THREADS / 32;
+    static constexpr int MIN_BLOCKS = DH <= 64 ? 2 : 1;
+    static constexpr int RS = DH + 4;        // floats a row of S_c, G_c, v...
+    static constexpr int TS = BC + 1;        // floats a row of X, Y, B, A
+    static constexpr int KS = 2 * KT + 8;    // floats a row of k~ {hi, lo}
+    static constexpr int CWS = BC * (BC - 1) / 2 + 1;   // a key's Cw
+    // float offsets: the union U holds S_c and G_c's rows first, then each
+    // key's Cw and the staged dr, dk, dw
+    static constexpr int U_SG = 2 * KT * RS;
+    static constexpr int U_CW = KT * CWS + 3 * BC * KT;
+    static constexpr int U = U_SG > U_CW ? U_SG : U_CW;
+    static constexpr int R = U, K = R + BC * KT, W = K + BC * KT;
+    static constexpr int V = W + BC * KT, D = V + BC * RS;
+    static constexpr int P = D + BC * RS, Q = P + BC * KT;
+    static constexpr int KTL = Q + BC * KT;  // k~ = k Q, split
+    static constexpr int X = KTL + BC * KS, Y = X + KT * TS;
+    static constexpr int B = Y + KT * TS, A = B + BC * TS;
+    static constexpr int G = A + BC * TS, Z = G + KT;
+    static constexpr int J = Z + BC * RS, DU = J + BC * KT;
+    // a key's steps split among PARTS threads at 8, 11 and 14 (the work of
+    // a step grows with t)
+    static constexpr int PARTS = THREADS / KT;
+    static constexpr int SMEM = DU + PARTS * KT;  // floats
+    static_assert(KT % 32 == 0 && (PARTS == 4 || PARTS == 8), "parts");
 };
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
@@ -324,46 +359,37 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16_rn(x);
 }
 
-// Sums v[0..CUR) over the lanes that differ in the bits O, 2 O, ... below
-// END of the lane index, scattering: at each bit while CUR > 1 a lane
-// keeps the half of the values its bit names (the upper half when set)
-// and adds its partner's copy of it; once one value is left the rest of
-// the bits add it whole. The order of every sum is fixed.
-template <int CUR, int O, int END>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-    if constexpr (O < END) {
-        if constexpr (CUR > 1) {
-            const bool up = (lane & O) != 0;
+// One m16n8k8 tile of M = Am · Bm^T over KD (a multiple of 8): Am rows
+// m0.. m0 + 15 and Bm rows n0.. n0 + 7 of row stride `ld` in shared memory,
+// both float32, split into TF32 hi and lo (hi·hi + hi·lo + lo·hi). acc in
+// the accumulator layout: (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1).
+template <int KD>
+__device__ __forceinline__ void mma_nt(float (&acc)[4], const float* am,
+                                       const float* bm, int lda, int ldb,
+                                       int lane) {
+    const int g = lane >> 2, c = lane & 3;
+    float x[2][4] = {};
 #pragma unroll
-            for (int i = 0; i < CUR / 2; ++i) {
-                const float keep = up ? v[i + CUR / 2] : v[i];
-                const float send = up ? v[i] : v[i + CUR / 2];
-                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-            }
-            reduce_scatter<CUR / 2, O * 2, END>(v, lane);
-        } else {
-            v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-            reduce_scatter<1, O * 2, END>(v, lane);
+    for (int k0 = 0; k0 < KD; k0 += 8) {
+        uint32_t ah[4], al[4];
+        const float av[4] = {am[g * lda + k0 + c], am[(g + 8) * lda + k0 + c],
+                             am[g * lda + k0 + c + 4],
+                             am[(g + 8) * lda + k0 + c + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 z = split(av[e]);
+            ah[e] = __float_as_uint(z.x);
+            al[e] = __float_as_uint(z.y);
         }
+        const float2 b0 = split(bm[g * ldb + k0 + c]);
+        const float2 b1 = split(bm[g * ldb + k0 + c + 4]);
+        float (&xs)[4] = x[(k0 >> 3) & 1];
+        mma(xs, ah, b0.x, b1.x);
+        mma(xs, ah, b0.y, b1.y);
+        mma(xs, al, b0.x, b1.x);
     }
-}
-
-// Which of the V values a lane holds after reduce_scatter<V, O, END>
-// (the first of V >> bits consecutive ones), and whether it is the lane
-// that writes them (its bits past the scattering ones are 0).
-template <int V, int O, int END>
-__device__ __forceinline__ int scatter_index(int lane, bool& writer) {
-    int idx = 0, cur = V;
-    writer = true;
-    for (int o = O; o < END; o <<= 1) {
-        if (cur > 1) {
-            if (lane & o) idx += cur / 2;
-            cur /= 2;
-        } else if (lane & o) {
-            writer = false;
-        }
-    }
-    return idx;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = x[0][e] + x[1][e];
 }
 
 template <typename T, int DH>
@@ -371,22 +397,31 @@ __global__ void __launch_bounds__(ChunkCfg<DH>::THREADS,
                                   ChunkCfg<DH>::MIN_BLOCKS)
 wkv_bwd_chunk(const BwdArgs a) {
     using C = ChunkCfg<DH>;
-    constexpr int E = C::E, L = C::L, TH = C::THREADS, KT = C::KT,
-                  NW = C::NW, KPW = 32 / L;
-    constexpr int DV_R = E / KPW;            // dv values a lane holds
-    static_assert(E >= KPW, "dv scatters over the warp's keys");
+    constexpr int KT = C::KT, TH = C::THREADS, RS = C::RS, TS = C::TS,
+                  KS = C::KS, CWS = C::CWS, NW = C::NW;
     extern __shared__ __align__(16) float sm[];
-    float* sr = sm;                          // [BC][KT]
-    float* sk = sr + BC * KT;
-    float* sw = sk + BC * KT;
-    float* sv = sw + BC * KT;                // [BC][DH]
-    float* sd = sv + BC * DH;
-    float* svd = sd + BC * DH;               // [BC]
-    float* sruk = svd + BC;                  // [BC]
-    float* sdv = sruk + BC;                  // [SUB][NW][DH]
-    float* sdr = sdv + SUB * NW * DH;        // [BC][KT]
+    float* sS = sm;                          // [KT][RS]: S_c's rows
+    float* sG = sm + KT * RS;                // [KT][RS]: G_c's rows
+    float* sCw = sm;                         // [KT][CWS], after the products
+    float* sdr = sm + KT * CWS;              // [BC][KT]
     float* sdk = sdr + BC * KT;
     float* sdw = sdk + BC * KT;
+    float* sr = sm + C::R;                   // [BC][KT]
+    float* sk = sm + C::K;
+    float* sw = sm + C::W;
+    float* sv = sm + C::V;                   // [BC][RS]
+    float* sd = sm + C::D;
+    float* sP = sm + C::P;                   // [BC][KT]
+    float* sQ = sm + C::Q;
+    float* skt = sm + C::KTL;                // [BC][KS]
+    float* sX = sm + C::X;                   // [KT][TS]
+    float* sY = sm + C::Y;
+    float* sB = sm + C::B;                   // [BC][TS]
+    float* sA = sm + C::A;
+    float* sg = sm + C::G;                   // [KT]
+    float* sZ = sm + C::Z;                   // [BC][RS]
+    float* sJ = sm + C::J;                   // [BC][KT]
+    float* sdu = sm + C::DU;                 // [PARTS][KT]
 
     const T* r = static_cast<const T*>(a.r);
     const T* k = static_cast<const T*>(a.k);
@@ -398,166 +433,289 @@ wkv_bwd_chunk(const BwdArgs a) {
     const long long bh = item / chunks;
     const int b = (int)(bh / H), h = (int)(bh % H);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int kl = warp * KPW + lane / L;    // this thread's key in the tile
-    const int i = ktile * KT + kl;           // ... in the head
-    const int jl = (lane % L) * E;           // its first column
-    const int t0 = ch * BC;
+    const int g = lane >> 2, c = lane & 3;
+    const int t0 = ch * BC, i0 = ktile * KT;
     const size_t row = (size_t)H * DH;       // stride of t
     const size_t base = ((size_t)b * S * H + h) * DH;   // (b, 0, h, 0)
     const size_t nel = (size_t)a.B * S * H * DH;
 
-    // the chunk's inputs; steps past S: w = 1 and r = k = v = dout = 0
-    for (int e = tid; e < BC * KT; e += TH) {
-        const int t = t0 + e / KT;
-        const bool ok = t < S;
-        const size_t off = base + (size_t)t * row + ktile * KT + e % KT;
-        sr[e] = ok ? to_float(r[off]) : 0.f;
-        sk[e] = ok ? to_float(k[off]) : 0.f;
-        sw[e] = ok ? a.w[off] : 1.f;
-    }
-    for (int e = tid; e < BC * DH; e += TH) {
-        const int t = t0 + e / DH;
-        const bool ok = t < S;
-        const size_t off = base + (size_t)t * row + e % DH;
-        sv[e] = ok ? to_float(v[off]) : 0.f;
-        sd[e] = ok ? a.dout[off] : 0.f;
-    }
-    __syncthreads();
-    for (int uu = warp; uu < BC; uu += NW) {
-        float p = 0.f, q = 0.f;
-        for (int ii = lane; ii < KT; ii += 32)
-            p += sr[uu * KT + ii] * a.u[h * DH + ktile * KT + ii] *
-                 sk[uu * KT + ii];
-        for (int jj = lane; jj < DH; jj += 32)
-            q += sv[uu * DH + jj] * sd[uu * DH + jj];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            p += __shfl_xor_sync(0xffffffffu, p, o);
-            q += __shfl_xor_sync(0xffffffffu, q, o);
-        }
-        if (lane == 0) {
-            sruk[uu] = p;
-            svd[uu] = q;
-        }
-    }
-    __syncthreads();
-
-    const size_t mat = ((size_t)bh * chunks + ch) * DH * DH + (size_t)i * DH
-                       + jl;
-    float G[E];
+    // S_c's and G_c's rows of the tile's keys, by cp.async
     {
-        const float4 g0 = *reinterpret_cast<const float4*>(a.gmat + mat);
-        const float4 g1 = *reinterpret_cast<const float4*>(a.gmat + mat + 4);
-        G[0] = g0.x; G[1] = g0.y; G[2] = g0.z; G[3] = g0.w;
-        G[4] = g1.x; G[5] = g1.y; G[6] = g1.z; G[7] = g1.w;
+        const size_t mat = ((size_t)bh * chunks + ch) * DH * DH +
+                           (size_t)i0 * DH;
+        constexpr int PIECES = KT * DH / 4;
+        for (int x = tid; x < 2 * PIECES; x += TH) {
+            const int m = x / PIECES, e = x % PIECES;
+            const int i = e / (DH / 4), q = e % (DH / 4);
+            cp_async16(sm + m * KT * RS + i * RS + 4 * q,
+                       (m ? a.gmat : a.smat) + mat + (size_t)i * DH + 4 * q,
+                       true);
+        }
+        cp_async_commit();
     }
-    bool red_writer;
-    const int red_idx = scatter_index<4, 1, L>(lane, red_writer);
-    bool dv_writer;
-    const int dv_idx = scatter_index<E, L, 32>(lane, dv_writer);
-
+    // the chunk's inputs, every load in flight before the first store;
+    // steps past S: w = 1 and r = k = v = dout = 0
+    {
+        constexpr int NI = BC * KT / TH, NJ = BC * DH / TH;
+        static_assert(NI * TH == BC * KT && NJ * TH == BC * DH, "tiling");
+        float lr[NI], lk[NI], lw[NI], lv[NJ], ld[NJ];
 #pragma unroll
-    for (int q = NSUB - 1; q >= 0; --q) {
-        float s[E];
-        {
-            const float4 s0 = *reinterpret_cast<const float4*>(a.smat + mat);
-            const float4 s1 =
-                *reinterpret_cast<const float4*>(a.smat + mat + 4);
-            s[0] = s0.x; s[1] = s0.y; s[2] = s0.z; s[3] = s0.w;
-            s[4] = s1.x; s[5] = s1.y; s[6] = s1.z; s[7] = s1.w;
-        }
-        float hs[SUB][E];                    // S_{t-1} of the walk's steps
-#pragma unroll
-        for (int uu = 0; uu < (q + 1) * SUB; ++uu) {
-            const float wi = sw[uu * KT + kl], ki = sk[uu * KT + kl];
-            const float4 v0 = *reinterpret_cast<const float4*>(
-                sv + uu * DH + jl);
-            const float4 v1 = *reinterpret_cast<const float4*>(
-                sv + uu * DH + jl + 4);
-            const float vj[E] = {v0.x, v0.y, v0.z, v0.w,
-                                 v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-            for (int e = 0; e < E; ++e) {
-                if (uu >= q * SUB) hs[uu - q * SUB][e] = s[e];
-                if (uu + 1 < (q + 1) * SUB) s[e] = fmaf(wi, s[e], ki * vj[e]);
-            }
+        for (int n = 0; n < NI; ++n) {
+            const int e = tid + n * TH, t = t0 + e / KT;
+            const bool ok = t < S;
+            const size_t off = base + (size_t)t * row + i0 + e % KT;
+            lr[n] = ok ? to_float(r[off]) : 0.f;
+            lk[n] = ok ? to_float(k[off]) : 0.f;
+            lw[n] = ok ? a.w[off] : 1.f;
         }
 #pragma unroll
-        for (int uu = SUB - 1; uu >= 0; --uu) {
-            const int t = q * SUB + uu;      // step in the chunk
-            const float ri = sr[t * KT + kl], ki = sk[t * KT + kl],
-                        wi = sw[t * KT + kl];
-            const float4 v0 = *reinterpret_cast<const float4*>(
-                sv + t * DH + jl);
-            const float4 v1 = *reinterpret_cast<const float4*>(
-                sv + t * DH + jl + 4);
-            const float4 d0 = *reinterpret_cast<const float4*>(
-                sd + t * DH + jl);
-            const float4 d1 = *reinterpret_cast<const float4*>(
-                sd + t * DH + jl + 4);
-            const float vj[E] = {v0.x, v0.y, v0.z, v0.w,
-                                 v1.x, v1.y, v1.z, v1.w};
-            const float dj[E] = {d0.x, d0.y, d0.z, d0.w,
-                                 d1.x, d1.y, d1.z, d1.w};
-            float red[4] = {0.f, 0.f, 0.f, 0.f}; // dr, dk, dw; 0
-            float dvp[E];
-#pragma unroll
-            for (int e = 0; e < E; ++e) {
-                red[0] = fmaf(dj[e], hs[uu][e], red[0]);
-                red[1] = fmaf(G[e], vj[e], red[1]);
-                red[2] = fmaf(G[e], hs[uu][e], red[2]);
-                dvp[e] = G[e] * ki;
-                G[e] = fmaf(wi, G[e], ri * dj[e]);
-            }
-            reduce_scatter<4, 1, L>(red, lane);          // the key's lanes
-            reduce_scatter<E, L, 32>(dvp, lane);         // the warp's keys
-            if (red_writer && red_idx < 3) {
-                float* o = red_idx == 0 ? sdr : red_idx == 1 ? sdk : sdw;
-                o[t * KT + kl] = red[0];
-            }
-            if (dv_writer) {
-#pragma unroll
-                for (int x = 0; x < DV_R; ++x)
-                    sdv[(uu * NW + warp) * DH + jl + dv_idx + x] = dvp[x];
-            }
+        for (int n = 0; n < NJ; ++n) {
+            const int e = tid + n * TH, t = t0 + e / DH;
+            const bool ok = t < S;
+            const size_t off = base + (size_t)t * row + e % DH;
+            lv[n] = ok ? to_float(v[off]) : 0.f;
+            ld[n] = ok ? a.dout[off] : 0.f;
         }
-        __syncthreads();
-        // dv of the walk's steps: the warps' sums in warp order, then the
-        // diagonal term of the block's keys
-        for (int e = tid; e < SUB * DH; e += TH) {
-            const int uu = e / DH, j = e % DH, t = q * SUB + uu;
-            if (t0 + t < S) {
-                float acc = sd[t * DH + j] * sruk[t];
-                for (int ww = 0; ww < NW; ++ww)
-                    acc += sdv[(uu * NW + ww) * DH + j];
-                const size_t off = base + (size_t)(t0 + t) * row + j;
-                if constexpr (C::KTILES == 1)
-                    put(static_cast<T*>(a.dv) + off, acc);
-                else
-                    a.pdv[(size_t)ktile * nel + off] = acc;
-            }
+#pragma unroll
+        for (int n = 0; n < NI; ++n) {
+            const int e = tid + n * TH;
+            sr[e] = lr[n];
+            sk[e] = lk[n];
+            sw[e] = lw[n];
         }
-        __syncthreads();                     // sdv is free again
+#pragma unroll
+        for (int n = 0; n < NJ; ++n) {
+            const int e = tid + n * TH;
+            sv[e / DH * RS + e % DH] = lv[n];
+            sd[e / DH * RS + e % DH] = ld[n];
+        }
     }
+    cp_async_wait<0>();
+    __syncthreads();
 
-    // dr, dk, dw of the chunk's steps, with their diagonal terms, and the
-    // keys' du partial
-    for (int e = tid; e < BC * KT; e += TH) {
-        const int t = e / KT, kk = e % KT;
+    // P_t, Q_t and k~ = k Q (split), a thread per key
+    for (int i = tid; i < KT; i += TH) {
+        float p = 1.f;
+#pragma unroll
+        for (int t = 0; t < BC; ++t) {
+            sP[t * KT + i] = p;
+            p *= sw[t * KT + i];
+        }
+        p = 1.f;
+#pragma unroll
+        for (int t = BC - 1; t >= 0; --t) {
+            sQ[t * KT + i] = p;
+            *reinterpret_cast<float2*>(skt + t * KS + 2 * i) =
+                split(sk[t * KT + i] * p);
+            p *= sw[t * KT + i];
+        }
+    }
+    // g = rowsum(G_c ⊙ S_c), TH / KT lanes a key
+    {
+        constexpr int TPK = TH / KT;
+        const int i = tid / TPK, part = tid % TPK;
+        float acc = 0.f;
+        for (int j = part; j < DH; j += TPK)
+            acc = fmaf(sG[i * RS + j], sS[i * RS + j], acc);
+#pragma unroll
+        for (int o = 1; o < TPK; o <<= 1)
+            acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (part == 0) sg[i] = acc;
+    }
+    // X = S_c Dout^T, Y = G_c V^T (keys × steps) and B = Dout V^T
+    // (steps × steps, B[t][s] = dout_t . v_s): a warp a 16 × 8 tile
+    for (int task = warp; task < KT / 4 + 2; task += NW) {
+        const int which = task / (KT / 8), n0 = task % 2 * 8;
+        const int m0 = which < 2 ? (task % (KT / 8)) / 2 * 16 : 0;
+        const float* am = which == 0 ? sS : which == 1 ? sG : sd;
+        float acc[4];
+        mma_nt<DH>(acc, am + m0 * RS, (which == 0 ? sd : sv) + n0 * RS, RS,
+                   RS, lane);
+        float* out = which == 0 ? sX : which == 1 ? sY : sB;
+        out[(m0 + g) * TS + n0 + 2 * c] = acc[0];
+        out[(m0 + g) * TS + n0 + 2 * c + 1] = acc[1];
+        out[(m0 + g + 8) * TS + n0 + 2 * c] = acc[2];
+        out[(m0 + g + 8) * TS + n0 + 2 * c + 1] = acc[3];
+    }
+    __syncthreads();
+
+    // Z = k~ G_c (steps × columns): a warp an 8-column tile
+    for (int n0 = 8 * warp; n0 < DH; n0 += 8 * NW) {
+        float x[2][4] = {};
+#pragma unroll
+        for (int k0 = 0; k0 < KT; k0 += 8) {
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float2 z = *reinterpret_cast<const float2*>(
+                    skt + (g + 8 * (e & 1)) * KS + 2 * (k0 + c + 4 * (e >> 1)));
+                ah[e] = __float_as_uint(z.x);
+                al[e] = __float_as_uint(z.y);
+            }
+            const float2 b0 = split(sG[(k0 + c) * RS + n0 + g]);
+            const float2 b1 = split(sG[(k0 + c + 4) * RS + n0 + g]);
+            float (&xs)[4] = x[(k0 >> 3) & 1];
+            mma(xs, ah, b0.x, b1.x);
+            mma(xs, ah, b0.y, b1.y);
+            mma(xs, al, b0.x, b1.x);
+        }
+        sZ[g * RS + n0 + 2 * c] = x[0][0] + x[1][0];
+        sZ[g * RS + n0 + 2 * c + 1] = x[0][1] + x[1][1];
+        sZ[(g + 8) * RS + n0 + 2 * c] = x[0][2] + x[1][2];
+        sZ[(g + 8) * RS + n0 + 2 * c + 1] = x[0][3] + x[1][3];
+    }
+    __syncthreads();                         // S_c and G_c are free
+
+    // the keys' forward part: dr, J (to sJ) and each step's Cw (to sCw),
+    // four threads a key, steps [0, 8), [8, 11), [11, 14) and [14, BC);
+    // each but the first starts from Cw[T0] formed directly
+    const int i = tid % KT, part = tid / KT;
+    const float ui = a.u[h * DH + i0 + (tid % KT)];
+    auto forward = [&](auto first, auto last) {
+        constexpr int T0 = decltype(first)::value, T1 = decltype(last)::value;
+        float cw[BC], du = 0.f;
+        if constexpr (T0 > 0) {              // Cw[T0][s] = k_s π(s, T0)
+            float p = 1.f;
+#pragma unroll
+            for (int s2 = T0 - 1; s2 >= 0; --s2) {
+                cw[s2] = sk[s2 * KT + i] * p;
+                p *= sw[s2 * KT + i];
+            }
+        }
+#pragma unroll
+        for (int t = T0; t < T1; ++t) {
+            const float kt = sk[t * KT + i];
+            float dri = 0.f, ji = 0.f;
+#pragma unroll
+            for (int s2 = 0; s2 < t; ++s2) {
+                dri = fmaf(cw[s2], sB[t * TS + s2], dri);
+                ji = fmaf(cw[s2], sY[i * TS + s2], ji);
+                sCw[i * CWS + t * (t - 1) / 2 + s2] = cw[s2];
+            }
+            sJ[t * KT + i] = ji;
+            const float btt = sB[t * TS + t];
+            sdr[t * KT + i] = fmaf(sP[t * KT + i], sX[i * TS + t], dri) +
+                              ui * kt * btt;
+            du = fmaf(sr[t * KT + i] * kt, btt, du);
+            const float wt = sw[t * KT + i];
+#pragma unroll
+            for (int s2 = 0; s2 < t; ++s2) cw[s2] *= wt;
+            cw[t] = kt;
+        }
+        sdu[part * KT + i] = du;
+    };
+    // the keys' backward part: dk and dw over the same four ranges of
+    // steps [T0, T1), the last from L = M = 0 and the others from L_{T1-1}
+    // and M_{T1-1} formed directly, where L_t[s] = sum over tau > t of
+    // r_tau π(t, tau) B[tau][s] and M_t the same over X[tau]
+    auto backward = [&](auto first, auto last) {
+        constexpr int T0 = decltype(first)::value, T1 = decltype(last)::value;
+        float L[BC], M = 0.f;
+#pragma unroll
+        for (int s2 = 0; s2 < BC; ++s2) L[s2] = 0.f;
+        if constexpr (T1 < BC) {
+            float p = 1.f;
+#pragma unroll
+            for (int tau = T1; tau < BC; ++tau) {
+                const float rho = sr[tau * KT + i] * p;
+#pragma unroll
+                for (int s2 = 0; s2 < T1; ++s2)
+                    L[s2] = fmaf(rho, sB[tau * TS + s2], L[s2]);
+                M = fmaf(rho, sX[i * TS + tau], M);
+                p *= sw[tau * KT + i];
+            }
+        }
+        const float gi = sg[i];
+#pragma unroll
+        for (int t = T1 - 1; t >= T0; --t) {
+            const float pt = sP[t * KT + i], qt = sQ[t * KT + i],
+                        wt = sw[t * KT + i], rt = sr[t * KT + i];
+            sdk[t * KT + i] = fmaf(qt, sY[i * TS + t], L[t]) +
+                              rt * ui * sB[t * TS + t];
+            float d2 = 0.f;
+#pragma unroll
+            for (int s2 = 0; s2 < t; ++s2)
+                d2 = fmaf(sCw[i * CWS + t * (t - 1) / 2 + s2], L[s2], d2);
+            sdw[t * KT + i] = qt * pt * gi + qt * sJ[t * KT + i] + pt * M +
+                              d2;
+#pragma unroll
+            for (int s2 = 0; s2 < t; ++s2)
+                L[s2] = fmaf(wt, L[s2], rt * sB[t * TS + s2]);
+            M = fmaf(wt, M, rt * sX[i * TS + t]);
+        }
+    };
+    using I0 = std::integral_constant<int, 0>;
+    using I8 = std::integral_constant<int, 8>;
+    using I11 = std::integral_constant<int, 11>;
+    using I14 = std::integral_constant<int, 14>;
+    using I16 = std::integral_constant<int, BC>;
+    static_assert(BC == 16, "the four ranges of steps");
+    switch (part) {
+        case 0: forward(I0{}, I8{}); break;
+        case 1: forward(I8{}, I11{}); break;
+        case 2: forward(I11{}, I14{}); break;
+        case 3: forward(I14{}, I16{}); break;
+        default: break;
+    }
+    __syncthreads();
+    switch (part) {
+        case 0: backward(I0{}, I8{}); break;
+        case 1: backward(I8{}, I11{}); break;
+        case 2: backward(I11{}, I14{}); break;
+        case 3: backward(I14{}, I16{}); break;
+        default: break;
+    }
+    __syncthreads();
+
+    // A[t][s] = sum over the keys of r_t Cw[t][s] (s < t): two threads an
+    // entry, a half of the keys each; A[t][t] = sum of r_t u k_t; du
+    {
+        const int e = tid >> 1, part = tid & 1;
+        int t = 1;
+        while ((t + 1) * t / 2 <= e) ++t;
+        float acc = 0.f;
+        if (e < CWS - 1)
+            for (int ii = part * KT / 2; ii < (part + 1) * KT / 2; ++ii)
+                acc = fmaf(sr[t * KT + ii], sCw[ii * CWS + e], acc);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (e < CWS - 1 && part == 0) sA[t * TS + e - t * (t - 1) / 2] = acc;
+    }
+    if (tid >= 2 * (CWS - 1) && tid < 2 * (CWS - 1) + BC) {
+        const int t = tid - 2 * (CWS - 1);
+        float acc = 0.f;
+        for (int ii = 0; ii < KT; ++ii)
+            acc = fmaf(sr[t * KT + ii] * a.u[h * DH + i0 + ii],
+                       sk[t * KT + ii], acc);
+        sA[t * TS + t] = acc;
+    }
+    for (int ii = tid; ii < KT; ii += TH)
+        a.pdu[((size_t)bh * chunks + ch) * DH + i0 + ii] =
+            (sdu[ii] + sdu[KT + ii]) + (sdu[2 * KT + ii] + sdu[3 * KT + ii]);
+    __syncthreads();
+
+    // dv = Z + sum over s >= t of A[s][t] dout_s (the tile's keys)
+    for (int e = tid; e < BC * DH; e += TH) {
+        const int t = e / DH, j = e % DH;
         if (t0 + t < S) {
-            const float ui = a.u[h * DH + ktile * KT + kk], vd = svd[t];
-            const size_t off = base + (size_t)(t0 + t) * row + ktile * KT +
-                               kk;
-            put(static_cast<T*>(a.dr) + off, sdr[e] + ui * sk[e] * vd);
-            put(static_cast<T*>(a.dk) + off, sdk[e] + sr[e] * ui * vd);
+            float acc = sZ[t * RS + j];
+            for (int s2 = t; s2 < BC; ++s2)
+                acc = fmaf(sA[s2 * TS + t], sd[s2 * RS + j], acc);
+            const size_t off = base + (size_t)(t0 + t) * row + j;
+            if constexpr (C::KTILES == 1)
+                put(static_cast<T*>(a.dv) + off, acc);
+            else
+                a.pdv[(size_t)ktile * nel + off] = acc;
+        }
+    }
+    // dr, dk, dw, coalesced over the keys
+    for (int e = tid; e < BC * KT; e += TH) {
+        const int t = e / KT;
+        if (t0 + t < S) {
+            const size_t off = base + (size_t)(t0 + t) * row + i0 + e % KT;
+            put(static_cast<T*>(a.dr) + off, sdr[e]);
+            put(static_cast<T*>(a.dk) + off, sdk[e]);
             a.dw[off] = sdw[e];
         }
-    }
-    for (int kk = tid; kk < KT; kk += TH) {
-        float acc = 0.f;
-        for (int t = 0; t < BC; ++t)
-            acc += sr[t * KT + kk] * sk[t * KT + kk] * svd[t];
-        a.pdu[((size_t)bh * chunks + ch) * DH + ktile * KT + kk] = acc;
     }
 }
 

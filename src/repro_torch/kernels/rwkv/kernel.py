@@ -34,9 +34,11 @@ is None). One launch call runs three kernels: the states pass (the state
 before each chunk of `BWD_CHUNK` steps and the gradient after it, each a
 serial walk over chunks in the chunked TF32 form of `wkv_prefill`, into
 a scratch buffer), the chunk pass (a block per (b, h, chunk) and tile of
-keys, all columns, parallel over chunks) and a finish that adds du over
-(b, chunk) in one order. `plan_bwd` decides it, `LAUNCHES["wkv_bwd"]`
-counts it and `launch_bwd` is its bare call.
+keys, parallel over chunks: each gradient as chunk products of those
+two matrices and the chunk's inputs, `ref.wkv_bwd_chunks_ref`'s
+formulas) and a finish that adds du over (b, chunk) in one order.
+`plan_bwd` decides it, `LAUNCHES["wkv_bwd"]` counts it and `launch_bwd`
+is its bare call.
 """
 
 from __future__ import annotations
@@ -113,20 +115,19 @@ def plan(B: int, S: int, H: int, dh: int,
                 RAW_STAGES * stage + 2 * prepared + levels)
 
 
-# The backward's tiling (`csrc/wkv_bwd.cu`'s BC, SUB, StatesCfg and
-# ChunkCfg).
+# The backward's tiling (`csrc/wkv_bwd.cu`'s BC, StatesCfg and ChunkCfg).
 BWD_CHUNK = 16                # steps between the saved chunk matrices
-BWD_WALK = 8                  # steps a thread's register walk holds
-BWD_COLS_PER_THREAD = 8       # chunk pass: one key and 8 columns a thread
 BWD_STATE_COLS = 32           # states pass: value columns a block
-BWD_THREADS = {32: 128, 64: 256, 128: 512}   # chunk pass: threads a block
+BWD_STATE_KSPLIT = 2          # states pass: warps a 16 columns' keys
+BWD_KEYS = 64                 # chunk pass: keys a block (of dh)
+BWD_THREADS = 256             # chunk pass: threads a block
 
 
 class BwdPlan(NamedTuple):
     """One call of `wkv_bwd_launch`: its three kernels."""
     state_cols: int           # states pass: value columns a block
     state_blocks: int         # both directions, column tiles fastest
-    state_threads: int        # a warp per 16 columns
+    state_threads: int        # a warp per 16 columns and half the keys
     state_smem: int
     key_tiles: int            # chunk pass: blocks a (b, h, chunk)
     blocks: int               # chunk pass
@@ -145,25 +146,28 @@ def plan_bwd(B: int, S: int, H: int, dh: int,
         raise ValueError(f"head size {dh} not built; the kernel takes "
                          f"{HEAD_DIMS}")
     T, es = BWD_CHUNK, 2 if dtype == torch.bfloat16 else 4
-    # states pass: two stages of raw r or k, w, and v or dout (rows of
+    # states pass: three stages of raw r or k, w, and v or dout (rows of
     # cols + 8 at 4 bytes at most); the prepared chunk ({hi, lo} rows of
     # 2 dh + 8 floats) and its decay
     cols = min(dh, BWD_STATE_COLS)
     stage = T * dh * es + T * dh * 4 + T * (cols + 8) * 4
-    state_smem = 2 * stage + T * (2 * dh + 8) * 4 + dh * 4
-    # chunk pass: a key and 8 columns a thread, a tile of keys a block
-    lanes = dh // BWD_COLS_PER_THREAD
-    threads = BWD_THREADS[dh]
-    key_tiles = dh // (threads // lanes)
-    keys = dh // key_tiles
-    smem = 4 * (6 * T * keys + 2 * T * dh + 2 * T
-                + BWD_WALK * threads // 32 * dh)
-    chunks = -(-S // T)
+    state_smem = 3 * stage + T * (2 * dh + 8) * 4 + dh * 4
+    # chunk pass (floats): S_c's and G_c's rows of the keys, later each
+    # key's Cw and the staged dr, dk, dw; r, k, w, P, Q, J; v, dout and Z
+    # in rows of dh + 4; k~ {hi, lo}; X, Y, B and A in rows of T + 1; g
+    # and du's part from each of the threads a key
+    keys = min(dh, BWD_KEYS)
+    rs, ts, cws = dh + 4, T + 1, T * (T - 1) // 2 + 1
+    union = max(2 * keys * rs, keys * cws + 3 * T * keys)
+    smem = 4 * (union + 6 * T * keys + 3 * T * rs + T * (2 * keys + 8)
+                + 2 * keys * ts + 2 * T * ts + keys + BWD_THREADS)
+    key_tiles, chunks = dh // keys, -(-S // T)
     scratch = (2 * B * H * chunks * dh * dh + B * H * chunks * dh
                + (key_tiles * B * S * H * dh if key_tiles > 1 else 0))
-    return BwdPlan(cols, 2 * B * H * (dh // cols), 32 * (cols // 16),
+    return BwdPlan(cols, 2 * B * H * (dh // cols),
+                   BWD_STATE_KSPLIT * 32 * (cols // 16),
                    state_smem, key_tiles, B * H * chunks * key_tiles,
-                   threads, smem, chunks, scratch)
+                   BWD_THREADS, smem, chunks, scratch)
 
 
 LAUNCHES: dict[str, int] = {"wkv": 0, "wkv_bwd": 0}

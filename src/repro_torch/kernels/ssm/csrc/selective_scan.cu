@@ -360,16 +360,33 @@ scan_fused(const float* __restrict__ dt, const float* __restrict__ A,
                 // the state for the backward: the warp's (d, n) rows
                 // through its rows of sH (free in the loop), then out as
                 // consecutive floats
+                if constexpr (NPT % 4 == 0) {
 #pragma unroll
-                for (int k = 0; k < NPT; ++k) sH[dl * SH + n0 + k] = h[k];
+                    for (int k = 0; k < NPT; k += 4)
+                        *reinterpret_cast<float4*>(sH + dl * SH + n0 + k) =
+                            make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < NPT; ++k) sH[dl * SH + n0 + k] = h[k];
+                }
                 __syncwarp();
+                const int lane = threadIdx.x & 31;
                 const int wd0 = (threadIdx.x >> 5) * (32 / G);
-                const int count = min(32 / G, dcount - wd0) * N;
+                const int rows = min(32 / G, dcount - wd0);
                 float* st = states + (((size_t)bi * n_states +
                                        (t0 + u) / SCAN_STATE_STEPS) * D + d0
                                       + wd0) * N;
-                for (int f = threadIdx.x & 31; f < count; f += 32)
-                    st[f] = sH[(wd0 + f / N) * SH + f % N];
+                if (NP % 4 == 0 && N == NP) {    // rows of NP / 4 float4s
+                    constexpr int PR = NP / 4 > 0 ? NP / 4 : 1;
+                    for (int f = lane; f < rows * PR; f += 32)
+                        *reinterpret_cast<float4*>(st + f / PR * NP +
+                                                   4 * (f % PR)) =
+                            *reinterpret_cast<const float4*>(
+                                sH + (wd0 + f / PR) * SH + 4 * (f % PR));
+                } else {
+                    for (int f = lane; f < rows * N; f += 32)
+                        st[f] = sH[(wd0 + f / N) * SH + f % N];
+                }
                 __syncwarp();
             }
             const float dtv = sb[buf].dx[0][u][dl], xv = sb[buf].dx[1][u][dl];

@@ -41,12 +41,13 @@
 // chunk's loads in flight in registers while this one is walked. d(dt)
 // and dx sum over n in the thread and over the d's lanes by a
 // reduce-scatter of shuffles (one lane ends with d(dt), the next with
-// dx's sum). dB_ and dC_ sum over d: within the warp by a reduce-scatter
-// of shuffles over its d's (each lane ends with one (n, B_ or C_) sum),
-// then over the warps once a chunk through shared memory in warp order;
-// each block writes its partial sums, and `scan_bwd_finish` adds the
-// blocks in block order (and dA and dD over b). No block-wide barrier in
-// the step loop, and no float atomics: two calls agree bit for bit.
+// dx's sum). dB_ and dC_ sum over d: within the warp each step through
+// the warp's own two buffers of shared memory (16-byte stores, one warp
+// barrier; each lane then adds one (n, B_ or C_) over the warp's d's in
+// order), then over the warps once a chunk in warp order; each block
+// writes its partial sums, and `scan_bwd_finish` adds the blocks in block
+// order (and dA and dD over b). No block-wide barrier in the step loop,
+// and no float atomics: two calls agree bit for bit.
 //
 // Bound on an H100 SXM (700 W) at the Jamba train shape (2, 4096, 8192,
 // 16) bf16: dt, x, dy read and d(dt), dx written once per (b, t, d), B_,
@@ -72,10 +73,15 @@ constexpr int BC = SCAN_STATE_STEPS;         // steps a chunk
 template <int NP>
 struct ScanBwdCfg {
     static constexpr int NPT = NP < 4 ? NP : 4, G = NP / NPT, DPB = BT / G;
-    static constexpr int NW = BT / 32;
+    static constexpr int NW = BT / 32, DPW = 32 / G;    // d's a warp
+    // a step's dB_/dC_ terms of a warp's d's: rows of 2 NP and padding, so
+    // that a quarter-warp's 16-byte stores meet no bank twice
+    static constexpr int WROW = 2 * NP + (NP >= 16 ? 16 : 8);
     // floats of shared memory: dt, x, dy [BC][DPB]; B_, C_ rows [BC][NP];
-    // the warps' dB_/dC_ sums [BC][NW][2 NP]
-    static constexpr int SMEM = 3 * BC * DPB + 2 * BC * NP + BC * NW * 2 * NP;
+    // the warps' dB_/dC_ sums [BC][NW][2 NP]; each warp's terms of a step,
+    // two buffers [NW][2][DPW][WROW]
+    static constexpr int SMEM = 3 * BC * DPB + 2 * BC * NP + BC * NW * 2 * NP +
+                                NW * 2 * DPW * WROW;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -240,9 +246,8 @@ scan_bwd(const ScanBwdArgs a) {
     bool dd_writer;
     const int dd_idx = scatter_index<2, 1, G>(lane, dd_writer);
     // the lane's (B_ or C_, n) sums of dB_ and dC_ over the warp's d's
-    bool bc_writer;
-    const int bc_idx = scatter_index<V, G, 32>(lane, bc_writer);
-    constexpr int BC_R = V >= 32 / G ? V / (32 / G) : 1;  // values it holds
+    const int dsub = lane / G;               // this thread's d in the warp
+    float* sterm = sred + BC * NW * 2 * NP + warp * 2 * C::DPW * C::WROW;
 
     fetch((a.chunks - 1) * BC);
     stash();
@@ -296,7 +301,6 @@ scan_bwd(const ScanBwdArgs a) {
             }
             dd[0] = fmaf(dd[1], xv, dd[0]);  // d(dt)'s part: + x sum G B_
             reduce_scatter<2, 1, G>(dd, lane);       // the d's lanes
-            reduce_scatter<V, G, 32>(v, lane);       // the warp's d's
             if (live && t < S && dd_writer) {
                 const size_t off = (row0 + t) * D + d;
                 if constexpr (G == 1) {
@@ -310,13 +314,33 @@ scan_bwd(const ScanBwdArgs a) {
                     put(dx + off, fmaf(dd[0], dtv, Dd * dyv));
                 }
             }
-            if (bc_writer) {
+            // dB_, dC_ over the warp's d's: the terms through this warp's
+            // buffer for the step, each lane then adding one (B_ or C_, n)
+            // over the d's in order
+            float* buf = sterm + (uu & 1) * C::DPW * C::WROW + dsub * C::WROW;
+            if constexpr (NPT % 4 == 0) {
 #pragma unroll
-                for (int r = 0; r < BC_R; ++r) {
-                    const int vi = bc_idx + r;   // (B_ or C_, k) of lane's n0
-                    sred[(uu * NW + warp) * 2 * NP + (vi / NPT) * NP + n0 +
-                         vi % NPT] = v[r];
+                for (int k = 0; k < NPT; k += 4) {
+                    *reinterpret_cast<float4*>(buf + n0 + k) =
+                        make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+                    *reinterpret_cast<float4*>(buf + NP + n0 + k) =
+                        make_float4(v[NPT + k], v[NPT + k + 1],
+                                    v[NPT + k + 2], v[NPT + k + 3]);
                 }
+            } else {
+#pragma unroll
+                for (int k = 0; k < NPT; ++k) {
+                    buf[n0 + k] = v[k];
+                    buf[NP + n0 + k] = v[NPT + k];
+                }
+            }
+            __syncwarp();
+            const float* tb = sterm + (uu & 1) * C::DPW * C::WROW;
+            for (int vi = lane; vi < 2 * NP; vi += 32) {
+                float acc = 0.f;
+#pragma unroll
+                for (int ds = 0; ds < C::DPW; ++ds) acc += tb[ds * C::WROW + vi];
+                sred[(uu * NW + warp) * 2 * NP + vi] = acc;
             }
         }
         __syncthreads();                     // the warps' sums are in

@@ -559,25 +559,25 @@ def test_wkv_bwd_chunks_ref_matches_the_step_backward(case):
 
 def test_wkv_bwd_plan_and_refusals():
     """`plan_bwd`: the states pass a block a (direction, b, h, 32
-    columns), a warp per 16 columns; the chunk pass a block a (b, h,
-    chunk, key tile), a key and 8 columns a thread; the shared memory
+    columns), a warp per 16 columns and half the keys; the chunk pass a
+    block of 256 threads a (b, h, chunk, tile of 64 keys), two an SM; the
+    shared memory
     and scratch the library checks; the wrapper refuses CPU tensors and
     a dout of the wrong shape, before any library is loaded."""
     from repro_torch.kernels.rwkv import kernel as rk
     p = rk.plan_bwd(2, 4096, 40, 64)
-    assert (p.state_cols, p.state_blocks, p.state_threads) == (32, 320, 64)
-    assert (p.key_tiles, p.blocks, p.threads) == (2, 2 * 80 * 256, 256)
-    assert p.chunks == 256 and p.smem_bytes <= 227 * 1024
+    assert (p.state_cols, p.state_blocks, p.state_threads) == (32, 320, 128)
+    assert (p.key_tiles, p.blocks, p.threads) == (1, 80 * 256, 256)
+    assert p.chunks == 256 and p.smem_bytes <= 113 * 1024   # two an SM
     assert p.state_smem <= 227 * 1024
-    assert p.scratch_floats == (2 * 80 * 256 * 64 * 64 + 80 * 256 * 64
-                                + 2 * 2 * 4096 * 40 * 64)
+    assert p.scratch_floats == 2 * 80 * 256 * 64 * 64 + 80 * 256 * 64
     p = rk.plan_bwd(1, 1, 1, 128)
     assert (p.state_blocks, p.state_threads, p.key_tiles, p.blocks,
-            p.threads) == (8, 64, 4, 4, 512)
+            p.threads) == (8, 128, 2, 2, 256)
     big = rk.plan_bwd(1, 1, 1, 128, torch.float32)
     assert big.smem_bytes <= 227 * 1024 and big.state_smem <= 227 * 1024
-    assert big.scratch_floats == 2 * 128 * 128 + 128 + 4 * 128
-    assert rk.plan_bwd(1, 17, 1, 32)[4:7] == (1, 2, 128)
+    assert big.scratch_floats == 2 * 128 * 128 + 128 + 2 * 128
+    assert rk.plan_bwd(1, 17, 1, 32)[4:7] == (1, 2, 256)
     assert rk.plan_bwd(1, 17, 1, 32).chunks == 2
     r, k, v, w, u, s0, dout, _ = bwd.bwd_inputs(BWD_CASES[0], 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
