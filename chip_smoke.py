@@ -412,8 +412,9 @@ TRAIN_NEW_STEPS, TRAIN_NEW_CKPT = 8, 4
 RWKV_TRAIN_LAYERS, JAMBA_GRAD_SEQ, ENCDEC_TRAIN_FRAMES = 8, 512, 4096
 WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv_bwd.cu"
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
-# the backwards' times at their train shapes before their redesign (PR
-# 26's kernels, NVIDIA H100 80GB HBM3 at 700 W: PERF.md rows 10-11)
+# the backwards' times at their train shapes before their redesign (the
+# kernels that saved their own states, NVIDIA H100 80GB HBM3 at 700 W:
+# PERF.md rows 10-11)
 WKV_BWD_EARLIER_MS = 6.062
 SCAN_BWD_EARLIER_MS = 4.378
 
@@ -3998,27 +3999,36 @@ def bwd_edge_phase(kind: str, routes: dict, plain_fn, cases_mod, device,
 
 
 def device_ms_parts(fn, flush, keys, iters: int = 10) -> dict:
-    """Device ms a run of `fn` spends in each kernel whose name holds one
-    of `keys` (the longest key that matches), from torch.profiler over
-    `iters` runs, L2 flushed before each."""
+    """Median device ms a run of `fn` spends in each kernel whose name
+    holds one of `keys` (the longest key that matches), from
+    torch.profiler over `iters` runs, L2 flushed before each. As in
+    `device_ms`, a window that shows fewer than half the runs of a kernel
+    is taken again, up to three; a kernel still missing is None. It
+    traces the host too: a card-only trace taken after the train phase's
+    host-and-card trace in the same process has seen no kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    sums = {key: [] for key in keys}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        hits = [key for key in keys if key in e.name]
-        if hits:
-            sums[max(hits, key=len)].append(
-                1e-3 * (e.time_range.end - e.time_range.start))
-    return {key: (sum(v) / len(v) if v else None) for key, v in sums.items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times: dict[str, list] = {key: [] for key in keys}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            hits = [key for key in keys if key in e.name]
+            if hits:
+                times[max(hits, key=len)].append(
+                    1e-3 * (e.time_range.end - e.time_range.start))
+        if all(len(v) >= iters // 2 for v in times.values()):
+            break
+    return {key: (statistics.median(v) if v else None)
+            for key, v in times.items()}
 
 
 def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,

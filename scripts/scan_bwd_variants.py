@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time diagnostic variants of PR 26's fused-scan backward kernel.
+"""Time diagnostic variants of the fused-scan backward that saved its own
+states (the design before this tree's).
 
     python3 scripts/scan_bwd_variants.py --tree build/parent
                                          [--variants base stored_exp ...]
 
-`--tree` is a checkout of PR 26's tree (before the kernel's redesign):
+`--tree` is a checkout of a tree with that design (commit 21f74b6):
 its `src/repro_torch/kernels/ssm/csrc/` is copied under
 `build/scan_bwd_variants/<variant>/` with the variant's edits of
 `selective_scan_bwd.cu` applied, built with that tree's `_build.py` and

@@ -1,20 +1,17 @@
 #!/usr/bin/env python3
-"""Time the wkv backward kernel under other tuning constants.
+"""Time diagnostic variants of the wkv backward kernel.
 
-    python3 scripts/wkv_bwd_variants.py [--variants 32:2 32:4 64:2
-                                         32:2+no_products ...]
+    python3 scripts/wkv_bwd_variants.py [--variants base no_products
+                                         no_keys+no_A ...]
 
-Builds `src/repro_torch/kernels/rwkv/csrc/` once per variant COLS:KSPLIT
-(`-DWKV_BWD_STATE_COLS=COLS -DWKV_BWD_STATE_KSPLIT=KSPLIT`: the states
-pass's value columns a block, and the warps that split a 16 columns'
-keys), one nvcc each, all started together, with `kernel.py`'s plan set
-to match. A variant may add `+EDIT`s from `EDITS`, diagnostic changes of
-the chunk pass made in a copy under `build/wkv_bwd_variants/` (wrong
-results; they show what a stage costs): `no_products` (the mma products
-X, Y, B and Z skipped), `no_keys` (the per-key sums skipped), `no_A`
-(the sum over the keys for dv skipped), `no_dv` (dv's sum skipped). For
-each build without edits it holds the backward
-against `wkv_bwd_ref` on the `heads40` edge case and times it at the
+Builds `src/repro_torch/kernels/rwkv/csrc/` once per variant, one nvcc
+each, all started together. A variant other than `base` is `+`-joined
+EDITS, diagnostic changes of the chunk pass made in a copy under
+`build/wkv_bwd_variants/` (wrong results; they show what a stage costs):
+`no_products` (the mma products X, Y, B and Z skipped), `no_keys` (the
+per-key sums skipped), `no_A` (the sum over the keys for dv skipped),
+`no_dv` (dv's sum skipped). It holds `base`
+against `wkv_bwd_ref` on the `heads40` edge case and times each at the
 RWKV train path's shape (2, 4096, 40, 64) bf16 from the model's decays:
 median of 10 CUDA-event timings, L2 flushed, and the profiler's device
 ms of each of its three kernels (`chip_smoke.py`'s helpers). Prints one
@@ -51,7 +48,7 @@ EDITS = {
 
 def edited_csrc(src_dir: Path, name: str, edits: list[str]) -> Path:
     """A copy of the kernels' sources with `edits` applied, under build/."""
-    out = ROOT / "build" / "wkv_bwd_variants" / name.replace(":", "_")
+    out = ROOT / "build" / "wkv_bwd_variants" / name
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(src_dir, out)
@@ -69,7 +66,7 @@ def edited_csrc(src_dir: Path, name: str, edits: list[str]) -> Path:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="+",
-                    default=["32:2", "32:4", "64:2", "32:2"])
+                    default=["base", "no_products", "no_keys", "base"])
     args = ap.parse_args()
 
     import torch
@@ -83,13 +80,9 @@ def main() -> int:
 
     libs = {}
     for name in dict.fromkeys(args.variants):
-        tuning, *edits = name.split("+")
-        cols, ksplit = tuning.split(":")
-        csrc = (edited_csrc(rk.LIBRARY.csrc, name, edits) if edits
-                else rk.LIBRARY.csrc)
-        libs[name] = _build.Library("rwkv", csrc, rk._declare,
-                                    (f"-DWKV_BWD_STATE_COLS={cols}",
-                                     f"-DWKV_BWD_STATE_KSPLIT={ksplit}"))
+        csrc = (rk.LIBRARY.csrc if name == "base" else
+                edited_csrc(rk.LIBRARY.csrc, name, name.split("+")))
+        libs[name] = _build.Library("rwkv", csrc, rk._declare)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
 
@@ -98,13 +91,9 @@ def main() -> int:
     B, S, H, dh = 2, 4096, 40, 64
     train = ("train", (B, S, H, dh), "bfloat16", False, "model")
     for name in args.variants:
-        tuning, *edits = name.split("+")
         rk.LIBRARY = libs[name]
-        rk.BWD_STATE_COLS, rk.BWD_STATE_KSPLIT = (int(x) for x in
-                                                  tuning.split(":"))
-        rk.plan_bwd.cache_clear()
         small = cases.bwd_inputs(edge, 3, "cuda")
-        errs = None if edits else cs.bwd_kernel_check(
+        errs = None if name != "base" else cs.bwd_kernel_check(
             f"wkv_bwd {name}", rk.wkv_bwd_cuda(*small), wkv_bwd_ref(*small),
             cases.GRADS, cases.BWD_TOL)
         r, k, v, w, u, _, dout, _ = cases.bwd_inputs(train, 11, "cuda")

@@ -85,24 +85,14 @@
 
 namespace {
 
-// The tuning constants may be set with -D (scripts/wkv_bwd_variants.py
-// builds and times such variants; ../kernel.py's plan_bwd must agree).
-#ifndef WKV_BWD_STATE_COLS
-#define WKV_BWD_STATE_COLS 32    // states pass: value columns a block
-#endif
-#ifndef WKV_BWD_STATE_KSPLIT
-#define WKV_BWD_STATE_KSPLIT 2   // states pass: warps a 16 columns' keys
-#endif
-
 constexpr int BC = 16;                       // steps a chunk
 constexpr int NSTAGE = 3;                    // states pass: input stages
 
 // ---------------------------------------------------------- wkv_bwd_states
 template <int DH>
 struct StatesCfg {
-    static constexpr int JT = DH < WKV_BWD_STATE_COLS ? DH
-                                                      : WKV_BWD_STATE_COLS;
-    static constexpr int KSP = WKV_BWD_STATE_KSPLIT; // key parts
+    static constexpr int JT = DH < 32 ? DH : 32;     // columns a block
+    static constexpr int KSP = 2;                    // key halves
     static constexpr int NW = JT / 16 * KSP;         // a warp per 16
     static constexpr int THREADS = 32 * NW;          // columns and half
     static constexpr int CT = DH / JT;               // column tiles
@@ -154,7 +144,7 @@ __device__ __forceinline__ void states_pass(
     float* at = reinterpret_cast<float*>(smem + L::AT);
     float* wc = reinterpret_cast<float*>(smem + L::WC);
 
-    auto issue = [&](int ch, int st) {
+    auto fetch_chunk = [&](int ch, int st) {
         unsigned char* stage = smem + st * L::STAGE;
         const int t0 = ch * BC;
         for (int x = tid; x < BC * AU; x += TH) {
@@ -197,12 +187,12 @@ __device__ __forceinline__ void states_pass(
                             : 0.f;
 
     auto order = [&](int it) { return BACK ? chunks - 1 - it : it; };
-    issue(order(0), 0);
-    if (chunks > 1) issue(order(1), 1);
+    fetch_chunk(order(0), 0);
+    if (chunks > 1) fetch_chunk(order(1), 1);
     for (int it = 0; it < chunks; ++it) {
         const int ch = order(it);
         if (it + 2 < chunks) {               // two chunks ahead
-            issue(order(it + 2), (it + 2) % NSTAGE);
+            fetch_chunk(order(it + 2), (it + 2) % NSTAGE);
             cp_async_wait<2>();
         } else if (it + 1 < chunks) {
             cp_async_wait<1>();
@@ -359,11 +349,21 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16_rn(x);
 }
 
+// x as TF32 hi + lo by truncation: three instructions to split()'s five,
+// and the products' error about 2^-20 of each (the operands' lower bits
+// cut twice) against split()'s 2^-22.
+__device__ __forceinline__ float2 split_trunc(float x) {
+    const float hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+    return make_float2(
+        hi, __uint_as_float(__float_as_uint(x - hi) & 0xffffe000u));
+}
+
 // One m16n8k8 tile of M = Am · Bm^T over KD (a multiple of 8): Am rows
 // m0.. m0 + 15 and Bm rows n0.. n0 + 7 of row stride `ld` in shared memory,
-// both float32, split into TF32 hi and lo (hi·hi + hi·lo + lo·hi). acc in
-// the accumulator layout: (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1).
-template <int KD>
+// both float32, Am split into TF32 hi and lo, and Bm too when SB (hi·hi +
+// hi·lo + lo·hi; a Bm from bf16 is exact in TF32). acc in the accumulator
+// layout: (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1).
+template <int KD, bool SB>
 __device__ __forceinline__ void mma_nt(float (&acc)[4], const float* am,
                                        const float* bm, int lda, int ldb,
                                        int lane) {
@@ -377,16 +377,23 @@ __device__ __forceinline__ void mma_nt(float (&acc)[4], const float* am,
                              am[(g + 8) * lda + k0 + c + 4]};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const float2 z = split(av[e]);
+            const float2 z = split_trunc(av[e]);
             ah[e] = __float_as_uint(z.x);
             al[e] = __float_as_uint(z.y);
         }
-        const float2 b0 = split(bm[g * ldb + k0 + c]);
-        const float2 b1 = split(bm[g * ldb + k0 + c + 4]);
         float (&xs)[4] = x[(k0 >> 3) & 1];
-        mma(xs, ah, b0.x, b1.x);
-        mma(xs, ah, b0.y, b1.y);
-        mma(xs, al, b0.x, b1.x);
+        if constexpr (SB) {
+            const float2 b0 = split_trunc(bm[g * ldb + k0 + c]);
+            const float2 b1 = split_trunc(bm[g * ldb + k0 + c + 4]);
+            mma(xs, ah, b0.x, b1.x);
+            mma(xs, ah, b0.y, b1.y);
+            mma(xs, al, b0.x, b1.x);
+        } else {
+            const float b0 = bm[g * ldb + k0 + c];
+            const float b1 = bm[g * ldb + k0 + c + 4];
+            mma(xs, ah, b0, b1);
+            mma(xs, al, b0, b1);
+        }
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[e] = x[0][e] + x[1][e];
@@ -506,7 +513,7 @@ wkv_bwd_chunk(const BwdArgs a) {
         for (int t = BC - 1; t >= 0; --t) {
             sQ[t * KT + i] = p;
             *reinterpret_cast<float2*>(skt + t * KS + 2 * i) =
-                split(sk[t * KT + i] * p);
+                split_trunc(sk[t * KT + i] * p);
             p *= sw[t * KT + i];
         }
     }
@@ -529,8 +536,11 @@ wkv_bwd_chunk(const BwdArgs a) {
         const int m0 = which < 2 ? (task % (KT / 8)) / 2 * 16 : 0;
         const float* am = which == 0 ? sS : which == 1 ? sG : sd;
         float acc[4];
-        mma_nt<DH>(acc, am + m0 * RS, (which == 0 ? sd : sv) + n0 * RS, RS,
-                   RS, lane);
+        if (which == 0)
+            mma_nt<DH, true>(acc, am + m0 * RS, sd + n0 * RS, RS, RS, lane);
+        else
+            mma_nt<DH, sizeof(T) == 4>(acc, am + m0 * RS, sv + n0 * RS, RS,
+                                       RS, lane);
         float* out = which == 0 ? sX : which == 1 ? sY : sB;
         out[(m0 + g) * TS + n0 + 2 * c] = acc[0];
         out[(m0 + g) * TS + n0 + 2 * c + 1] = acc[1];
@@ -552,8 +562,8 @@ wkv_bwd_chunk(const BwdArgs a) {
                 ah[e] = __float_as_uint(z.x);
                 al[e] = __float_as_uint(z.y);
             }
-            const float2 b0 = split(sG[(k0 + c) * RS + n0 + g]);
-            const float2 b1 = split(sG[(k0 + c + 4) * RS + n0 + g]);
+            const float2 b0 = split_trunc(sG[(k0 + c) * RS + n0 + g]);
+            const float2 b1 = split_trunc(sG[(k0 + c + 4) * RS + n0 + g]);
             float (&xs)[4] = x[(k0 >> 3) & 1];
             mma(xs, ah, b0.x, b1.x);
             mma(xs, ah, b0.y, b1.y);
@@ -719,7 +729,8 @@ wkv_bwd_chunk(const BwdArgs a) {
     }
 }
 
-// du: the (b, chunk) partials added b-major, chunks in order; with more
+// du: the (b, chunk) partials in eight interleaved sums (chunk mod 8) over
+// b and the chunks in order, then those in one order; with more
 // than one key tile, dv: the tiles' partials in tile order, cast to T.
 template <typename T, int KTILES>
 __global__ void wkv_bwd_finish(const BwdArgs a, int DH) {
@@ -729,16 +740,20 @@ __global__ void wkv_bwd_finish(const BwdArgs a, int DH) {
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
          idx < total; idx += stride) {
-        if (idx < hd) {
+        if (idx < hd) {              // eight sums in flight, then in order
             const int h = (int)(idx / DH), i = (int)(idx % DH);
-            float s = 0.f;
+            float s[8] = {};
             for (int b = 0; b < a.B; ++b) {
                 const float* p = a.pdu + ((size_t)(b * a.H + h) * a.chunks) *
                                  DH + i;
-#pragma unroll 8
-                for (int c = 0; c < a.chunks; ++c) s += p[(size_t)c * DH];
+                int c = 0;
+                for (; c + 8 <= a.chunks; c += 8)
+#pragma unroll
+                    for (int q = 0; q < 8; ++q) s[q] += p[(size_t)(c + q) * DH];
+                for (; c < a.chunks; ++c) s[0] += p[(size_t)c * DH];
             }
-            a.du[idx] = s;
+            a.du[idx] = ((s[0] + s[1]) + (s[2] + s[3])) +
+                        ((s[4] + s[5]) + (s[6] + s[7]));
         }
         if constexpr (KTILES > 1) {
             if (idx < nel) {

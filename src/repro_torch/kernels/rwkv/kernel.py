@@ -118,7 +118,7 @@ def plan(B: int, S: int, H: int, dh: int,
 # The backward's tiling (`csrc/wkv_bwd.cu`'s BC, StatesCfg and ChunkCfg).
 BWD_CHUNK = 16                # steps between the saved chunk matrices
 BWD_STATE_COLS = 32           # states pass: value columns a block
-BWD_STATE_KSPLIT = 2          # states pass: warps a 16 columns' keys
+BWD_STATE_KSPLIT = 2          # states pass: warps sharing 16 columns' keys
 BWD_KEYS = 64                 # chunk pass: keys a block (of dh)
 BWD_THREADS = 256             # chunk pass: threads a block
 

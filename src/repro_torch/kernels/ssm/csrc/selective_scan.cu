@@ -377,12 +377,12 @@ scan_fused(const float* __restrict__ dt, const float* __restrict__ A,
                                        (t0 + u) / SCAN_STATE_STEPS) * D + d0
                                       + wd0) * N;
                 if (NP % 4 == 0 && N == NP) {    // rows of NP / 4 float4s
-                    constexpr int PR = NP / 4 > 0 ? NP / 4 : 1;
-                    for (int f = lane; f < rows * PR; f += 32)
-                        *reinterpret_cast<float4*>(st + f / PR * NP +
-                                                   4 * (f % PR)) =
+                    constexpr int Q4 = NP / 4 > 0 ? NP / 4 : 1;
+                    for (int f = lane; f < rows * Q4; f += 32)
+                        *reinterpret_cast<float4*>(st + f / Q4 * NP +
+                                                   4 * (f % Q4)) =
                             *reinterpret_cast<const float4*>(
-                                sH + (wd0 + f / PR) * SH + 4 * (f % PR));
+                                sH + (wd0 + f / Q4) * SH + 4 * (f % Q4));
                 } else {
                     for (int f = lane; f < rows * N; f += 32)
                         st[f] = sH[(wd0 + f / N) * SH + f % N];

@@ -72,7 +72,6 @@ LIBRARY = Library("ssm", Path(__file__).resolve().parent / "csrc", _declare)
 BWD_THREADS = 256             # threads a block
 BWD_CHUNK = 8                 # steps between the states the forward saves
 BWD_STATES = 4                # states a thread (all of them when N <= 4)
-BWD_ROUTE_NAMES = ("saved", "recomputed")
 
 LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0,
                             "selective_scan_fused_bwd": 0}
