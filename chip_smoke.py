@@ -165,8 +165,8 @@ of their scale;
   at its published widths, 8 of 32 layers (2 wkv and 1 `wkv_bwd` launch
   a layer and step); `jamba-v0.1-52b` at its published widths as one
   period of 8 layers without experts (2 fused scan and 1 backward launch
-  a Mamba layer and step, every backward on the route that reads the
-  forward's saved states; 2 attention and 1 `flash_bwd`); and
+  a Mamba layer and step, the backward reading the states the forward
+  saved; 2 attention and 1 `flash_bwd`); and
   `seamless-m4t-medium` whole with seeded frames of 4096 a row (2 forward
   and 1 backward launch for each of its 36 attentions a step, all on the
   tensor cores); each with a gradient check through the kernels vs
@@ -196,8 +196,7 @@ profiler's device time; the wkv and fused scan backwards at their
 training paths' shapes, (2, 4096, 40, 64) and (2, 4096, 8192, 16) bf16,
 with the profiler's device time of each of their kernels, beside their
 plain versions, the forward kernel at the same shape as the training
-path runs it (the fused scan's saving its states) and the two together,
-and their time before this redesign (`earlier_ms`).
+path runs it (the fused scan's saving its states) and the two together.
 
 Every phase prints one JSON line; any failure raises and the script
 exits nonzero. The last lines are the kernels line, the card's name and
@@ -412,29 +411,15 @@ TRAIN_NEW_STEPS, TRAIN_NEW_CKPT = 8, 4
 RWKV_TRAIN_LAYERS, JAMBA_GRAD_SEQ, ENCDEC_TRAIN_FRAMES = 8, 512, 4096
 WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv_bwd.cu"
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
-# the backwards' times at their train shapes before their redesign (the
-# kernels that saved their own states, NVIDIA H100 80GB HBM3 at 700 W:
-# PERF.md rows 10-11)
-WKV_BWD_EARLIER_MS = 6.062
-SCAN_BWD_EARLIER_MS = 4.378
 
 
-def _scan_bwd_saved(*args):
-    """The fused scan's backward on its "saved" route: the states from a
-    forward launch that writes them, as `ops._ScanFused` runs it."""
+def scan_fwd_bwd(*args):
+    """The fused scan's backward from the states of a forward launch
+    that writes them, as `ops._ScanFused` runs the two: one launch of
+    each kernel."""
     from repro_torch.kernels import ssm as ts
     states = ts.selective_scan_fused_cuda(*args[:7], states=True)[2]
     return ts.selective_scan_fused_bwd_cuda(*args, states)
-
-
-def _scan_bwd_recomputed(*args):
-    from repro_torch.kernels import ssm as ts
-    return ts.selective_scan_fused_bwd_cuda(*args)
-
-
-# the fused scan backward's routes (kernels.ssm.BWD_ROUTES)
-SCAN_BWD_ROUTES = {"saved": _scan_bwd_saved,
-                   "recomputed": _scan_bwd_recomputed}
 
 
 def emit(obj) -> None:
@@ -1622,31 +1607,51 @@ def cuda_ms(fn, flush, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, flush, match: str, iters: int = 20) -> float:
-    """Median device time (ms) of the kernel whose name holds `match`,
-    from torch.profiler over `iters` runs of `fn`, L2 flushed before each:
-    the kernel alone, without the card's own launch latency that CUDA
-    events around a kernel of a few µs also count. The profiler may miss
-    runs of its window, at times most of them: a window that shows fewer
-    than half is taken again, and a third such window raises."""
+def device_ms_parts(fn, flush, keys, iters: int = 10) -> dict:
+    """Median device ms a run of `fn` spends in each kernel whose name
+    holds one of `keys` (the longest key that matches), from
+    torch.profiler over `iters` runs, L2 flushed before each. The
+    profiler may miss runs of its window, at times most of them: a window
+    that shows fewer than half the runs of a kernel is taken again, up to
+    three; a kernel still seen in fewer is None. It traces the host too:
+    a card-only trace taken after the train phase's host-and-card trace
+    in the same process has seen no kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        times = [1e-3 * (e.time_range.end - e.time_range.start)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and match in e.name]
-        if len(times) >= iters // 2:
-            return statistics.median(times)
-    raise AssertionError(f"profiler saw {len(times)} {match!r} kernels of "
-                         f"{iters}, three times")
+        times: dict[str, list] = {key: [] for key in keys}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            hits = [key for key in keys if key in e.name]
+            if hits:
+                times[max(hits, key=len)].append(
+                    1e-3 * (e.time_range.end - e.time_range.start))
+        if all(len(v) >= iters // 2 for v in times.values()):
+            break
+    return {key: (statistics.median(v) if len(v) >= iters // 2 else None)
+            for key, v in times.items()}
+
+
+def device_ms(fn, flush, match: str, iters: int = 20) -> float:
+    """Median device time (ms) of the kernel whose name holds `match`
+    (`device_ms_parts`): the kernel alone, without the card's own launch
+    latency that CUDA events around a kernel of a few µs also count.
+    Raises when three profiler windows each saw it in fewer than half
+    the runs."""
+    ms = device_ms_parts(fn, flush, (match,), iters)[match]
+    if ms is None:
+        raise AssertionError(f"profiler saw fewer than {iters // 2} "
+                             f"{match!r} kernels of {iters}, three times")
+    return ms
 
 
 def bound(host, prog=None) -> tuple[float, str]:
@@ -3960,75 +3965,39 @@ def bwd_kernel_check(name: str, got, want, names, tol: dict,
     return out
 
 
-def bwd_edge_phase(kind: str, routes: dict, plain_fn, cases_mod, device,
-                   seed: int, counter=None) -> dict:
-    """Every case of `cases_mod.bwd_cases()` through every route of the
-    backward kernel (`routes`: name -> a call on the case's inputs),
-    against its plain version within `cases_mod.BWD_TOL` of each
-    output's scale; every third case run twice, bit for bit. With
-    `counter` (the kernel's launches by route), each route's launches
-    must be exactly its calls."""
+def bwd_edge_phase(kind: str, kernel_fn, plain_fn, cases_mod, kernels,
+                   per_call: dict, device, seed: int) -> dict:
+    """Every case of `cases_mod.bwd_cases()` through `kernel_fn` (a call
+    of the backward kernel on the case's inputs) against its plain
+    version within `cases_mod.BWD_TOL` of each output's scale; every
+    third case run twice, bit for bit. `kernels` (the kernels' module)
+    must count exactly `per_call` launches a call (kernel name -> n) and
+    no other."""
     worst: dict[str, float] = {}
-    calls: dict[str, int] = {name: 0 for name in routes}
-    twice = 0
-    if counter is not None:
-        counter.clear()
+    calls = twice = 0
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for i, case in enumerate(cases_mod.bwd_cases()):
         args = cases_mod.bwd_inputs(case, seed + i, device)
         want = plain_fn(*args)
-        for route, kernel_fn in routes.items():
-            got = kernel_fn(*args)
-            again = kernel_fn(*args) if i % 3 == 0 else None
-            calls[route] += 1 + (again is not None)
-            twice += again is not None
-            errs = bwd_kernel_check(f"{kind} {case[0]} ({route})", got, want,
-                                    cases_mod.GRADS, cases_mod.BWD_TOL, again)
-            for what, rel in errs.items():
-                worst[what] = max(worst.get(what, 0.0), rel)
-            del got, again
-        del args, want
-    if counter is not None and dict(counter) != calls:
-        raise AssertionError(f"{kind} launched {dict(counter)} by route, "
-                             f"expected {calls}")
+        got = kernel_fn(*args)
+        again = kernel_fn(*args) if i % 3 == 0 else None
+        calls += 1 + (again is not None)
+        twice += again is not None
+        errs = bwd_kernel_check(f"{kind} {case[0]}", got, want,
+                                cases_mod.GRADS, cases_mod.BWD_TOL, again)
+        for what, rel in errs.items():
+            worst[what] = max(worst.get(what, 0.0), rel)
+        del args, want, got, again
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if launches != {k: n * calls for k, n in per_call.items()}:
+        raise AssertionError(f"{kind}: {calls} calls launched {launches}, "
+                             f"expected {per_call} a call")
     emit({"phase": f"{kind}_edge", "cases": len(cases_mod.bwd_cases()),
-          "routes": list(routes), "launches_by_route": calls,
+          "calls": calls, "launches": launches,
           "bitwise_repeats": twice, "max_scaled_err_by_output": worst,
           "tolerance": cases_mod.BWD_TOL, "wall_s": time.perf_counter() - t0})
     return worst
-
-
-def device_ms_parts(fn, flush, keys, iters: int = 10) -> dict:
-    """Median device ms a run of `fn` spends in each kernel whose name
-    holds one of `keys` (the longest key that matches), from
-    torch.profiler over `iters` runs, L2 flushed before each. As in
-    `device_ms`, a window that shows fewer than half the runs of a kernel
-    is taken again, up to three; a kernel still missing is None. It
-    traces the host too: a card-only trace taken after the train phase's
-    host-and-card trace in the same process has seen no kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        times: dict[str, list] = {key: [] for key in keys}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            hits = [key for key in keys if key in e.name]
-            if hits:
-                times[max(hits, key=len)].append(
-                    1e-3 * (e.time_range.end - e.time_range.start))
-        if all(len(v) >= iters // 2 for v in times.values()):
-            break
-    return {key: (statistics.median(v) if v else None)
-            for key, v in times.items()}
 
 
 def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,
@@ -4081,8 +4050,6 @@ def bwd_kernel_timing(entry: dict, cases_mod, case: tuple, seed: int,
                                  "train_shape_float32": errs32},
             "tolerance": cases_mod.BWD_TOL, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "share_of_bound": entry["bound_ms"] / ms,
-            "earlier_share_of_bound":
-                entry["bound_ms"] / entry["earlier_ms"],
             "device_ms_by_kernel": device_parts, "forward_ms": forward_ms,
             "forward_and_backward_ms": fwd_bwd_ms, **other_ms}
 
@@ -4110,7 +4077,6 @@ def wkv_bwd_timing_phase(tr, device, seed: int, launches: dict,
                                       *grads, None, scratch), grads,
                 lambda: tr.launch(r, k, v, w, u, None, out, state), {})
     entry = {"name": "wkv_bwd", "source": WKV_BWD_SOURCE,
-             "earlier_ms": WKV_BWD_EARLIER_MS,
              "replaces": PORT_ONLY.format("jax.grad of wkv_chunked, "
                                           "src/repro/models/rwkv6.py:111"),
              "launches": launches["wkv_bwd"],
@@ -4156,7 +4122,6 @@ def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
                 {"forward_without_states_ms": lambda: ts.launch_fused(
                     dt, A, B_, C_, x, Dv, None, y, h_fin)})
     entry = {"name": "scan_bwd", "source": SCAN_BWD_SOURCE,
-             "earlier_ms": SCAN_BWD_EARLIER_MS,
              "replaces": PORT_ONLY.format("jax.grad of chunked_diag_scan, "
                                           "src/repro/models/mamba.py:68"),
              "launches": launches["selective_scan_fused_bwd"],
@@ -4169,8 +4134,8 @@ def scan_bwd_timing_phase(ts, device, seed: int, launches: dict,
                        "h0": False, "D_skip": True}}
     return bwd_kernel_timing(
         entry, cases, ("train", (B, S, D, N), "bfloat16", False, True, False),
-        seed + 12, device, ts.selective_scan_fused_bwd_ref,
-        ts.selective_scan_fused_bwd_cuda, setup, edge,
+        seed + 12, device, ts.selective_scan_fused_bwd_ref, scan_fwd_bwd,
+        setup, edge,
         ("scan_bwd", "scan_bwd_finish"))
 
 
@@ -4278,7 +4243,6 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     import torch
 
     from repro_torch.kernels import attention as ta
-    from repro_torch.kernels import ssm as ts
     from repro_torch.launch.train import logs_store, make_loader, train
     from repro_torch.models import param_count
     from repro_torch.storage import InMemoryBlobStore
@@ -4312,7 +4276,6 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     wall_s = time.perf_counter() - t0
     launches = _all_launches()
     bwd_routes = dict(ta.BWD_ROUTES)
-    scan_routes = dict(ts.BWD_ROUTES)
     peak_bytes = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------
     n_params = param_count(state["params"])
@@ -4327,11 +4290,6 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
                       if want_all["flash_bwd"] else {}):
         raise AssertionError(f"{name}'s attention backward took the routes "
                              f"{bwd_routes}, not the tensor cores' alone")
-    scans = want_all["selective_scan_fused_bwd"]
-    if scan_routes != ({"saved": scans} if scans else {}):
-        raise AssertionError(f"{name}'s scan backward took the routes "
-                             f"{scan_routes}, not the forward's saved "
-                             "states alone")
     saved = sorted(int(n.split("step-")[1][:10]) for n in
                    ckpts.list("ckpt/") if n.endswith("MANIFEST.json"))
     if saved != [every, steps]:
@@ -4378,7 +4336,6 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
           "tokens_per_s": tokens / step_s, "peak_device_bytes": peak_bytes,
           "host_mb_after_run": host_after, "launches": launches,
           "launches_per_step": want, "bwd_routes": bwd_routes,
-          "scan_bwd_routes": scan_routes,
           "resumed_from": resumed.resumed_from, "resume_wall_s": resume_s,
           "resume_launches": resume_launches,
           "resumed_losses": resumed.losses, "resume_max_abs_diff": diff,
@@ -4684,12 +4641,13 @@ def main() -> int:
     scan_errs = scan_edge_phase(ts, device, args.seed)
     int8_errs = int8_edge_phase(ta, device)
     bwd_errs = attn_bwd_edge_phase(ta, device)
-    wkv_bwd_errs = bwd_edge_phase("wkv_bwd", {"cuda": tr.wkv_bwd_cuda},
-                                  tr.wkv_bwd_ref, rwkv_cases, device,
-                                  args.seed)
+    wkv_bwd_errs = bwd_edge_phase("wkv_bwd", tr.wkv_bwd_cuda,
+                                  tr.wkv_bwd_ref, rwkv_cases, tr,
+                                  {"wkv_bwd": 1}, device, args.seed)
     scan_bwd_errs = bwd_edge_phase(
-        "scan_bwd", SCAN_BWD_ROUTES, ts.selective_scan_fused_bwd_ref,
-        ssm_cases, device, args.seed, ts.BWD_ROUTES)
+        "scan_bwd", scan_fwd_bwd, ts.selective_scan_fused_bwd_ref,
+        ssm_cases, ts, {"selective_scan_fused": 1,
+                        "selective_scan_fused_bwd": 1}, device, args.seed)
     main = main_phase(args, device)
     serving = serving_phase(args, device, main)
     admin = cluster_admin_phase(args, device, main, serving)

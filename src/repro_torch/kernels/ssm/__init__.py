@@ -1,5 +1,5 @@
-from .kernel import (BWD_CHUNK, BWD_ROUTES, LAUNCH_SHAPES, LAUNCHES, LIBRARY,
-                     MAX_N, launch, launch_bwd, launch_fused, plan_fused_bwd,
+from .kernel import (BWD_CHUNK, LAUNCH_SHAPES, LAUNCHES, LIBRARY, MAX_N,
+                     launch, launch_bwd, launch_fused, plan_fused_bwd,
                      reset_launches, selective_scan_cuda,
                      selective_scan_fused_bwd_cuda, selective_scan_fused_cuda,
                      states_shape)
@@ -7,7 +7,7 @@ from .ops import selective_scan, selective_scan_fused
 from .ref import (selective_scan_fused_bwd_ref, selective_scan_fused_ref,
                   selective_scan_ref)
 
-__all__ = ["BWD_CHUNK", "BWD_ROUTES", "LAUNCH_SHAPES", "LAUNCHES", "LIBRARY",
+__all__ = ["BWD_CHUNK", "LAUNCH_SHAPES", "LAUNCHES", "LIBRARY",
            "MAX_N", "launch", "launch_bwd", "launch_fused", "plan_fused_bwd",
            "reset_launches", "selective_scan_cuda",
            "selective_scan_fused_bwd_cuda", "selective_scan_fused_cuda",

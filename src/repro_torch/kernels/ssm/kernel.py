@@ -23,12 +23,10 @@ dh_fin, it returns (d(dt) (B, S, D) float32, dA (D, N) float32, dB_ and
 dC_ (B, S, N) and dx (B, S, D) in x's dtype, dD (D,) float32 or None,
 dh0 (B, D, N) float32 or None). It recomputes each chunk of `BWD_CHUNK`
 steps from the forward's saved state before it, one exponential an
-element; dB_, dC_, dA and dD are added across blocks in one order by a
-second kernel of the same launch call. Two routes, counted in
-`BWD_ROUTES`: "saved" takes the states a `states=True` forward wrote
-(`ops._ScanFused` saves them), "recomputed" (no states given) first
-runs the forward kernel for them in the same launch call.
-`plan_fused_bwd` sizes the scratch.
+element, from the states a `states=True` forward wrote (`ops._ScanFused`
+saves them); dB_, dC_, dA and dD are added across blocks in one order by
+a second kernel of the same launch call. `plan_fused_bwd` sizes the
+scratch.
 
 `LAUNCHES[name]` counts each kernel's launches and `LAUNCH_SHAPES[name]`
 counts them by shape: (B, S, D, N, h0 given) for "selective_scan", (B,
@@ -76,14 +74,12 @@ BWD_STATES = 4                # states a thread (all of them when N <= 4)
 LAUNCHES: dict[str, int] = {"selective_scan": 0, "selective_scan_fused": 0,
                             "selective_scan_fused_bwd": 0}
 LAUNCH_SHAPES: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
-BWD_ROUTES: Counter = Counter()   # the backward's launches by route
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         LAUNCH_SHAPES[name].clear()
-    BWD_ROUTES.clear()
 
 
 def check_inputs(a, b, c, h0) -> None:
@@ -284,17 +280,19 @@ def plan_fused_bwd(B: int, S: int, D: int, N: int) -> dict:
             "chunks": chunks, "scratch_floats": scratch}
 
 
-def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
-                                  dh_fin=None, states=None) -> tuple:
+def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy, dh_fin,
+                                  states) -> tuple:
     """The gradients of `selective_scan_fused_cuda(dt, A, B_, C_, x, D,
     h0)` on the card, as `ref.selective_scan_fused_bwd_ref` gives them,
-    from the forward's `states` (route "saved") or, without them, from
-    states the forward kernel writes first in this call (route
-    "recomputed"). Raises on what the kernel does not take and when the
-    launch fails; there is no other path."""
+    from the `states` that forward wrote with `states=True`. Raises on
+    what the kernel does not take and when the launch fails; there is no
+    other path."""
     _check_fused(dt, A, B_, C_, x, D, h0)
     Bsz, S, Di = dt.shape
     N = A.shape[1]
+    if states is None:
+        raise ValueError("states must be the forward's (selective_scan_"
+                         "fused_cuda(..., states=True))")
     for name, t, want in (("dy", dy, (Bsz, S, Di)),
                           ("dh_fin", dh_fin, (Bsz, Di, N)),
                           ("states", states, states_shape(Bsz, S, Di, N))):
@@ -318,16 +316,10 @@ def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
     dD = None if D is None else torch.empty((Di,), **f32)
     dh0 = None if h0 is None else torch.empty((Bsz, Di, N), **f32)
     scratch = torch.empty(plan["scratch_floats"], **f32)
-    route = "saved" if states is not None else "recomputed"
     with torch.cuda.device(dt.device):
-        if states is None:           # the forward kernel writes them first
-            states = torch.empty(states_shape(Bsz, S, Di, N), **f32)
-            launch_fused(dt, A, B_, C_, x, D, h0, torch.empty_like(ddt),
-                         torch.empty((Bsz, Di, N), **f32), states)
         launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, states, ddt, dA, dB,
                    dC, dx, dD, dh0, scratch)
     LAUNCHES["selective_scan_fused_bwd"] += 1
-    BWD_ROUTES[route] += 1
     return ddt, dA, dB, dC, dx, dD, dh0
 
 

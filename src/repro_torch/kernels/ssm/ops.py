@@ -30,7 +30,7 @@ class _ScanFused(torch.autograd.Function):
     """The fused scan kernel forward, its backward kernel backward:
     gradients for dt, A, B_, C_, x, D and h0 from y's and the final
     state's. The forward saves the state before every `BWD_CHUNK`-th step
-    for the backward (its "saved" route)."""
+    for the backward."""
 
     @staticmethod
     def forward(ctx, dt, A, B_, C_, x, D, h0):

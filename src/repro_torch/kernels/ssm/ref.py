@@ -38,6 +38,8 @@ from __future__ import annotations
 
 import torch
 
+from .kernel import BWD_CHUNK
+
 
 def selective_scan_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                        h0: torch.Tensor | None = None
@@ -60,7 +62,7 @@ def selective_scan_fused_ref(dt: torch.Tensor, A: torch.Tensor,
                              x: torch.Tensor, D: torch.Tensor | None = None,
                              h0: torch.Tensor | None = None, *,
                              states: bool = False,
-                             chunk: int = 8) -> tuple:
+                             chunk: int = BWD_CHUNK) -> tuple:
     """dt (B, S, D) float32, A (D, N) float32, B_ and C_ (B, S, N), x (B,
     S, D), D (D,) or None, h0 (B, D, N) or None. Returns (y + D·x (B, S,
     D) float32, final h (B, D, N) float32), and with `states` the state
@@ -96,7 +98,7 @@ def selective_scan_fused_bwd_ref(dt: torch.Tensor, A: torch.Tensor,
                                  h0: torch.Tensor | None, dy: torch.Tensor,
                                  dh_fin: torch.Tensor | None = None,
                                  states: torch.Tensor | None = None,
-                                 chunk: int = 8) -> tuple:
+                                 chunk: int = BWD_CHUNK) -> tuple:
     """The gradients of `selective_scan_fused_ref(dt, A, B_, C_, x, D,
     h0)` for y's gradient `dy` (B, S, D) and the final state's `dh_fin`
     (B, D, N) or None (zeros). Returns (d(dt) (B, S, D) float32, dA (D, N)

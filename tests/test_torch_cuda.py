@@ -1333,26 +1333,21 @@ def test_wkv_through_autograd_uses_the_backward_kernel_on_card(card, case):
     _grads_close(got, want, _WKV_NAMES, wkv_cases.BWD_TOL, case)
 
 
-@pytest.mark.parametrize("route", ["saved", "recomputed"])
 @pytest.mark.parametrize("case", range(len(_SCAN_BWD)),
                          ids=[c[0] for c in _SCAN_BWD])
-def test_scan_fused_bwd_matches_plain_on_card(card, case, route):
+def test_scan_fused_bwd_matches_plain_on_card(card, case):
     """`selective_scan_fused_bwd_cuda` against
     `selective_scan_fused_bwd_ref` on every backward edge case
-    (`kernels.ssm.cases`: strided B_ and C_, exp's denormal range), by
-    both routes: from the states a forward launch saved, and without
-    them (the forward kernel writes them first in the same call):
-    float32 gradients within 1e-4 of their scale, bf16 ones (dB_, dC_,
-    dx) one rounding more; one launch counted on its route; a second
-    call equal bit for bit."""
+    (`kernels.ssm.cases`: strided B_ and C_, exp's denormal range), from
+    the states a forward launch saved: float32 gradients within 1e-4 of
+    their scale, bf16 ones (dB_, dC_, dx) one rounding more; one forward
+    and one backward launch counted; a second call equal bit for bit."""
     args = scan_cases.bwd_inputs(_SCAN_BWD[case], case, card)
-    states = (ts.selective_scan_fused_cuda(*args[:7], states=True)[2]
-              if route == "saved" else None)
     ts.reset_launches()
+    states = ts.selective_scan_fused_cuda(*args[:7], states=True)[2]
     got = ts.selective_scan_fused_bwd_cuda(*args, states)
-    assert ts.LAUNCHES["selective_scan_fused_bwd"] == 1
-    assert ts.LAUNCHES["selective_scan_fused"] == 0
-    assert dict(ts.BWD_ROUTES) == {route: 1}
+    assert ts.LAUNCHES == {"selective_scan": 0, "selective_scan_fused": 1,
+                           "selective_scan_fused_bwd": 1}
     want = ts.selective_scan_fused_bwd_ref(*args)
     torch.cuda.synchronize()
     _grads_close(got, want, scan_cases.GRADS, scan_cases.BWD_TOL,
@@ -1398,7 +1393,7 @@ def test_scan_fused_through_autograd_uses_the_backward_kernel_on_card(
     y, h = ts.selective_scan_fused(leaves[0], leaves[1], proj[..., :N],
                                    proj[..., N:], leaves[2], *extra,
                                    device=card)
-    assert dict(ts.BWD_ROUTES) == {}
+    assert ts.LAUNCHES["selective_scan_fused_bwd"] == 0
     loss = (y * dy).sum()
     if dh_fin is not None:
         loss = loss + (h * dh_fin).sum()
@@ -1406,7 +1401,6 @@ def test_scan_fused_through_autograd_uses_the_backward_kernel_on_card(
         t for t in extra if t is not None])
     assert ts.LAUNCHES["selective_scan_fused"] == 1
     assert ts.LAUNCHES["selective_scan_fused_bwd"] == 1
-    assert dict(ts.BWD_ROUTES) == {"saved": 1}
     ddt, dA, dB, dC, dx, dD, dh0 = ts.selective_scan_fused_bwd_ref(
         dt, A, B_, C_, x, D, h0, dy, dh_fin)
     want = [ddt, dA, dx, torch.cat([dB, dC], -1)] + [
@@ -1454,8 +1448,6 @@ def test_reduced_rwkv_and_jamba_training_resume_on_card(card, arch):
            else ts.LAUNCHES["selective_scan_fused_bwd"])
     assert bwd == 4 * (cfg.n_layers if arch == "rwkv6-3b"
                        else cfg.n_layers - cfg.n_layers // cfg.attn_every)
-    assert dict(ts.BWD_ROUTES) == ({} if arch == "rwkv6-3b"
-                                   else {"saved": bwd})
     ckpt = CheckpointManager(InMemoryBlobStore())
     _, first = run(model, fresh(0), Batches(), ckpt,
                    TrainLoopConfig(total_steps=2, **loop), opt)

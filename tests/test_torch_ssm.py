@@ -500,8 +500,8 @@ def test_scan_fused_bwd_plan_and_refusals():
     assert sk.states_shape(1, 17, 5, 3) == (1, 3, 5, 3)
     assert sk.plan_fused_bwd(1, 1, 5, 3)["columns"] == 256
     args = scan_cases.bwd_inputs(BWD_CASES[0], 0, "cpu")
+    states = ssm.selective_scan_fused_ref(*args[:7], states=True)[2]
     with pytest.raises(ValueError, match="CUDA"):
-        sk.selective_scan_fused_bwd_cuda(*args)
+        sk.selective_scan_fused_bwd_cuda(*args, states)
     sk.reset_launches()
     assert sk.LAUNCHES["selective_scan_fused_bwd"] == 0
-    assert not sk.BWD_ROUTES
