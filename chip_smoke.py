@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--docs 1000000] [--B 200000] [--seed 0]
+    python3 chip_smoke.py [--docs 250000] [--B 50000] [--seed 0]
                           [--lm-layers 8] [--jamba-layers 8] [--profile]
 
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc` (one nvcc
@@ -61,8 +61,8 @@ counts zeroed just before it and read just after:
   the host's top functions);
 - the serving tier over the same corpus and queries (`serving`): a
   4-shard `ShardedIndex` of all of it and a segmented `Index` of its
-  first 250,000 lines plus a committed segment of 50,000 new lines
-  and a memory segment of 20,000; `SearchService.search_batch` over the
+  first 50,000 lines plus a committed segment of 10,000 new lines
+  and a memory segment of 5,000; `SearchService.search_batch` over the
   segmented index (one AND and one planner launch per unit, equal to
   `impl="sorted"` in refs, texts and stats); 4 client threads through a
   `Frontend` over the cluster (every answer equal to the service's
@@ -73,8 +73,8 @@ counts zeroed just before it and read just after:
   (equal to the unsharded searcher); none of the bitmap kernels; then
   one fused batch under torch.profiler;
 - cluster management on that cluster (`cluster_admin`), on a fresh
-  handle: `reshard` to twice the slots, `split`, `merge_shards` and
-  `replicate` in alias mode (each writes only its manifest), `compact`
+  handle: `reshard` to twice the slots, `split` and `replicate` in
+  alias mode (each writes only its manifest), `compact`
   of one aliased shard, `append` of 4,000 new lines and
   `collect_garbage(keep=1)` past the grace window; after each, two
   fused batches of one `combine_cluster_keys` launch each (bit for bit
@@ -171,7 +171,22 @@ of their scale;
   and 1 backward launch for each of its 36 attentions a step, all on the
   tensor cores); each with a gradient check through the kernels vs
   plain autograd through the plain versions on a cut (1 layer; the same
-  period on 512 tokens; 1 + 1 layers).
+  period on 512 tokens; 1 + 1 layers);
+- sharding on the card (`sharded`): a DeviceMesh ("data", "model") =
+  (1, 1) over an NCCL group of one rank, formed once after the build.
+  `train`, `train_jamba` and `train_rwkv` each restore their own
+  mid-run checkpoint onto it (`launch.elastic.reshard_restore`, the
+  `baseline` rules) and take 3, 2 and 2 steps through
+  `launch.steps.make_train_step(cfg, mesh=)` on the batches their
+  unsharded run took there, every kernel (flash attention and
+  `flash_bwd`, the fused scan and its backward, wkv and its backward)
+  on the rank's shards through `local_map`, exactly as often as
+  unsharded; the losses against the unsharded run's (bit for bit
+  expected, within 1e-6). The `lm` path's model and weights take a
+  sharded prefill and 4 teacher-forced decode steps
+  (`make_prefill_step`/`make_decode_step(cfg, mesh=)`) beside the same
+  unsharded: one attention launch a layer and step, the logits within
+  1e-5 of their scale (bit for bit expected).
 
 Last, each kernel is timed at the shapes its path gave it (attention
 also at the windowed prefill, the per-row-position prefill beside the
@@ -239,7 +254,7 @@ assert QUERIES // 2 == GROUPS * PER
 
 # The serving tier over the main path's corpus: a cluster of
 # SERVING_SHARDS shards over all of it; a segmented index of its first
-# SEG_BASE lines (a second 1M-line build and sorted batch put the
+# SEG_BASE lines (a second whole-corpus build and sorted batch put the
 # script 116-170 s over its time before the serving phase)
 # plus SEG_APPEND new lines committed and SEG_ADD more in a memory
 # segment; FE_CLIENTS client threads through the frontend,
@@ -248,13 +263,16 @@ assert QUERIES // 2 == GROUPS * PER
 # drive takes the main path's queries in order of their unsharded
 # candidate count while their total stays within FUSED_CANDIDATES (at
 # 1M lines the queries split into about half with at most a few
-# hundred candidates and half with about 140,000: all of the first and
-# a few of the second); its top-None drive takes the queries whose
-# unsharded result has at most FUSED_FULL_MAX candidates.
+# hundred candidates and half with about 140,000, at 250k lines a
+# quarter of that: all of the first and a few of the second); its
+# top-None drive takes the queries whose unsharded result has at most
+# FUSED_FULL_MAX candidates. PR 28 cut this host-bound depth (`--docs`,
+# SEG_*, FUSED_CANDIDATES, ADMIN_*, the alias changes) to keep the
+# script inside its time with the `sharded` phase (PERF.md §4).
 SERVING_SHARDS = 4
-SEG_BASE, SEG_APPEND, SEG_ADD = 250_000, 50_000, 20_000
+SEG_BASE, SEG_APPEND, SEG_ADD = 50_000, 10_000, 5_000
 FE_CLIENTS, FE_MAX_BATCH = 4, 64
-FUSED_CANDIDATES = 1_500_000
+FUSED_CANDIDATES = 250_000
 FUSED_FULL_MAX = 1000
 
 REPLACES = {
@@ -351,7 +369,7 @@ ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_PROMPT = "seamless-m4t-medium", 4, 32
 # heavy queries beside ADMIN_TOPK_LIGHT light ones, all from the fused
 # drive's queries, after each membership change; ADMIN_SHARD is the
 # shard replicated and compacted; ADMIN_APPEND new lines are appended.
-ADMIN_LIGHT, ADMIN_TOPK_LIGHT, ADMIN_HEAVY = 32, 8, 2
+ADMIN_LIGHT, ADMIN_TOPK_LIGHT, ADMIN_HEAVY = 16, 8, 1
 ADMIN_SHARD, ADMIN_APPEND = 0, 4000
 
 # RAG serving: granite-20b (MQA, 48 query heads on one KV head) at its
@@ -411,6 +429,20 @@ TRAIN_NEW_STEPS, TRAIN_NEW_CKPT = 8, 4
 RWKV_TRAIN_LAYERS, JAMBA_GRAD_SEQ, ENCDEC_TRAIN_FRAMES = 8, 512, 4096
 WKV_BWD_SOURCE = "src/repro_torch/kernels/rwkv/csrc/wkv_bwd.cu"
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/ssm/csrc/selective_scan_bwd.cu"
+# Sharding on the card (`sharded`): one DeviceMesh ("data", "model") =
+# (1, 1) over an NCCL group of one rank, formed once in `main` (no
+# fallback). Each training path's run restores its own step-`every`
+# checkpoint onto the mesh (`launch.elastic.reshard_restore`, the
+# `baseline` rules) and takes SHARD_STEPS[path] steps through
+# `launch.steps.make_train_step(cfg, mesh=)` on the batches its
+# unsharded run took there; the `lm` path's model takes a sharded prefill
+# and SHARD_DECODE teacher-forced decode steps beside the same unsharded.
+# On one rank every collective is the identity and each kernel sees the
+# whole tensors, so bit for bit is expected; held within SHARD_LOSS_TOL
+# (losses, relative) and SHARD_LOGIT_TOL (logits, of their scale).
+SHARD_STEPS = {"train": 3, "train_jamba": 2, "train_rwkv": 2}
+SHARD_DECODE, SHARD_LOSS_TOL, SHARD_LOGIT_TOL = 4, 1e-6, 1e-5
+SHARD = {}                             # "mesh": the (1, 1) DeviceMesh
 
 
 def scan_fwd_bwd(*args):
@@ -1241,16 +1273,16 @@ def serving_phase(args, device, main: dict) -> dict:
 # --------------------------------------------------------- cluster admin
 def cluster_admin_phase(args, device, main: dict, serving: dict) -> dict:
     """Membership changes and GC on the serving phase's cluster, on a
-    fresh handle on the card: `reshard` to 2·SERVING_SHARDS slots, `split`,
-    `merge_shards` and `replicate` (alias mode: each writes only its
-    manifest), `compact` of one aliased shard (the one step that builds),
+    fresh handle on the card: `reshard` to 2·SERVING_SHARDS slots, `split`
+    and `replicate` (alias mode: each writes only its manifest),
+    `compact` of one aliased shard (the one step that builds),
     `append` of ADMIN_APPEND new lines, then `collect_garbage(keep=1)`
     past the grace window. After each step, `refresh()` and two fused
     batches, each exactly one `combine_cluster_keys` launch and nothing
     else, its output bit for bit the plain version's on the captured
     inputs: ADMIN_LIGHT light queries at top None (byte-identical to the
-    untouched cluster's answer through step 5; equal to the same
-    handle's per-shard `impl="sorted"` legs from step 6 on, when the
+    untouched cluster's answer through step 4; equal to the same
+    handle's per-shard `impl="sorted"` legs from step 5 on, when the
     appended lines change the answer) and, at top TOP_K, ADMIN_HEAVY
     heavy queries beside ADMIN_TOPK_LIGHT light ones (true hits, as many
     as the corpus holds up to TOP_K: a top-K answer is a sample whose
@@ -1351,7 +1383,6 @@ def cluster_admin_phase(args, device, main: dict, serving: dict) -> dict:
         ("reshard", lambda: handle.reshard(
             SERVING_SHARDS, n_slots=2 * SERVING_SHARDS)),
         ("split", lambda: handle.split(0)),
-        ("merge_shards", lambda: handle.merge_shards(0, 1)),
         ("replicate", lambda: handle.replicate(ADMIN_SHARD, 2)),
         ("compact", lambda: handle.compact(ADMIN_SHARD)),
         ("append", lambda: handle.append(extra)),
@@ -2211,7 +2242,8 @@ def lm_phase(args, device) -> dict:
                              f"(> {LM_TOL})")
     if args.profile:
         lm_profile(model, params, prompt)
-    return {"launches": launches, "shapes": shapes}
+    sharded = sharded_lm_run(cfg, params, prompt, out.tokens, device)
+    return {"launches": launches, "shapes": shapes, "sharded": sharded}
 
 
 def _device_time(prof):
@@ -3122,9 +3154,9 @@ def routed_alike(run_a, run_b):
         out.index_add_(0, tok.reshape(-1), y.reshape(E * C, D))
         return out.reshape(B, S, D)
     try:
-        blocks.moe_ffn_global = lambda x, p, cfg: moe(x, p, cfg, False)
+        blocks.moe_ffn_global = lambda x, p, cfg, *_: moe(x, p, cfg, False)
         a = run_a()
-        blocks.moe_ffn_global = lambda x, p, cfg: moe(x, p, cfg, True)
+        blocks.moe_ffn_global = lambda x, p, cfg, *_: moe(x, p, cfg, True)
         b = run_b()
     finally:
         blocks.moe_ffn_global = orig
@@ -4222,6 +4254,172 @@ def _grad_check_pair(kernel_model, plain_model, batch, device, seed: int,
             "tolerance": {"loss": GRAD_LOSS_TOL, "leaf": GRAD_LEAF_TOL}}
 
 
+def shard_mesh(device) -> None:
+    """The NCCL group of one rank (localhost, a free port) and the (1, 1)
+    ("data", "model") mesh over it, in SHARD["mesh"]."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=device)
+    SHARD["mesh"] = make_smoke_mesh(1, model=1)
+
+
+def _placed(tree) -> dict:
+    """How many leaves of `tree` are DTensors, and the distinct
+    placements among them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(tree)
+    return {"leaves": len(leaves),
+            "dtensors": sum(isinstance(t, DTensor) for t in leaves),
+            "placements": sorted({str(t.placements) for t in leaves
+                                  if isinstance(t, DTensor)})}
+
+
+def sharded_train_run(name: str, cfg, ckpts, ckpt_cfg, loader, every: int,
+                      steps: int, whole, want: dict, device) -> dict:
+    """The `sharded` phase's run on a training path: the path's
+    step-`every` checkpoint restored onto SHARD["mesh"] by
+    `reshard_restore`, then SHARD_STEPS[name] steps of
+    `make_train_step(cfg, mesh=)` (the kernels through `local_map` on the
+    rank's shards) on the batches the unsharded run took at steps every
+    + 1, ...; their losses against that run's, the launches `want` a
+    step (the rest 0), the step ms beside the unsharded run's."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.elastic import reshard_restore
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import CheckpointManager, OptimizerConfig
+
+    n, mesh = SHARD_STEPS[name], SHARD["mesh"]
+    bundle = make_train_step(
+        cfg, OptimizerConfig(lr=TRAIN_LR, total_steps=steps,
+                             warmup_steps=max(steps // 10, 1)), mesh=mesh)
+    t0 = time.perf_counter()
+    state, manifest = reshard_restore(CheckpointManager(ckpts, ckpt_cfg),
+                                      bundle.model, mesh, step=every)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    placed = _placed(state)
+    want_all = {k: 0 for k in _all_launches()}
+    want_all.update({k: v * n for k, v in want.items()})
+    losses, step_s = [], []
+    # ---- the sharded path: counts zeroed before, read after ----------
+    _reset_all_launches()
+    for i in range(n):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in loader.batch(every + i).items()}
+        t0 = time.perf_counter()
+        state, metrics = bundle.fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = _all_launches()
+    # -------------------------------------------------------------------
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = whole.losses[every:every + n]
+    diff = max(abs(a - b) for a, b in zip(losses, ref))
+    emit({"phase": "sharded", "run": name, "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.shape)), "profile": "baseline",
+        "restored_step": manifest["step"], "restore_s": restore_s,
+        "placed": placed, "steps": n, "losses": losses,
+        "unsharded_losses": ref, "max_abs_diff": diff,
+        "bitwise": diff == 0.0, "tolerance_rel": SHARD_LOSS_TOL,
+        "step_ms": [1e3 * t for t in step_s],
+        "unsharded_step_ms": [1e3 * t for t in
+                              whole.seconds[every:every + n]],
+        "launches": launches, "launches_per_step": want})
+    if placed["dtensors"] != placed["leaves"]:
+        raise AssertionError(f"sharded {name}: {placed}")
+    if launches != want_all:
+        raise AssertionError(f"sharded {name} launched {launches}, "
+                             f"expected {want_all}")
+    if not diff <= SHARD_LOSS_TOL * max(abs(x) for x in ref):
+        raise AssertionError(f"sharded {name}: losses {losses} vs the "
+                             f"unsharded run's {ref}")
+    return {"launches": launches, "bitwise": diff == 0.0}
+
+
+def sharded_lm_run(cfg, params, prompt, tokens, device) -> dict:
+    """The `sharded` phase's run on the `lm` path's model and weights: a
+    prefill of `prompt` and SHARD_DECODE decode steps fed `tokens`
+    through `make_prefill_step`/`make_decode_step(cfg, mesh=)` on the
+    weights placed by the `baseline` rules, against the same unsharded;
+    exactly one flash_attention launch a layer and step."""
+    import torch
+
+    from repro_torch.kernels import attention as ta
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.common import whole
+
+    mesh = SHARD["mesh"]
+    n, S = SHARD_DECODE, prompt.shape[1]
+
+    def forced(prefill, decode, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, {"tokens": prompt}, pad_to=S + n)
+        out = [whole(logits)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(n):
+            logits, cache = decode(p, cache, {"tokens": tokens[:, t:t + 1]})
+            out.append(whole(logits))
+        torch.cuda.synchronize()
+        return torch.stack(out), t1 - t0, (time.perf_counter() - t1) / n, \
+            cache
+
+    one_p, one_d = make_prefill_step(cfg), make_decode_step(cfg)
+    ref, ref_prefill_s, ref_decode_s, _ = forced(one_p.fn, one_d.fn, params)
+    pre, dec = make_prefill_step(cfg, mesh=mesh), make_decode_step(
+        cfg, mesh=mesh)
+    sharded = pre.distribute(params)
+    placed = _placed(sharded)
+    # ---- the sharded path: counts zeroed before, read after ----------
+    ta.reset_launches()
+    got, prefill_s, decode_s, cache = forced(pre.fn, dec.fn, sharded)
+    launches = dict(ta.LAUNCHES)
+    # -------------------------------------------------------------------
+    cache_placed = _placed({"k": cache["k"], "v": cache["v"]})
+    del sharded, cache
+    torch.cuda.empty_cache()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers * (1 + n)
+    emit({"phase": "sharded", "run": "lm", "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.shape)), "profile": "baseline",
+        "layers": cfg.n_layers, "batch": prompt.shape[0], "prompt": S,
+        "decode_steps": n, "placed": placed, "cache_placed": cache_placed,
+        "max_err_over_max_logit": err, "bitwise": err == 0.0,
+        "tolerance": SHARD_LOGIT_TOL, "prefill_ms": 1e3 * prefill_s,
+        "unsharded_prefill_ms": 1e3 * ref_prefill_s,
+        "decode_ms_per_step": 1e3 * decode_s,
+        "unsharded_decode_ms_per_step": 1e3 * ref_decode_s,
+        "launches": launches})
+    if placed["dtensors"] != placed["leaves"] or \
+            cache_placed["dtensors"] != 2:
+        raise AssertionError(f"sharded lm: {placed} {cache_placed}")
+    if launches != want:
+        raise AssertionError(f"sharded lm launched {launches}, expected "
+                             f"{want}")
+    if not err <= SHARD_LOGIT_TOL:
+        raise AssertionError(f"sharded lm logits differ by {err} of their "
+                             "scale from the unsharded path's")
+    return {"launches": launches["flash_attention"], "bitwise": err == 0.0}
+
+
 def train_arch_phase(args, device, name: str, published, cfg, want: dict,
                      reduced: list, grad: dict, frames: int = 0,
                      steps: int = TRAIN_NEW_STEPS, every: int = TRAIN_NEW_CKPT,
@@ -4307,9 +4505,14 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     resume_launches = _all_launches()
     step_profile = (train_profile(model, state, loader.batch(steps), device)
                     if profile else None)
-    del state, ckpts
+    del state
     gc.collect()
     torch.cuda.empty_cache()
+    sharded = (sharded_train_run(name, cfg, ckpts, ckpt_cfg, loader, every,
+                                 steps, whole, want, device)
+               if name in SHARD_STEPS else None)
+    del ckpts
+    gc.collect()
     tail = whole.losses[every:]
     diff = max(abs(a - b) for a, b in zip(tail, resumed.losses))
     batch = {k: torch.as_tensor(v, device=device)[:, :grad["seq"]]
@@ -4355,7 +4558,8 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
         raise AssertionError(f"{name}: gradients through the kernels vs "
                              f"plain: {check}")
     return {"launches": launches, "bwd_routes": bwd_routes,
-            "grad_err": max(check["leaf_norm_rel"].values())}
+            "grad_err": max(check["leaf_norm_rel"].values()),
+            "sharded": sharded}
 
 
 def train_rwkv_phase(args, device) -> dict:
@@ -4592,8 +4796,8 @@ def build_phase(libraries) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--B", type=int, default=200_000)
+    ap.add_argument("--docs", type=int, default=250_000)
+    ap.add_argument("--B", type=int, default=50_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-layers", type=int, default=8,
                     help=f"layers of {LM_ARCH}'s 64 on the LM path")
@@ -4633,6 +4837,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase([tx.LIBRARY, ta.LIBRARY, tr.LIBRARY, ts.LIBRARY])
+    shard_mesh(device)
 
     rng = np.random.default_rng(args.seed)
     errs = edge_phase(tx, device, rng)
@@ -4723,6 +4928,24 @@ def main() -> int:
                                     "flash_attention"],
                                 "train_encdec": train_encdec["launches"][
                                     "flash_attention"]}
+    # the sharded phase's launches (one card, its kernels on local shards)
+    attn["launches_by_path"]["sharded_lm"] = lm["sharded"]["launches"]
+    for path, phase in (("sharded_train", train),
+                        ("sharded_train_jamba", train_jamba),
+                        ("sharded_train_rwkv", train_rwkv)):
+        got = phase["sharded"]["launches"]
+        for entry, key in ((attn, "flash_attention"), (bwd, "flash_bwd"),
+                           (wkv, "wkv"), (scan, "selective_scan_fused")):
+            if got[key]:
+                entry["launches_by_path"][path] = got[key]
+        for kname, key in (("wkv_bwd", "wkv_bwd"),
+                           ("scan_bwd", "selective_scan_fused_bwd")):
+            if got[key]:
+                entry = next(e for e in kernels if e["name"] == kname)
+                entry.setdefault("launches_by_path", {})[path] = got[key]
+    for entry in (bwd, wkv, scan, *[e for e in kernels if e["name"] in
+                                    ("wkv_bwd", "scan_bwd")]):
+        entry["launches"] = sum(entry["launches_by_path"].values())
     attn["launches"] = sum(attn["launches_by_path"].values())
     for errs_of_path in (jamba["attn_errs"], rag["errs"], mixtral["errs"],
                          vlm["errs"], encdec["errs"]):
@@ -4731,6 +4954,8 @@ def main() -> int:
                 attn["max_abs_err_by_dtype"][dtype], err)
     attn["max_abs_err"] = max(attn["max_abs_err_by_dtype"].values())
     emit({"kernels": kernels})
+    import torch.distributed as dist
+    dist.destroy_process_group()
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

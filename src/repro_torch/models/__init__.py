@@ -2,17 +2,20 @@
 cache included) and VLM transformers, the SeamlessM4T encoder-decoder,
 RWKV-6 and the Jamba hybrid — prefill and decode from a KV cache or a
 recurrent state — with the transformers' int8 KV cache, and every
-model's training loss (`loss_fn`, `losses.py`). Not ported yet:
-sharding (ROADMAP queue 1, item 7)."""
+model's training loss (`loss_fn`, `losses.py`), and the logical axis
+sharding of every one of them over a `DeviceMesh` (`AxisRules`,
+`rules_for`, `NULL_RULES`: `models/common.py`)."""
 
 from .api import batch_desc, build_model
-from .common import Desc, init_params, param_count, stack_tree
+from .common import (NULL_RULES, AxisRules, Desc, distribute_params,
+                     init_params, param_count, rules_for, stack_tree)
 from .convert import params_from_numpy
 from .encdec import EncDecModel
 from .hybrid import HybridModel
 from .rwkv_model import RWKVModel
 from .transformer import TransformerModel
 
-__all__ = ["batch_desc", "build_model", "Desc", "init_params", "param_count",
+__all__ = ["batch_desc", "build_model", "AxisRules", "Desc", "NULL_RULES",
+           "distribute_params", "init_params", "param_count", "rules_for",
            "stack_tree", "params_from_numpy", "EncDecModel", "HybridModel",
            "RWKVModel", "TransformerModel"]

@@ -42,22 +42,26 @@ def batch_desc(cfg: ModelConfig, cell: ShapeCell) -> dict:
     d: dict = {}
     if cfg.kind == "vlm":
         if cell.step == "decode":
-            d["tokens"] = Desc((B, 1), dtype=torch.int32)
-            d["positions"] = Desc((B, 1, 3), dtype=torch.int32)
+            d["tokens"] = Desc((B, 1), ("dp", None), dtype=torch.int32)
+            d["positions"] = Desc((B, 1, 3), ("dp", None, None),
+                                  dtype=torch.int32)
         else:
             s_img = int(S * VLM_PATCH_FRAC)
-            d["tokens"] = Desc((B, S - s_img), dtype=torch.int32)
-            d["patches"] = Desc((B, s_img, cfg.d_model), dtype=torch.bfloat16)
-            d["positions"] = Desc((B, S, 3), dtype=torch.int32)
+            d["tokens"] = Desc((B, S - s_img), ("dp", None), dtype=torch.int32)
+            d["patches"] = Desc((B, s_img, cfg.d_model), ("dp", None, None),
+                                dtype=torch.bfloat16)
+            d["positions"] = Desc((B, S, 3), ("dp", None, None),
+                                  dtype=torch.int32)
     elif cfg.kind == "encdec":
         if cell.step == "decode":
-            d["tokens"] = Desc((B, 1), dtype=torch.int32)
+            d["tokens"] = Desc((B, 1), ("dp", None), dtype=torch.int32)
         else:
-            d["frames"] = Desc((B, S, cfg.d_model), dtype=torch.bfloat16)
-            d["tokens"] = Desc((B, S), dtype=torch.int32)
+            d["frames"] = Desc((B, S, cfg.d_model), ("dp", None, None),
+                               dtype=torch.bfloat16)
+            d["tokens"] = Desc((B, S), ("dp", None), dtype=torch.int32)
     else:
         d["tokens"] = Desc((B, 1 if cell.step == "decode" else S),
-                           dtype=torch.int32)
+                           ("dp", None), dtype=torch.int32)
     if cell.step == "train":
-        d["labels"] = Desc((B, S), dtype=torch.int32)
+        d["labels"] = Desc((B, S), ("dp", None), dtype=torch.int32)
     return d

@@ -39,12 +39,12 @@ Mamba state. On a card the Mamba scans are differentiated by the
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.attention.ops import attention
 from . import blocks, mamba
-from .common import Desc, remat, stack_tree, tree_map
+from .common import NULL_RULES, AxisRules, Desc, remat, stack_tree, tree_map, \
+    whole
 from .losses import chunked_cross_entropy
 
 
@@ -71,8 +71,8 @@ class HybridModel:
     # ------------------------------------------------------------ parameters
     def _slot_desc(self, slot: int) -> dict:
         cfg = self.cfg
-        d: dict = {"ln1": Desc((cfg.d_model,), init="ones"),
-                   "ln2": Desc((cfg.d_model,), init="ones")}
+        d: dict = {"ln1": Desc((cfg.d_model,), (None,), init="ones"),
+                   "ln2": Desc((cfg.d_model,), (None,), init="ones")}
         if self._slot_is_attn(slot):
             d["attn"] = blocks.attention_desc(cfg)
         else:
@@ -86,9 +86,9 @@ class HybridModel:
     def param_desc(self) -> dict:
         cfg = self.cfg
         return {
-            "embed": Desc((cfg.vocab, cfg.d_model)),
-            "lm_head": Desc((cfg.vocab, cfg.d_model)),
-            "ln_f": Desc((cfg.d_model,), init="ones"),
+            "embed": Desc((cfg.vocab, cfg.d_model), ("tp", "fsdp")),
+            "lm_head": Desc((cfg.vocab, cfg.d_model), ("tp", "fsdp")),
+            "ln_f": Desc((cfg.d_model,), (None,), init="ones"),
             "periods": {
                 f"slot{i}": stack_tree(self._slot_desc(i), self.n_periods)
                 for i in range(self.period)},
@@ -102,50 +102,55 @@ class HybridModel:
         for i in range(self.period):
             if self._slot_is_attn(i):
                 kv = (n, batch, T, cfg.n_kv, cfg.dh)
-                slots[f"slot{i}"] = {"k": Desc(kv, init="zeros"),
-                                     "v": Desc(kv, init="zeros")}
+                axes = (None, "dp", "sp", None, None)
+                slots[f"slot{i}"] = {"k": Desc(kv, axes, init="zeros"),
+                                     "v": Desc(kv, axes, init="zeros")}
             else:
                 slots[f"slot{i}"] = stack_tree(
                     mamba.mamba_state_desc(cfg, batch), n)
         return {
             "slots": slots,
-            "kpos": Desc((T,), init="full", scale=-1, dtype=torch.int32),
-            "pos": Desc((), init="zeros", dtype=torch.int32),
+            "kpos": Desc((T,), (None,), init="full", scale=-1,
+                         dtype=torch.int32),
+            "pos": Desc((), (), init="zeros", dtype=torch.int32),
         }
 
     # ---------------------------------------------------------------- layers
-    def _slot(self, x, lp, cos, sin, kv_fn, state):
+    def _slot(self, x, lp, cos, sin, kv_fn, state, rules=NULL_RULES):
         """One pre-norm slot layer. Attention: `kv_fn(k, v)` returns the
         keys/values to attend to, the query and the key positions. Mamba:
         `state` is None at prefill, the slot's cached state at decode.
         Returns (x, the slot's new Mamba state or None)."""
         cfg = self.cfg
+        lp = rules.gathered(lp)
         h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
         new = None
         if "attn" in lp:
-            q, k, v = blocks.qkv_project(h, lp["attn"], cfg)
+            q, k, v = blocks.qkv_project(h, lp["attn"], cfg, rules=rules)
             q = blocks.apply_rope(q, cos, sin)
             k = blocks.apply_rope(k, cos, sin)
             k_all, v_all, q_pos, kv_pos = kv_fn(k, v)
-            attn = attention(q, k_all, v_all, causal=True, window=cfg.swa,
-                             q_positions=q_pos, kv_positions=kv_pos,
-                             impl=self.attn_impl, device=q.device)
-            x = x + blocks.attn_out(attn, lp["attn"])
+            attn = blocks.attend(attention, q, k_all, v_all, rules=rules,
+                                 causal=True, window=cfg.swa,
+                                 q_positions=q_pos, kv_positions=kv_pos,
+                                 impl=self.attn_impl, device=q.device)
+            x = x + blocks.attn_out(attn, lp["attn"], rules)
         elif state is None:
-            out, h_fin, tail = mamba.mamba_forward(h, lp["mamba"], cfg,
-                                                   scan_impl=self.scan_impl)
+            out, h_fin, tail = mamba.mamba_forward(
+                h, lp["mamba"], cfg, scan_impl=self.scan_impl, rules=rules)
             new = {"conv": tail, "h": h_fin}
             x = x + out
         else:
             out, new = mamba.mamba_decode_step(h, lp["mamba"], cfg, state,
-                                               scan_impl=self.scan_impl)
+                                               scan_impl=self.scan_impl,
+                                               rules=rules)
             x = x + out
         h2 = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
         if "moe" in lp:
-            return x + blocks.moe_ffn(h2, lp["moe"], cfg), new
-        return x + blocks.swiglu_ffn(h2, lp["ffn"]), new
+            return x + blocks.moe_ffn(h2, lp["moe"], cfg, rules), new
+        return x + blocks.swiglu_ffn(h2, lp["ffn"], rules), new
 
-    def _period(self, x, pp, cos, sin, kv_fn, slots=None):
+    def _period(self, x, pp, cos, sin, kv_fn, slots=None, rules=NULL_RULES):
         """One period's slots in turn (`pp` its parameters by slot,
         `slots` its cached Mamba states or None); returns x and the new
         Mamba states by slot."""
@@ -154,12 +159,13 @@ class HybridModel:
             name = f"slot{i}"
             state = None if slots is None or self._slot_is_attn(i) else \
                 slots[name]
-            x, st = self._slot(x, pp[name], cos, sin, kv_fn, state)
+            x, st = self._slot(x, pp[name], cos, sin, kv_fn, state, rules)
             if st is not None:
                 new[name] = st
         return x, new
 
-    def _layers(self, params, x, cos, sin, kv_fn, slots=None):
+    def _layers(self, params, x, cos, sin, kv_fn, slots=None,
+                rules=NULL_RULES):
         """Every period's slots in turn; returns x and the new Mamba
         states stacked over periods, by slot."""
         new: dict[str, list] = {}
@@ -169,7 +175,8 @@ class HybridModel:
                 name: {k: v[n] for k, v in st.items()}
                 for name, st in slots.items()}
             x, sts = self._period(x, pp, cos, sin,
-                                  lambda k, v, n=n: kv_fn(n, k, v), cached)
+                                  lambda k, v, n=n: kv_fn(n, k, v), cached,
+                                  rules)
             for name, st in sts.items():
                 new.setdefault(name, []).append(st)
         return x, {name: {k: torch.stack([st[k] for st in sts])
@@ -185,83 +192,120 @@ class HybridModel:
         x = blocks.rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return (x[:, -1] @ params["lm_head"].T).float()
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy of `batch` ({"tokens", "labels"
-        (B, S), -1 = ignore}), float32 scalar."""
+    def _embed(self, params, tokens, rules):
+        table = params["embed"]
+        x = blocks.embed(torch.as_tensor(tokens, device=table.device), table,
+                         rules)
+        return rules.constrain(x, "dp", None, None)
+
+    def _cos_sin(self, positions, rules):
         cfg = self.cfg
-        embed = params["embed"]
-        x = F.embedding(torch.as_tensor(batch["tokens"], device=embed.device),
-                        embed)
+        return tuple(map(rules.replicated, blocks.rope_cos_sin(
+            positions, cfg.dh, cfg.rope_theta)))
+
+    def loss_fn(self, params, batch, rules: AxisRules = NULL_RULES
+                ) -> torch.Tensor:
+        """Mean next-token cross-entropy of `batch` ({"tokens", "labels"
+        (B, S), -1 = ignore}), float32 scalar (replicated under a
+        mesh)."""
+        with rules.scope():
+            return self._loss(params, batch, rules)
+
+    def _loss(self, params, batch, rules):
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"], rules)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=embed.device)
-        cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
+                                 device=x.device)
+        cos, sin = self._cos_sin(positions, rules)
 
         def kv_fn(k, v):
             return k, v, positions, positions
 
         def period(x, pp):
-            return self._period(x, pp, cos, sin, kv_fn)[0]
+            return self._period(x, pp, cos, sin, kv_fn, rules=rules)[0]
 
         for n in range(self.n_periods):
             pp = tree_map(lambda w: w[n], params["periods"])
             x = remat(cfg, period, x, pp)
         x = blocks.rms_norm(x, params["ln_f"], cfg.norm_eps)
         return chunked_cross_entropy(x, batch["labels"], params["lm_head"],
-                                     chunk=cfg.ce_chunk)
+                                     rules, chunk=cfg.ce_chunk)
+
+    def _place_cache(self, cache, rules):
+        """The attention slot's K/V placed as `cache_desc`'s axes say."""
+        attn = f"slot{self.period - 1}"
+        slots = dict(cache["slots"])
+        slots[attn] = {k: rules.distribute(v, None, "dp", "sp", None, None)
+                       for k, v in slots[attn].items()}
+        return dict(cache, slots=slots)
 
     # --------------------------------------------------------------- prefill
-    def prefill(self, params, batch, pad_to: int | None = None):
+    def prefill(self, params, batch, pad_to: int | None = None,
+                rules: AxisRules = NULL_RULES):
         """Full-prompt forward; returns (last-position logits (B, vocab)
         float32, cache). `pad_to` grows the attention cache beyond the
-        prompt so decode_step has room (empty slots carry kpos = -1)."""
+        prompt so decode_step has room (empty slots carry kpos = -1).
+        Under a mesh the attention cache is written whole on every rank
+        and then placed as `cache_desc`'s axes say."""
+        with rules.scope():
+            return self._prefill(params, batch, pad_to, rules)
+
+    def _prefill(self, params, batch, pad_to, rules):
         cfg = self.cfg
-        embed = params["embed"]
-        tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device)
         B, S = tokens.shape
         T = max(S, pad_to or 0)
-        x = embed[tokens]
-        positions = torch.arange(S, dtype=torch.int32, device=embed.device)
-        cos, sin = blocks.rope_cos_sin(positions, cfg.dh, cfg.rope_theta)
+        x = self._embed(params, tokens, rules)
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        cos, sin = self._cos_sin(positions, rules)
         shape = (self.n_periods, B, T, cfg.n_kv, cfg.dh)
-        ks = torch.zeros(shape, dtype=torch.bfloat16, device=embed.device)
+        ks = torch.zeros(shape, dtype=torch.bfloat16, device=tokens.device)
         vs = torch.zeros_like(ks)
 
         def kv_fn(n, k, v):
-            ks[n, :, :S] = k.to(torch.bfloat16)
-            vs[n, :, :S] = v.to(torch.bfloat16)
+            ks[n, :, :S] = whole(k).to(torch.bfloat16)
+            vs[n, :, :S] = whole(v).to(torch.bfloat16)
             return k, v, positions, positions
 
-        x, slots = self._layers(params, x, cos, sin, kv_fn)
-        kpos = torch.full((T,), -1, dtype=torch.int32, device=embed.device)
+        x, slots = self._layers(params, x, cos, sin, kv_fn, rules=rules)
+        kpos = torch.full((T,), -1, dtype=torch.int32, device=tokens.device)
         kpos[:S] = positions
         cache = {"slots": self._with_kv(slots, ks, vs), "kpos": kpos,
                  "pos": torch.tensor(S, dtype=torch.int32)}
-        return self._logits(params, x), cache
+        return self._logits(params, x), self._place_cache(cache, rules)
 
     # ---------------------------------------------------------------- decode
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch,
+                    rules: AxisRules = NULL_RULES):
         """One token for every sequence in the batch against the cache;
-        returns (logits (B, vocab) float32, the updated cache)."""
+        returns (logits (B, vocab) float32, the updated cache). Under a
+        mesh the attention cache is gathered whole, written and placed
+        back."""
+        with rules.scope():
+            return self._decode_step(params, cache, batch, rules)
+
+    def _decode_step(self, params, cache, batch, rules):
         cfg = self.cfg
-        embed = params["embed"]
         pos = int(cache["pos"])
-        x = embed[torch.as_tensor(batch["tokens"], device=embed.device)]
+        x = self._embed(params, batch["tokens"], rules)
         attn_slot = cache["slots"][f"slot{self.period - 1}"]
-        ks, vs = attn_slot["k"], attn_slot["v"]
+        ks, vs = whole(attn_slot["k"]), whole(attn_slot["v"])
         T = ks.shape[2]
         slot = pos % T if cfg.swa else min(pos, T - 1)   # rolling: pos % T
         kpos = cache["kpos"].clone()
         kpos[slot] = pos
         q_pos = kpos[slot:slot + 1]                        # (1,) == pos
-        cos, sin = blocks.rope_cos_sin(q_pos, cfg.dh, cfg.rope_theta)
+        cos, sin = self._cos_sin(q_pos, rules)
 
         def kv_fn(n, k, v):
-            ks[n, :, slot] = k[:, 0].to(ks.dtype)
-            vs[n, :, slot] = v[:, 0].to(vs.dtype)
+            ks[n, :, slot] = whole(k)[:, 0].to(ks.dtype)
+            vs[n, :, slot] = whole(v)[:, 0].to(vs.dtype)
             return ks[n], vs[n], q_pos, kpos
 
-        x, slots = self._layers(params, x, cos, sin, kv_fn, cache["slots"])
+        x, slots = self._layers(params, x, cos, sin, kv_fn, cache["slots"],
+                                rules)
         new_cache = {"slots": self._with_kv(slots, ks, vs), "kpos": kpos,
                      "pos": torch.tensor(pos + 1, dtype=torch.int32)}
-        return self._logits(params, x), new_cache
+        return self._logits(params, x), self._place_cache(new_cache, rules)
 

@@ -14,6 +14,15 @@ output (`torch.mm(..., out_dtype=torch.float32)`); elsewhere both are
 cast to float32 first, which gives the same products. Their gradients
 are float32 products, as autograd of the float32 cast computes them.
 
+Under a mesh (`rules`) the projection runs on each rank's local shards
+(`rules.local`): the chunk's rows over "dp", the vocabulary over "tp",
+so each rank projects onto its slice of `lm_head` and the logits come
+out vocab-sharded, as the JAX package constrains them. The hidden
+states' gradient is then a partial sum over the "tp" ranks and
+`lm_head`'s over the "dp" ranks. The log-sum-exp over the sharded
+vocabulary reduces across ranks, and the label logit is the JAX
+package's iota compare (a sharded sum) instead of a gather.
+
 `set_bf16_grad_barrier(True)` routes the projection through
 `_CEMatmulBF16Grad`, the counterpart of the JAX `custom_vjp`: float32
 logits forward, but the logits' gradient is cast to bfloat16 before the
@@ -24,6 +33,8 @@ from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from .common import NULL_RULES, AxisRules, replicating
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -78,23 +89,42 @@ def set_bf16_grad_barrier(enabled: bool) -> None:
 
 
 def _ce_block(x_c: torch.Tensor, labels_c: torch.Tensor,
-              lm_head: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+              lm_head: torch.Tensor, rules: AxisRules = NULL_RULES
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x_c (B, c, D); labels_c (B, c), -1 = ignore; lm_head (V, D) →
     (the chunk's summed CE over its valid labels, their count), float32."""
-    if _BF16_GRAD[0]:
-        logits = _CEMatmulBF16Grad.apply(x_c, lm_head)
-    else:
-        logits = _Logits.apply(x_c, lm_head)
+    fn = (_CEMatmulBF16Grad if _BF16_GRAD[0] else _Logits).apply
+    if rules.mesh is not None:
+        xpl = rules.placements(("dp", None, None), tuple(x_c.shape))
+        wpl = rules.placements(("tp", None), tuple(lm_head.shape))
+        lpl = rules.placements(("dp", None, "tp"), tuple(x_c.shape[:2])
+                               + (lm_head.shape[0],))
+        vocab = rules.split_by(("tp", None), lm_head.shape, 0)
+        batch = rules.split_by(("dp", None, None), x_c.shape, 0)
+        fn = rules.local(fn, ins=(xpl, wpl), outs=(lpl,),
+                         grads=(rules.partial(xpl, vocab),
+                                rules.partial(wpl, batch)))
+    logits = fn(x_c, lm_head)
     m = logits.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-    valid = labels_c >= 0
-    ll = logits.gather(-1, labels_c.clamp(min=0).long()[..., None])[..., 0]
+    if rules.mesh is None:
+        valid = labels_c >= 0
+        ll = logits.gather(-1, labels_c.clamp(min=0).long()[..., None])[
+            ..., 0]
+    else:                    # label logit by iota compare: a sharded sum
+        labels_c = rules.constrain(labels_c.long(), "dp", None)
+        valid = labels_c >= 0
+        iota = rules.replicated(torch.arange(
+            logits.shape[-1], device=logits.device))
+        ll = torch.where(iota == labels_c[..., None], logits,
+                         torch.zeros_like(logits)).sum(-1)
     total = torch.where(valid, lse - ll, torch.zeros_like(lse)).sum()
     return total, valid.sum().float()
 
 
 def chunked_cross_entropy(x: torch.Tensor, labels: torch.Tensor,
-                          lm_head: torch.Tensor, chunk: int = 512
+                          lm_head: torch.Tensor,
+                          rules: AxisRules = NULL_RULES, chunk: int = 512
                           ) -> torch.Tensor:
     """Mean next-token CE from final hidden states, blockwise over S.
 
@@ -107,9 +137,9 @@ def chunked_cross_entropy(x: torch.Tensor, labels: torch.Tensor,
 
     def block(x_c, l_c):
         if grad:
-            return checkpoint(_ce_block, x_c, l_c, lm_head,
-                              use_reentrant=False)
-        return _ce_block(x_c, l_c, lm_head)
+            return checkpoint(replicating(_ce_block), x_c, l_c, lm_head,
+                              rules, use_reentrant=False)
+        return _ce_block(x_c, l_c, lm_head, rules)
 
     if S <= chunk:
         total, count = block(x, labels)

@@ -1,8 +1,9 @@
 """Mamba (S6) selective-state-space block [arXiv:2312.00752], used by the
 Jamba hybrid architecture.
 
-Mirrors `repro/models/mamba.py` over a tree of tensors, without its
-`rules` argument. The diagonal recurrence
+Mirrors `repro/models/mamba.py` over a tree of tensors, with its
+`rules` argument (`models.common.AxisRules`, default `NULL_RULES`) and
+its constraint sites. The diagonal recurrence
 
     h_t = exp(dt_t · A) ⊙ h_{t-1} + (dt_t · B_t) x_t,    y_t = h_t · C_t
 
@@ -14,6 +15,11 @@ kernel takes dt, A, B_, C_ and x and builds exp(dt · A) and dt · B_ · x
 itself, so neither the (B, S, d_inner, d_state) a and b that JAX's
 `_ssm_inputs` returns nor the JAX model's `chunked_diag_scan` tensor of
 every state is built; it returns y with the D skip and the final state.
+Under a mesh the scan runs on each rank's channels (`rules.local`): x,
+dt, A, D and the state are sharded over d_inner ("tp"), while B_ and C_,
+shared by every channel, are whole on each rank, so their gradients
+come out as partial sums over the "tp" ranks (and A's and D's over the
+"dp" ranks, which split the batch).
 Each step keeps the JAX package's dtypes: products in the parameters'
 dtype, dt in that dtype and then float32, the scan in float32, y cast
 back to the activations' dtype before the gate.
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssm.ops import selective_scan_fused
-from .common import Desc
+from .common import NULL_RULES, AxisRules, Desc
 
 
 def mamba_desc(cfg: ModelConfig) -> dict:
@@ -35,16 +41,16 @@ def mamba_desc(cfg: ModelConfig) -> dict:
     di, ds, dc = m.d_inner(D), m.d_state, m.d_conv
     dt_rank = max(D // 16, 1)
     return {
-        "in_proj": Desc((D, 2 * di)),
-        "conv_w": Desc((dc, di)),
-        "conv_b": Desc((di,), init="zeros"),
-        "x_proj": Desc((di, dt_rank + 2 * ds)),
-        "dt_w": Desc((dt_rank, di)),
-        "dt_b": Desc((di,), init="ones"),
-        "A_log": Desc((di, ds), init="scaled", scale=0.5,
+        "in_proj": Desc((D, 2 * di), ("fsdp", "tp")),
+        "conv_w": Desc((dc, di), (None, "tp")),
+        "conv_b": Desc((di,), ("tp",), init="zeros"),
+        "x_proj": Desc((di, dt_rank + 2 * ds), ("tp", None)),
+        "dt_w": Desc((dt_rank, di), (None, "tp")),
+        "dt_b": Desc((di,), ("tp",), init="ones"),
+        "A_log": Desc((di, ds), ("tp", None), init="scaled", scale=0.5,
                       dtype=torch.float32),
-        "D": Desc((di,), init="ones", dtype=torch.float32),
-        "out_proj": Desc((di, D)),
+        "D": Desc((di,), ("tp",), init="ones", dtype=torch.float32),
+        "out_proj": Desc((di, D), ("tp", "fsdp")),
     }
 
 
@@ -52,8 +58,10 @@ def mamba_state_desc(cfg: ModelConfig, batch: int) -> dict:
     m = cfg.mamba
     di = m.d_inner(cfg.d_model)
     return {
-        "conv": Desc((batch, m.d_conv - 1, di), init="zeros"),
-        "h": Desc((batch, di, m.d_state), init="zeros", dtype=torch.float32),
+        "conv": Desc((batch, m.d_conv - 1, di), ("dp", None, "tp"),
+                     init="zeros"),
+        "h": Desc((batch, di, m.d_state), ("dp", "tp", None), init="zeros",
+                  dtype=torch.float32),
     }
 
 
@@ -68,6 +76,22 @@ def _causal_dw_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     for i in range(1, dc):
         out = out + pad[:, i:i + S] * w[i]
     return out + b
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          rules: AxisRules) -> torch.Tensor:
+    """`_causal_dw_conv`; under a mesh on each rank's channels (a
+    depthwise conv needs no other), the weights' gradients partial sums
+    over the "dp" ranks."""
+    if rules.mesh is None:
+        return _causal_dw_conv(x, w, b)
+    xpl = rules.placements(("dp", None, "tp"), tuple(x.shape))
+    wpl = rules.placements((None, "tp"), tuple(w.shape))
+    bpl = rules.placements(("tp",), tuple(b.shape))
+    batch = rules.split_by(("dp", None, "tp"), x.shape, 0)
+    return rules.local(_causal_dw_conv, ins=(xpl, wpl, bpl), outs=(xpl,),
+                       grads=(xpl, rules.partial(wpl, batch),
+                              rules.partial(bpl, batch)))(x, w, b)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -91,8 +115,37 @@ def _ssm_inputs(x_act: torch.Tensor, p: dict, cfg: ModelConfig):
     return dt, A, B_, C_
 
 
+def _scan(dt, A, B_, C_, x, D, h0, rules: AxisRules, impl: str, device):
+    """`kernels.ssm.ops.selective_scan_fused`; under a mesh on each rank's
+    d_inner channels."""
+    if rules.mesh is None:
+        return selective_scan_fused(dt, A, B_, C_, x, D, h0, impl=impl,
+                                    device=device)
+    chan = rules.placements(("dp", None, "tp"), tuple(x.shape))
+    apl = rules.placements(("tp", None), tuple(A.shape))
+    bpl = rules.placements(("dp", None, None), tuple(B_.shape))
+    dpl = rules.placements(("tp",), tuple(D.shape))
+    hpl = rules.placements(("dp", "tp", None),
+                           (x.shape[0], x.shape[2], A.shape[1]))
+
+    def local(dt, A, B_, C_, x, D, h0):
+        return selective_scan_fused(dt, A, B_, C_, x, D, h0, impl=impl,
+                                    device=device)
+
+    batch = rules.split_by(("dp", None, "tp"), x.shape, 0)
+    bgrad = rules.partial(bpl, rules.split_by(("dp", None, "tp"),
+                                              x.shape, 2))
+    hin = None if h0 is None else hpl
+    return rules.local(
+        local, ins=(chan, apl, bpl, bpl, chan, dpl, hin),
+        outs=(chan, hpl),
+        grads=(chan, rules.partial(apl, batch), bgrad, bgrad, chan,
+               rules.partial(dpl, batch), hin))(dt, A, B_, C_, x, D, h0)
+
+
 def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                  h0: torch.Tensor | None = None, scan_impl: str = "cuda"
+                  h0: torch.Tensor | None = None, scan_impl: str = "cuda",
+                  rules: AxisRules = NULL_RULES
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence Mamba block. x: (B, S, D) → (out (B, S, D), final ssm
     state (B, di, ds) float32, conv tail (B, dc - 1, di)).
@@ -107,12 +160,13 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     di = m.d_inner(cfg.d_model)
     xz = x @ p["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]
-    x_act = F.silu(_causal_dw_conv(x_in, p["conv_w"], p["conv_b"]))
+    x_in = rules.constrain(x_in, "dp", None, "tp")
+    x_act = F.silu(_conv(x_in, p["conv_w"], p["conv_b"], rules))
     dt, A, B_, C_ = _ssm_inputs(x_act, p, cfg)
-    y, h_fin = selective_scan_fused(dt, A, B_, C_, x_act, p["D"], h0,
-                                    impl=scan_impl, device=x.device)
+    y, h_fin = _scan(dt, A, B_, C_, x_act, p["D"], h0, rules, scan_impl,
+                     x.device)
     y = y.to(x.dtype)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = rules.constrain((y * F.silu(z)) @ p["out_proj"], "dp", None, None)
     tail = x_in[:, max(S - (m.d_conv - 1), 0):]
     if tail.shape[1] < m.d_conv - 1:
         tail = F.pad(tail, (0, 0, m.d_conv - 1 - tail.shape[1], 0))
@@ -120,7 +174,8 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 def mamba_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                      state: dict, scan_impl: str = "cuda"
+                      state: dict, scan_impl: str = "cuda",
+                      rules: AxisRules = NULL_RULES
                       ) -> tuple[torch.Tensor, dict]:
     """One-token step. x: (B, 1, D); state: {conv: (B, dc-1, di), h: (B,
     di, ds) float32}. The step goes through the fused scan as S = 1 from
@@ -129,12 +184,14 @@ def mamba_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
     di = cfg.mamba.d_inner(cfg.d_model)
     xz = x @ p["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]
-    hist = torch.cat([state["conv"].to(x_in.dtype), x_in], dim=1)  # (B,dc,di)
+    x_in = rules.constrain(x_in, "dp", None, "tp")
+    hist = torch.cat([rules.constrain(state["conv"].to(x_in.dtype), "dp",
+                                      None, "tp"), x_in], dim=1)  # (B,dc,di)
     x_conv = torch.einsum("bci,ci->bi", hist, p["conv_w"]) + p["conv_b"]
     x_act = F.silu(x_conv)[:, None, :]                        # (B, 1, di)
     dt, A, B_, C_ = _ssm_inputs(x_act, p, cfg)
-    y, h = selective_scan_fused(dt, A, B_, C_, x_act, p["D"], state["h"],
-                                impl=scan_impl, device=x.device)
+    y, h = _scan(dt, A, B_, C_, x_act, p["D"], state["h"], rules, scan_impl,
+                 x.device)
     y = y[:, 0].to(x.dtype)
-    out = (y * F.silu(z[:, 0])) @ p["out_proj"]
+    out = rules.constrain((y * F.silu(z[:, 0])) @ p["out_proj"], "dp", None)
     return out[:, None, :], {"conv": hist[:, 1:], "h": h}

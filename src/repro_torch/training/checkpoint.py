@@ -13,6 +13,14 @@ uint16 view (as `models/convert.py` carries it) under the dtype name
 `fetch_batch` round through a `SimCloudStore`), checks each blob's
 sha256 prefix, and puts each leaf on the device of the leaf it replaces.
 
+A sharded state saves as an unsharded one does: each DTensor leaf is
+gathered whole (`full_tensor()`, a collective every rank joins) and
+stored as JAX stores its leaves, so the blobs and manifest do not depend
+on the mesh that saved them. `restore(..., placements=, mesh=)` (or a
+`tree_like` of DTensors) distributes each leaf onto a mesh, as the JAX
+package's `shardings=` does: a checkpoint saved on one mesh restores on
+any other.
+
 Saves can run on a background thread. The snapshot to host memory
 happens on the caller's thread before it starts (`Tensor.to("cpu",
 copy=True)`, which waits for the card), so the next step's in-place
@@ -37,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.common import tree_unflatten
+from ..models.common import whole, tree_unflatten
 from ..storage.blobstore import BlobStore, RangeRequest
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -111,8 +119,8 @@ class CheckpointManager:
              extra_metadata: dict | None = None) -> None:
         """Snapshot to host on this thread, then persist; with
         blocking=False the persist runs on a background thread."""
-        leaves = [(name, torch.as_tensor(leaf).detach().to("cpu", copy=True))
-                  for name, leaf in _paths(tree)]
+        leaves = [(name, whole(torch.as_tensor(leaf).detach()).to(
+            "cpu", copy=True)) for name, leaf in _paths(tree)]
         self.wait()          # one async save in flight at a time
 
         def _persist() -> None:
@@ -170,11 +178,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None, cloud=None):
+    def restore(self, tree_like, step: int | None = None, cloud=None,
+                placements=None, mesh=None):
         """Restore into the structure of `tree_like` (values ignored; each
         restored leaf goes to the device of the tensor it replaces, the
         CPU otherwise). `cloud`: an optional `SimCloudStore`, which makes
-        the restore one parallel fetch batch. Returns (tree, manifest)."""
+        the restore one parallel fetch batch. `placements` (a tree shaped
+        as `tree_like` of one placement per mesh dim) with `mesh`: each
+        leaf becomes a DTensor on `mesh` so placed; without them a DTensor
+        leaf of `tree_like` gives its own mesh and placements. Returns
+        (tree, manifest)."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -198,11 +211,34 @@ class CheckpointManager:
                 if digest != entry["sha"]:
                     raise IOError(f"checkpoint corruption in {entry['blob']}:"
                                   f" {digest} != {entry['sha']}")
+        where = [None] * len(paths) if placements is None else \
+            [(mesh, pl) for pl in _placement_leaves(placements)]
         out = []
         for i, (n, like) in enumerate(paths):
             data, payloads[i] = payloads[i], None     # freed leaf by leaf
             entry = by_name[n]
-            out.append(_from_bytes(data, entry["dtype"], entry["shape"],
-                                   like.device if isinstance(
-                                       like, torch.Tensor) else "cpu"))
+            target = where[i] or _dtensor_target(like)
+            device = target[0].device_type if target else (
+                like.device if isinstance(like, torch.Tensor) else "cpu")
+            leaf = _from_bytes(data, entry["dtype"], entry["shape"], device)
+            if target:
+                from torch.distributed.tensor import distribute_tensor
+                leaf = distribute_tensor(leaf, target[0], target[1],
+                                         src_data_rank=None)
+            out.append(leaf)
         return tree_unflatten(tree_like, out), manifest
+
+
+def _placement_leaves(tree) -> list:
+    """The placements of a tree whose leaves are tuples of placements."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _placement_leaves(tree[k])]
+    return [tuple(tree)]
+
+
+def _dtensor_target(like):
+    """(mesh, placements) of a DTensor, else None."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(like, DTensor):
+        return like.device_mesh, like.placements
+    return None

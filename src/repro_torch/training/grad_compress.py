@@ -2,9 +2,10 @@
 (`repro/training/grad_compress.py`): gradients cast to bf16 before the
 reduction, and per-tensor int8 with error feedback (the quantization
 error is added back the next step instead of accumulating). Over trees
-of tensors; one card has no reduction yet (sharding is ROADMAP queue 1,
-item 7), so these change what a step's gradients are, as in the JAX
-package's single-device runs.
+of tensors or DTensors: on a sharded step's gradients, already pinned to
+their parameters' placements, each works shard by shard and the int8
+scale is the whole tensor's maximum, reduced across ranks: the same
+values as on one card.
 """
 
 from __future__ import annotations

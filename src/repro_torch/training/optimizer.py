@@ -8,7 +8,9 @@ are clipped by the global norm of the whole tree, a leaf with ndim < 2
 p32 - lr·(m̂ / (√v̂ + eps) + wd·p32). JAX returns new arrays and donates
 the old ones; here `adamw_update` updates the moments and the weights in
 place (the weights keep their dtype) and returns the same tensors, so a
-step holds one float32 temporary a leaf at a time.
+step holds one float32 temporary a leaf at a time. The same code runs on
+DTensor parameters and moments (a sharded step): each rank updates its
+shards, and the global norm's sum is reduced across ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any
 
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..models.common import whole, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -60,7 +62,7 @@ def schedule_lr(cfg: OptimizerConfig, step) -> torch.Tensor:
 def init_opt_state(params: Any) -> dict:
     """float32 zero moments shaped as `params`, and step 0 (int32)."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     leaf = next(iter(tree_leaves(params)), None)
     return {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
             "step": torch.zeros((), dtype=torch.int32,
@@ -81,7 +83,7 @@ def adamw_update(params: Any, grads: Any, opt_state: dict,
                  cfg: OptimizerConfig) -> tuple[Any, dict, dict]:
     """One AdamW step, in place; returns (params, opt_state, metrics)
     with metrics {"grad_norm", "lr"} as float32 0-dim tensors."""
-    step = opt_state["step"] + 1
+    step = whole(opt_state["step"]) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else _f32(1.0).to(gnorm.device)

@@ -9,6 +9,12 @@ checkpoint: `run` survives kill-and-restart at a checkpointed step and
 continues from the same state with the same batches. An eager step
 replaces `jax.jit`, and AdamW's update in place replaces the donation of
 the old state, so `run` updates the `params` it is given.
+
+Under a mesh (`rules` with a `DeviceMesh`) the parameters and moments
+are DTensors: the step runs the loss on them, pins each gradient to its
+parameter's placements (the JAX package's sharding constraint on the
+gradients), and AdamW updates each rank's shards in place. Checkpoints
+store every leaf whole and restore onto the state's placements.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from typing import Callable
 
 import torch
 
-from ..models.common import tree_leaves, tree_unflatten
+from ..models.common import NULL_RULES, AxisRules, whole, tree_leaves, \
+    tree_unflatten
 from .checkpoint import CheckpointManager
 from .grad_compress import bf16_compress
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
@@ -45,28 +52,36 @@ class TrainLog:
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig,
-                    grad_dtype: str = "fp32") -> Callable:
+                    grad_dtype: str = "fp32",
+                    rules: AxisRules = NULL_RULES) -> Callable:
     """(state, batch) -> (state, metrics), state = {"params", "opt"}: the
-    loss and its gradients, optionally cast to bf16 (`grad_dtype`
-    "bf16", the JAX package's compressed reduction), then AdamW in
-    place. metrics: "loss", "grad_norm", "lr" (0-dim tensors)."""
+    loss and its gradients (under a mesh, each pinned to its parameter's
+    placements), optionally cast to bf16 (`grad_dtype` "bf16", the JAX
+    package's compressed reduction), then AdamW in place. metrics:
+    "loss", "grad_norm", "lr" (0-dim tensors, whole on every rank)."""
     def train_step(state, batch):
         params = state["params"]
         leaves = tree_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
         try:
-            loss = model.loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with rules.scope():
+                loss = (model.loss_fn(params, batch) if rules.mesh is None
+                        else model.loss_fn(params, batch, rules))
+                grads = torch.autograd.grad(loss, leaves)
         finally:
             for leaf in leaves:
                 leaf.requires_grad_(False)
+        if rules.mesh is not None:
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
         grads = tree_unflatten(params, list(grads))
         if grad_dtype == "bf16":
             grads = bf16_compress(grads)
         params, opt, metrics = adamw_update(params, grads, state["opt"],
                                             opt_cfg)
-        metrics["loss"] = loss.detach()
+        metrics = {k: whole(v) for k, v in metrics.items()}
+        metrics["loss"] = whole(loss.detach())
         return {"params": params, "opt": opt}, metrics
 
     return train_step
@@ -79,9 +94,10 @@ def _device(params):
 
 def run(model, params, loader, ckpt: CheckpointManager | None,
         loop_cfg: TrainLoopConfig, opt_cfg: OptimizerConfig,
-        ) -> tuple[dict, TrainLog]:
+        rules: AxisRules = NULL_RULES) -> tuple[dict, TrainLog]:
     """Train; resumes from the latest checkpoint if one exists. Batches go
-    to the parameters' device."""
+    to the parameters' device. Under a mesh `params` are DTensors placed
+    by `rules` (`models.common.distribute_params`)."""
     state = {"params": params, "opt": init_opt_state(params)}
     log = TrainLog()
     start = 0
@@ -93,7 +109,7 @@ def run(model, params, loader, ckpt: CheckpointManager | None,
             log.resumed_from = latest
 
     dev = _device(state["params"])
-    step_fn = make_train_step(model, opt_cfg)
+    step_fn = make_train_step(model, opt_cfg, rules=rules)
     t_last = time.perf_counter()
     for step, batch in loader.batches(start, loop_cfg.total_steps - start):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}

@@ -1457,3 +1457,133 @@ def test_reduced_rwkv_and_jamba_training_resume_on_card(card, arch):
     assert first.losses + second.losses == wlog.losses
     for a, b in zip(tree_leaves(whole), tree_leaves(state)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------ sharding on a one-card mesh
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A ("data", "model") = (1, 1) mesh over an NCCL group of one rank
+    (localhost, a free port), torn down after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    yield make_smoke_mesh(1, model=1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "phi3.5-moe-42b-a6.6b",
+                                  "rwkv6-3b", "jamba-v0.1-52b"])
+def test_one_card_mesh_train_steps_match_unsharded_on_card(card_mesh, arch):
+    """Two steps of `launch.steps.make_train_step(cfg, mesh=)` on the
+    reduced model placed on the (1, 1) mesh against the same steps
+    unsharded: the kernels run through `local_map` as often, the losses
+    and the updated parameters bit for bit (one rank: every collective
+    is the identity and each kernel sees the whole tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import init_params, whole, tree_leaves
+    from repro_torch.training import OptimizerConfig
+    from repro_torch.training.optimizer import init_opt_state
+
+    cfg = get_config(arch, reduced=True)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    one = make_train_step(cfg, opt)
+    two = make_train_step(cfg, opt, mesh=card_mesh)
+    dev = torch.device("cuda")
+
+    def fresh():
+        return init_params(one.model.param_desc(),
+                           torch.Generator(device=dev).manual_seed(0), dev)
+
+    def steps(bundle, params):
+        state = {"params": params, "opt": init_opt_state(params)}
+        losses = []
+        for mod in (tr, ts, ta):
+            mod.reset_launches()
+        for step in range(2):
+            rng = np.random.default_rng(step)
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, 65)).astype(np.int32)).to(dev)
+            state, m = bundle.fn(state, {"tokens": toks[:, :-1],
+                                         "labels": toks[:, 1:]})
+            losses.append(float(m["loss"]))
+        launches = {**ta.LAUNCHES, **tr.LAUNCHES, **ts.LAUNCHES}
+        return state, losses, launches
+
+    s1, l1, n1 = steps(one, fresh())
+    s2, l2, n2 = steps(two, two.distribute(fresh()))
+    assert n1 == n2 and sum(n1.values()) > 0
+    assert l1 == l2
+    for a, b in zip(tree_leaves(s1["params"]), tree_leaves(s2["params"])):
+        assert torch.equal(a, whole(b))
+
+
+def test_local_map_kernel_wrappers_match_unwrapped_on_card(card_mesh):
+    """`blocks.attend`, `rwkv6._wkv` and `mamba._scan` under the (1, 1)
+    mesh's rules (the kernel on the rank's local shards through
+    `local_map`) against the bare wrappers on the same bf16 inputs:
+    outputs and every input's gradient bit for bit, one forward and one
+    backward launch of each kernel."""
+    from repro_torch.kernels.attention.ops import attention
+    from repro_torch.models import blocks, mamba, rwkv6
+    from repro_torch.models.common import NULL_RULES, rules_for, whole
+
+    rules = rules_for(card_mesh)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def run(fn, inputs, rules_):
+        leaves = [x.clone().requires_grad_(x.is_floating_point())
+                  for x in inputs]
+        outs = fn(rules_, *leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        total = sum(whole(o).float().sum() for o in outs)
+        grads = torch.autograd.grad(
+            total, [x for x in leaves if x.requires_grad])
+        return [whole(o) for o in outs], [whole(x) for x in grads]
+
+    B, S, H, KV, dh = 2, 96, 8, 2, 64
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    cases = {
+        "flash_attention": (lambda r, q, k, v: blocks.attend(
+            attention, q, k, v, rules=r, causal=True, q_positions=pos,
+            kv_positions=pos, device=dev),
+            [rand(B, S, H, dh), rand(B, S, KV, dh), rand(B, S, KV, dh)]),
+        "wkv": (lambda r, *a: rwkv6._wkv(*a, None, r, "cuda", dev),
+                [rand(B, S, H, dh), rand(B, S, H, dh), rand(B, S, H, dh),
+                 torch.rand((B, S, H, dh), generator=g, device=dev) * 0.5
+                 + 0.45, rand(H, dh, dtype=torch.float32, scale=0.5)]),
+        "selective_scan_fused": (
+            lambda r, dt, A, B_, C_, x, D: mamba._scan(
+                dt, A, B_, C_, x, D, None, r, "cuda", dev),
+            [torch.nn.functional.softplus(rand(B, S, 256,
+                                               dtype=torch.float32)),
+             -torch.rand((256, 16), generator=g, device=dev) - 0.5,
+             rand(B, S, 16), rand(B, S, 16), rand(B, S, 256),
+             rand(256, dtype=torch.float32)]),
+    }
+    for name, (fn, inputs) in cases.items():
+        want_o, want_g = run(fn, inputs, NULL_RULES)
+        for mod in (tr, ts, ta):
+            mod.reset_launches()
+        got_o, got_g = run(fn, inputs, rules)
+        launches = {**ta.LAUNCHES, **tr.LAUNCHES, **ts.LAUNCHES}
+        bwd = {"flash_attention": "flash_bwd", "wkv": "wkv_bwd",
+               "selective_scan_fused": "selective_scan_fused_bwd"}[name]
+        assert launches[name] == 1 and launches[bwd] == 1, (name, launches)
+        for a, b in zip(want_o + want_g, got_o + got_g):
+            assert torch.equal(a, b), name
