@@ -186,7 +186,16 @@ of their scale;
   sharded prefill and 4 teacher-forced decode steps
   (`make_prefill_step`/`make_decode_step(cfg, mesh=)`) beside the same
   unsharded: one attention launch a layer and step, the logits within
-  1e-5 of their scale (bit for bit expected).
+  1e-5 of their scale (bit for bit expected);
+- the roofline (`roofline`): the `lm` path's prefill and one decode step
+  and one more step of the `train` path, each run once on the card under
+  the port's counter (`launch.hlo_cost.analyze_step`) and once on meta
+  tensors of the same shapes in the same process: the FLOPs and each
+  kernel's launches, flops and bytes (`launch.roofline`'s formulas) must
+  be equal, the aten ops' bytes within 1%. The line gives each step's
+  counted FLOPs and bytes, the step time its path measured outside the
+  counter, `mfu` = FLOPs / (time × 989 TFLOP/s) and the roofline
+  fraction and bottleneck of `launch.roofline` on one card.
 
 Last, each kernel is timed at the shapes its path gave it (attention
 also at the windowed prefill, the per-row-position prefill beside the
@@ -234,17 +243,9 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W). The 67 TFLOP/s
-# float32 rate counts an FMA as two operations on 128 FP32 lanes per SM;
-# an SM has 64 INT32 lanes, so 32-bit integer instructions (AND/OR/
-# ANDNOT, one LOP3 each, and popc) issue at most a quarter of that.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-BF16_FLOPS_PER_S = 989e12           # dense tensor-core rate
-F32_FLOPS_PER_S = 67e12
-# special-function units (MUFU: one ex2 a lane): 16 an SM a clock, 132
-# SMs at the 1.98 GHz boost clock (Hopper architecture white paper)
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# The H100's published peaks and the model kernels' cost formulas are
+# the port's (`repro_torch.launch.roofline`): the bounds below turn its
+# (flops, bytes) into ms. main() puts src/ on the path before any phase.
 
 # The main path's traffic: QUERIES queries with top TOP_K, half of them
 # planner trees, of which GROUPS groups of PER go to combine_cluster.
@@ -1695,6 +1696,8 @@ def bound(host, prog=None) -> tuple[float, str]:
     pads ragged L with layers no step names), so its rows are counted
     one by one; `prog` is the (…, S, 3) programs."""
     import numpy as np
+
+    from repro_torch.launch import roofline as rl
     L, W = host.shape[-2:]
     rows = host.size // (L * W)
     if prog is None:
@@ -1713,7 +1716,7 @@ def bound(host, prog=None) -> tuple[float, str]:
         ops = rows * W * (S + 1)                # one LOP3 per step + popc
         prog_bytes = prog.nbytes
     nbytes = 4 * W * (layers_read + rows) + prog_bytes + 8 * rows
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, ops / rl.INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                       else "operations")
 
@@ -1821,7 +1824,8 @@ def keys_bound(plan, n_keys: int, n_hit: int, ranks: bool,
     n_words = rows * ((r.n_bits + 31) // 32)
 
     def pair(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        from repro_torch.launch import roofline as rl
+        t_bytes, t_ops = nbytes / rl.HBM_BYTES_PER_S, ops / rl.INT32_OPS_PER_S
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                           else "operations")
     return {
@@ -2242,8 +2246,12 @@ def lm_phase(args, device) -> dict:
                              f"(> {LM_TOL})")
     if args.profile:
         lm_profile(model, params, prompt)
+    roofline = lm_roofline(model, params, prompt, out.tokens)
     sharded = sharded_lm_run(cfg, params, prompt, out.tokens, device)
-    return {"launches": launches, "shapes": shapes, "sharded": sharded}
+    return {"launches": launches, "shapes": shapes, "sharded": sharded,
+            "roofline": roofline, "layers": cfg.n_layers,
+            "prefill_s": out.prefill_s,
+            "decode_step_s": out.decode_s / LM_TOKENS}
 
 
 def _device_time(prof):
@@ -2319,15 +2327,26 @@ def attn_bound(qpos, kpos, B, S, T, H, KV, dh, nbytes_el, causal=True,
     ((S,)/(T,) shared by the batch, or (B, S)/(B, T)): 4·dh flops per
     allowed (query, key) pair and head over the bf16 (or float32) rate,
     against q, k, v, o and positions moved once over HBM bandwidth; the
-    larger, and which it is."""
+    larger, and which it is. The pairs are counted from the positions;
+    `launch.roofline.attn_cost` gives the work."""
     from repro_torch.kernels.attention.ref import _allowed
+    from repro_torch.launch import roofline as rl
     pairs = int(_allowed(B, S, T, causal, window, qpos, kpos,
                          qpos.device).sum())
-    flops = 4 * H * pairs * dh
-    nbytes = nbytes_el * dh * (2 * B * S * H + 2 * B * T * KV) \
-        + 4 * (qpos.numel() + kpos.numel())
-    rate = BF16_FLOPS_PER_S if nbytes_el == 2 else F32_FLOPS_PER_S
-    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    flops, nbytes = rl.attn_cost(B, S, T, H, KV, dh, nbytes_el, causal,
+                                 window, pairs=pairs,
+                                 pos_elems=qpos.numel() + kpos.numel())
+    return float_bound(flops, nbytes, nbytes_el)
+
+
+def float_bound(flops, nbytes, nbytes_el: int, rate=None) -> tuple:
+    """(ms, "operations" or "bytes", flops, bytes): the larger of `flops`
+    over `rate` (the bf16 tensor-core rate for 2-byte elements, else the
+    float32 rate) and `nbytes` over HBM bandwidth."""
+    from repro_torch.launch import roofline as rl
+    if rate is None:
+        rate = rl.BF16_FLOPS_PER_S if nbytes_el == 2 else rl.F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate, nbytes / rl.HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -2639,14 +2658,10 @@ def wkv_bound(B, S, H, dh, nbytes_el, with_s0) -> tuple:
     """Least card time (ms) for one wkv call: r, k, v read once at their
     width, w read and out written in float32, u, s0 (when given) and
     s_fin in float32, over HBM bandwidth, against 2·dh² FMAs per (b, t,
-    h) over the float32 rate; the larger, and which it is."""
-    elems = B * S * H * dh
-    nbytes = (3 * nbytes_el + 4 + 4) * elems + 4 * H * dh \
-        + 4 * B * H * dh * dh * (2 if with_s0 else 1)
-    flops = 4 * dh * dh * B * S * H
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    h) over the float32 rate (`launch.roofline.wkv_cost`); the larger,
+    and which it is."""
+    from repro_torch.launch import roofline as rl
+    return float_bound(*rl.wkv_cost(B, S, H, dh, nbytes_el, with_s0), 4)
 
 
 def wkv_timing_phase(tr, device, seed: int, shapes: dict,
@@ -3529,13 +3544,10 @@ def scan_bound(B, S, D, N, with_h0) -> tuple:
     y written once, h0 (when given) read and h_fin written once, all
     float32, over HBM bandwidth, against 4 flops per (b, t, d, n) (a
     multiply and an add of the update, a multiply and an add of y's sum)
-    over the float32 rate; the larger, and which it is."""
-    nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D
-                  + B * D * N * (2 if with_h0 else 1))
-    flops = 4 * B * S * D * N
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    over the float32 rate (`launch.roofline.scan_cost`); the larger, and
+    which it is."""
+    from repro_torch.launch import roofline as rl
+    return float_bound(*rl.scan_cost(B, S, D, N, with_h0), 4)
 
 
 def scan_fused_bound(B, S, D, N, nbytes_el, with_h0, with_D) -> dict:
@@ -3546,20 +3558,25 @@ def scan_fused_bound(B, S, D, N, nbytes_el, with_h0, with_D) -> dict:
     products of b, the update's two, y's product and sum: 7 per (b, t, d,
     n), and the D skip's 2 per (b, t, d)) over the float32 rate; one ex2
     per (b, t, d, n) over the special-function units' rate. `bound_by` is
-    "bytes" or "operations", `term` names the term."""
-    elems = B * S * D * N
-    nbytes = (8 + nbytes_el) * B * S * D + 2 * nbytes_el * B * S * N \
-        + 4 * D * N + (4 * D if with_D else 0) \
-        + 4 * B * D * N * (2 if with_h0 else 1)
-    flops = 7 * elems + (2 * B * S * D if with_D else 0)
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "float32": flops / F32_FLOPS_PER_S,
-             "sfu": elems / SFU_OPS_PER_S}
+    "bytes" or "operations", `term` names the term. The flops and bytes
+    are `launch.roofline.scan_fused_cost`'s."""
+    from repro_torch.launch import roofline as rl
+    return three_terms(*rl.scan_fused_cost(B, S, D, N, nbytes_el, with_h0,
+                                           with_D), B * S * D * N)
+
+
+def three_terms(flops, nbytes, exps) -> dict:
+    """The largest of bytes over HBM bandwidth, float32 flops over the
+    float32 rate and `exps` ex2 over the special-function units' rate."""
+    from repro_torch.launch import roofline as rl
+    terms = {"bytes": nbytes / rl.HBM_BYTES_PER_S,
+             "float32": flops / rl.F32_FLOPS_PER_S,
+             "sfu": exps / rl.SFU_OPS_PER_S}
     term = max(terms, key=terms.get)
     return {"bound_ms": 1e3 * terms[term],
             "bound_by": "bytes" if term == "bytes" else "operations",
             "term": term, "terms_ms": {k: 1e3 * v for k, v in terms.items()},
-            "flops": flops, "exp": elems, "bytes": nbytes}
+            "flops": flops, "exp": exps, "bytes": nbytes}
 
 
 def scan_timing_phase(ts, device, seed: int, shapes: dict,
@@ -3802,14 +3819,11 @@ def bwd_bound(B, S, H, KV, dh, nbytes_el) -> tuple:
     """Least card time (ms) of the causal backward at (B, S, H/KV, dh):
     5 products of 2·dh flops per allowed (query, key) pair and head (the
     scores again, dP, dV, dK, dQ) over the bf16 rate, against q, k, v, o,
-    dO read and dq, dk, dv written once; the larger, and which."""
-    pairs = B * S * (S + 1) // 2
-    flops = 10 * dh * H * pairs
-    nbytes = nbytes_el * dh * (4 * B * S * H + 4 * B * S * KV)
-    rate = BF16_FLOPS_PER_S if nbytes_el == 2 else F32_FLOPS_PER_S
-    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    dO read and dq, dk, dv written once (`launch.roofline.bwd_cost`); the
+    larger, and which."""
+    from repro_torch.launch import roofline as rl
+    return float_bound(*rl.bwd_cost(B, S, S, H, KV, dh, nbytes_el),
+                       nbytes_el)
 
 
 def bwd_timing_phase(ta, device, seed: int, launches: dict,
@@ -3927,14 +3941,12 @@ def wkv_bwd_bound(B, S, H, dh, nbytes_el) -> dict:
     written once, u and du; against 14 flops per (b, t, h) and state
     entry (i, j) over the float32 rate: the state once (k·v and an FMA),
     G's update (r·dout and an FMA), and one FMA each of dr, dk, dv and
-    dw's sums. The larger, and which it is."""
-    elems = B * S * H * dh
-    nbytes = (6 * nbytes_el + 12) * elems + 8 * H * dh
-    flops = 14 * elems * dh
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+    dw's sums (`launch.roofline.wkv_bwd_cost`). The larger, and which it
+    is."""
+    from repro_torch.launch import roofline as rl
+    ms, by, flops, nbytes = float_bound(
+        *rl.wkv_bwd_cost(B, S, H, dh, nbytes_el), 4)
+    return {"bound_ms": ms, "bound_by": by, "flops": flops, "bytes": nbytes}
 
 
 def scan_bwd_bound(B, S, D, N, nbytes_el) -> dict:
@@ -3949,19 +3961,11 @@ def scan_bwd_bound(B, S, D, N, nbytes_el) -> dict:
     carry a·G, 1) and 8 per (b, t, d) (dt·x, 1; d(dt)'s FMA of that
     shared sum with x, 2; dx = sum·dt + D·dy, 3; dD's FMA, 2); one ex2
     per (b, t, d, n) over the special-function units' rate. `bound_by`
-    is "bytes" or "operations", `term` names the term."""
-    elems = B * S * D * N
-    nbytes = (12 + 2 * nbytes_el) * B * S * D + 4 * nbytes_el * B * S * N \
-        + 8 * D * N + 8 * D
-    flops = 19 * elems + 8 * B * S * D
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "float32": flops / F32_FLOPS_PER_S,
-             "sfu": elems / SFU_OPS_PER_S}
-    term = max(terms, key=terms.get)
-    return {"bound_ms": 1e3 * terms[term],
-            "bound_by": "bytes" if term == "bytes" else "operations",
-            "term": term, "terms_ms": {k: 1e3 * v for k, v in terms.items()},
-            "flops": flops, "exp": elems, "bytes": nbytes}
+    is "bytes" or "operations", `term` names the term. The flops and
+    bytes are `launch.roofline.scan_bwd_cost`'s."""
+    from repro_torch.launch import roofline as rl
+    return three_terms(*rl.scan_bwd_cost(B, S, D, N, nbytes_el),
+                       B * S * D * N)
 
 
 def bwd_kernel_check(name: str, got, want, names, tol: dict,
@@ -4505,6 +4509,10 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
     resume_launches = _all_launches()
     step_profile = (train_profile(model, state, loader.batch(steps), device)
                     if profile else None)
+    roofline = (train_roofline(model, state, {
+        k: torch.as_tensor(v, device=device)
+        for k, v in loader.batch(steps).items()}, steps)
+        if profile else None)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4559,7 +4567,7 @@ def train_arch_phase(args, device, name: str, published, cfg, want: dict,
                              f"plain: {check}")
     return {"launches": launches, "bwd_routes": bwd_routes,
             "grad_err": max(check["leaf_norm_rel"].values()),
-            "sharded": sharded}
+            "sharded": sharded, "roofline": roofline, "step_s": step_s}
 
 
 def train_rwkv_phase(args, device) -> dict:
@@ -4639,12 +4647,11 @@ def train_encdec_phase(args, device) -> dict:
 def int8_bound(B, S, T, H, KV, dh, q_bytes) -> tuple:
     """Least card time (ms) of int8 decode attention: K and V int8 and
     their bf16 scales read once, q read and o written once, against 4·dh
-    int8 operations a (row, key) over the int8 tensor-core rate."""
-    nbytes = 2 * B * T * KV * (dh + 2) + 2 * q_bytes * B * S * H * dh
-    ops = 4 * dh * B * S * H * T
-    t_ops, t_bytes = ops / 1979e12, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    int8 operations a (row, key) over the int8 tensor-core rate
+    (`launch.roofline.int8_cost`)."""
+    from repro_torch.launch import roofline as rl
+    return float_bound(*rl.int8_cost(B, S, T, H, KV, dh, q_bytes), q_bytes,
+                       rate=rl.INT8_OPS_PER_S)
 
 
 def int8_inputs_random(B, T, H, KV, dh, gen, device) -> tuple:
@@ -4714,8 +4721,9 @@ def int8_timing_phase(ta, device, seed: int, lm_int8: dict,
     int8_vs_bf16 = float((outs["cluster"].float() - ob.float()).abs().max()
                          ) / float(ob.float().abs().max())
     bound_ms, bound_by, ops, nbytes = int8_bound(B, 1, T, H, KV, dh, 2)
+    from repro_torch.launch import roofline as rl
     bf16_bound = 1e3 * (2 * B * T * KV * dh * 2 + 4 * B * H * dh) \
-        / HBM_BYTES_PER_S
+        / rl.HBM_BYTES_PER_S
     del kb, vb, qt, kt, vt, outs
     torch.cuda.empty_cache()
     for route, e in err.items():
@@ -4792,6 +4800,145 @@ def build_phase(libraries) -> None:
                         if "registers" in ln or "spill" in ln
                         or "Compiling entry" in ln]}
               for lib in libraries}})
+
+
+# ------------------------------------------------------------- roofline
+ROOFLINE_BYTES_TOL = 0.01     # aten bytes, card against meta (relative)
+
+
+def to_meta(tree):
+    """`tree` (dicts, lists, tuples of tensors) with each tensor of rank >=
+    1 on the meta device, same shape, dtype and strides; 0-dim tensors
+    (the step count, the cache's position: read on the host) copied to
+    the CPU."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_meta(v) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if tree.dim() == 0:
+        return tree.detach().cpu().clone()
+    return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype,
+                               device="meta")
+
+
+def count_step(name: str, fn, card_args: tuple) -> dict:
+    """`fn` once under the port's counter (`launch.hlo_cost.analyze_step`)
+    on the card, then on meta tensors of the same shapes: FLOPs and each
+    kernel's launches, flops and bytes must be equal, the aten ops' bytes
+    within ROOFLINE_BYTES_TOL. Returns the card's counts."""
+    import torch
+
+    from repro_torch.launch.hlo_cost import analyze_step
+    meta_args = to_meta(card_args)
+    card = analyze_step(fn, *card_args)
+    torch.cuda.synchronize()
+    meta = analyze_step(fn, *meta_args)
+
+    def aten_bytes(summary):
+        return summary.bytes_accessed - sum(
+            b for _, _, b in summary.kernels.values())
+    card_aten, meta_aten = aten_bytes(card), aten_bytes(meta)
+    out = {"flops": card.flops, "bytes": card.bytes_accessed,
+           "aten_bytes": card_aten, "meta_aten_bytes": meta_aten,
+           "meta_flops": meta.flops,
+           "kernels": {k: list(v) for k, v in card.kernels.items()},
+           "temp_bytes": card.temp_bytes}
+    if card.flops != meta.flops or card.kernels != meta.kernels:
+        raise AssertionError(f"roofline {name}: the card counted "
+                             f"{card.flops} flops and {card.kernels}, meta "
+                             f"{meta.flops} and {meta.kernels}")
+    if not abs(card_aten - meta_aten) <= ROOFLINE_BYTES_TOL * meta_aten:
+        raise AssertionError(f"roofline {name}: aten bytes {card_aten} on "
+                             f"the card, {meta_aten} on meta")
+    return out
+
+
+def lm_roofline(model, params, prompt, tokens) -> dict:
+    """The `lm` path's prefill of `prompt` (room for LM_TOKENS more) and
+    one decode step, each counted on the card and on meta (`count_step`)."""
+    from repro_torch.launch.serve import prefill
+
+    def pre(params, prompt):
+        return prefill(model, params, prompt, LM_TOKENS)
+    t0 = time.perf_counter()
+    _, cache = pre(params, prompt)
+    out = {"prefill": count_step("lm prefill", pre, (params, prompt)),
+           "decode": count_step("lm decode", model.decode_step,
+                                (params, cache,
+                                 {"tokens": tokens[:, :1].contiguous()}))}
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in cache.values())
+    out["count_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_roofline(model, state, batch, steps: int) -> dict:
+    """One more step of the `train` path's eager step (AdamW as `launch.
+    train.train` configures it) on `state`, counted on the card and on
+    meta (`count_step`)."""
+    from repro_torch.training import OptimizerConfig
+    from repro_torch.training.train_loop import make_train_step
+    t0 = time.perf_counter()
+    step = make_train_step(model, OptimizerConfig(
+        lr=TRAIN_LR, total_steps=steps, warmup_steps=max(steps // 10, 1)))
+    out = {"train": count_step("train", step, (state, batch))}
+    out["count_s"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_phase(card: str, lm: dict, train: dict) -> dict:
+    """The `lm` path's prefill and decode step and the `train` path's
+    step as counted on the card (and held to their meta counts by
+    `count_step`), beside the step times those paths measured (untimed,
+    outside the counter): `mfu` = counted FLOPs / (time × the bf16
+    peak), and `launch.roofline`'s roofline fraction and bottleneck on
+    one card."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import count_params
+    t0 = time.perf_counter()
+    lm_cfg = get_config(LM_ARCH).with_(n_layers=lm["layers"])
+    train_cfg = get_config(TRAIN_ARCH).with_(n_layers=TRAIN_LAYERS)
+    steps = {
+        "train": (train_cfg, ShapeCell("train", "train", TRAIN_SEQ,
+                                       TRAIN_BATCH),
+                  train["roofline"]["train"], train["step_s"]),
+        "lm_prefill": (lm_cfg, ShapeCell("prefill", "prefill", LM_PROMPT,
+                                         LM_BATCH),
+                       lm["roofline"]["prefill"], lm["prefill_s"]),
+        "lm_decode": (lm_cfg, ShapeCell("decode", "decode",
+                                        LM_PROMPT + LM_TOKENS, LM_BATCH),
+                      lm["roofline"]["decode"], lm["decode_step_s"]),
+    }
+    out = {}
+    for name, (cfg, cell, counts, step_s) in steps.items():
+        total, active = count_params(cfg)
+        mbytes = rl.model_bytes(cfg, cell, active,
+                                lm["roofline"]["cache_bytes"]) \
+            if cell.step == "decode" else 0.0
+        roof = rl.Roofline(counts["flops"], counts["bytes"], 0.0, 1, {},
+                           rl.model_flops(cfg, cell, total, active), mbytes,
+                           cell.step)
+        out[name] = {
+            "layers": cfg.n_layers, "batch": cell.global_batch,
+            "seq": cell.seq_len, "flops": counts["flops"],
+            "bytes": counts["bytes"], "aten_bytes": counts["aten_bytes"],
+            "meta_aten_bytes": counts["meta_aten_bytes"],
+            "kernels": counts["kernels"],
+            "step_s": step_s,
+            "mfu": counts["flops"] / (step_s * rl.PEAK_FLOPS),
+            "roofline_fraction": roof.roofline_fraction,
+            "achieved_over_bound": roof.t_bound / step_s,
+            "bottleneck": roof.bottleneck, "t_bound_s": roof.t_bound,
+            "model_flops": roof.model_flops_global}
+    # the counting ran inside the two paths' phases (count_s)
+    count_s = lm["roofline"]["count_s"] + train["roofline"]["count_s"]
+    emit({"phase": "roofline", "nvidia_smi": card, "steps": out,
+          "count_s": count_s, "wall_s": time.perf_counter() - t0 + count_s})
+    return out
 
 
 def main() -> int:
@@ -4891,6 +5038,7 @@ def main() -> int:
     bwd = bwd_timing_phase(ta, device, args.seed, train["launches"],
                            bwd_errs, train)
     kernels.append(bwd)
+    roofline_phase(card, lm, train)
     train_rwkv = train_rwkv_phase(args, device)
     kernels.append(wkv_bwd_timing_phase(tr, device, args.seed,
                                         train_rwkv["launches"],

@@ -40,6 +40,11 @@ dQ), by one of two routes (`plan_bwd`): bf16 at dh 64 and 128 on the
 tensor cores (`attention_bwd_tc.cu`), float32 and dh 32 on plain FMAs
 (`attention_bwd.cu`). Each kernel counts its calls in `LAUNCHES` under
 its own name, and `BWD_ROUTES` counts the backward's calls by route.
+
+Under a cost counter (`kernels/_cost.py`) each of the three wrappers
+records its call with `launch.roofline`'s `attn_cost`, `int8_cost` or
+`bwd_cost` (the shape-only count of allowed pairs), and on meta tensors
+only makes its outputs.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ from pathlib import Path
 
 import torch
 
+from ...launch.roofline import attn_cost, bwd_cost, int8_cost
+from .. import _cost
 from .._build import Library
 
 _MAX_GRID_YZ = 65535          # CUDA's limit on gridDim.y (KV) and .z (B)
@@ -208,6 +215,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key). Raises on what the kernel does not take (an `lse` where
     `forward_lse` is false among it) and when the launch fails; there is
     no other path."""
+    if _cost.ACTIVE:
+        B, S, H, dh = q.shape
+        return _cost.record(
+            "flash_attention",
+            attn_cost(B, S, k.shape[1], H, k.shape[2], dh, q.element_size(),
+                      causal, window,
+                      pos_elems=_numel(q_positions) + _numel(kv_positions)),
+            q, lambda: torch.empty_like(q),
+            lambda: _flash_attention(q, k, v, causal, window, q_positions,
+                                     kv_positions, lse))
+    return _flash_attention(q, k, v, causal, window, q_positions,
+                            kv_positions, lse)
+
+
+def _numel(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.numel()
+
+
+def _flash_attention(q, k, v, causal, window, q_positions, kv_positions,
+                     lse) -> torch.Tensor:
     _check(q, k, v, q_positions, kv_positions, window)
     if lse is not None:
         if not forward_lse(q, k):
@@ -355,6 +382,20 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card, by `plan_int8`'s route; returns (B, S, H, dh) in q's dtype.
     Raises on what the kernel does not take and when a launch fails (a
     cluster the card cannot place among them)."""
+    if _cost.ACTIVE:
+        B, S, H, dh = q.shape
+        return _cost.record(
+            "flash_decode_int8",
+            int8_cost(B, S, k.shape[1], H, k.shape[2], dh, q.element_size()),
+            q, lambda: torch.empty_like(q),
+            lambda: _flash_decode_int8(q, k, v, k_scale, v_scale, causal,
+                                       window, q_positions, kv_positions))
+    return _flash_decode_int8(q, k, v, k_scale, v_scale, causal, window,
+                              q_positions, kv_positions)
+
+
+def _flash_decode_int8(q, k, v, k_scale, v_scale, causal, window,
+                       q_positions, kv_positions) -> torch.Tensor:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
         raise ValueError(f"q must be (B, S, H, dh), k and v (B, T, KV, dh) "
@@ -470,6 +511,21 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp (float32 (B, S, H), as `flash_attention(..., lse=)`
     wrote it) or None, and then the pre-pass computes it. Raises on what
     the kernels do not take and when a launch fails."""
+    if _cost.ACTIVE:
+        B, S, H, dh = q.shape
+        return _cost.record(
+            "flash_bwd",
+            bwd_cost(B, S, k.shape[1], H, k.shape[2], dh, q.element_size(),
+                     causal, window),
+            q, lambda: tuple(torch.empty_like(x) for x in (q, k, v)),
+            lambda: _flash_bwd(q, k, v, out, dout, causal, window,
+                               q_positions, kv_positions, lse))
+    return _flash_bwd(q, k, v, out, dout, causal, window, q_positions,
+                      kv_positions, lse)
+
+
+def _flash_bwd(q, k, v, out, dout, causal, window, q_positions,
+               kv_positions, lse) -> tuple:
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}; "

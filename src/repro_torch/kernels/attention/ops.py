@@ -7,6 +7,10 @@ the plain version. Nothing falls back: without a card `device="cuda"`
 raises. Unlike the JAX wrapper this one never repeats K/V: the kernels
 map query head h to KV head h // (H // KV) by index.
 
+A meta tensor takes the plain version too, unless a cost counter is
+active (`kernels/_cost.py`): then it goes where a CUDA tensor goes, and
+the kernel's wrapper records the call and only makes its outputs.
+
 On the card `attention` is differentiable through `_FlashAttention`, a
 `torch.autograd.Function` whose forward is the flash kernel and whose
 backward is the `flash_bwd` kernel; on the CPU autograd differentiates
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .._cost import counts_meta
 from ..intersect.ops import resolve_device
 from .kernel import (flash_attention, flash_bwd, flash_decode_int8,
                      forward_lse)
@@ -87,7 +92,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     q = torch.as_tensor(q).to(dev)
     k, v = (torch.as_tensor(x).to(dev, q.dtype) for x in (k, v))
     q_positions, kv_positions = _positions(dev, q_positions, kv_positions)
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_positions=q_positions,
                              kv_positions=kv_positions)
@@ -119,7 +124,7 @@ def attention_int8(q, k, v, k_scale, v_scale, *, causal: bool = True,
     k_scale, v_scale = (torch.as_tensor(x).to(dev, torch.bfloat16)
                         for x in (k_scale, v_scale))
     q_positions, kv_positions = _positions(dev, q_positions, kv_positions)
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         return attention_int8_ref(q, k, v, k_scale, v_scale, causal=causal,
                                   window=window, q_positions=q_positions,
                                   kv_positions=kv_positions)
@@ -144,7 +149,7 @@ def attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     q, k, v, out, dout = (torch.as_tensor(x).to(dev)
                           for x in (q, k, v, out, dout))
     q_positions, kv_positions = _positions(dev, q_positions, kv_positions)
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         return attention_bwd_ref(q, k, v, out, dout, causal=causal,
                                  window=window, q_positions=q_positions,
                                  kv_positions=kv_positions)

@@ -39,6 +39,10 @@ two matrices and the chunk's inputs, `ref.wkv_bwd_chunks_ref`'s
 formulas) and a finish that adds du over (b, chunk) in one order.
 `plan_bwd` decides it, `LAUNCHES["wkv_bwd"]` counts it and `launch_bwd`
 is its bare call.
+
+Under a cost counter (`kernels/_cost.py`) both wrappers record their
+call with `launch.roofline`'s `wkv_cost` or `wkv_bwd_cost`, and on meta
+tensors only make their outputs.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...launch.roofline import wkv_bwd_cost, wkv_cost
+from .. import _cost
 from .._build import Library
 
 _MAX_INT = 2**31 - 1          # the most blocks a 1D grid takes
@@ -220,11 +226,25 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The wkv recurrence on the card. Raises on what the kernel does not
     take and when the launch fails; there is no other path."""
+    if _cost.ACTIVE:
+        return _cost.record(
+            "wkv", wkv_cost(*r.shape, r.element_size(), s0 is not None), r,
+            lambda: _wkv_outputs(r), lambda: _wkv_cuda(r, k, v, w, u, s0))
+    return _wkv_cuda(r, k, v, w, u, s0)
+
+
+def _wkv_outputs(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """out (B, S, H, dh) and s_fin (B, H, dh, dh), float32."""
+    B, S, H, dh = r.shape
+    return (torch.empty(r.shape, dtype=torch.float32, device=r.device),
+            torch.empty((B, H, dh, dh), dtype=torch.float32,
+                        device=r.device))
+
+
+def _wkv_cuda(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     _check(r, k, v, w, u, s0)
     B, S, H, dh = r.shape
-    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    s_fin = torch.empty((B, H, dh, dh), dtype=torch.float32,
-                        device=r.device)
+    out, s_fin = _wkv_outputs(r)
     with torch.cuda.device(r.device):
         launch(r, k, v, w, u, s0, out, s_fin)
     LAUNCHES["wkv"] += 1
@@ -276,13 +296,28 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients of `wkv_cuda(r, k, v, w, u, s0)` on the card, as
     `ref.wkv_bwd_ref` gives them. Raises on what the kernel does not take
     and when the launch fails; there is no other path."""
+    if _cost.ACTIVE:
+        return _cost.record(
+            "wkv_bwd", wkv_bwd_cost(*r.shape, r.element_size()), r,
+            lambda: _wkv_bwd_outputs(r, s0),
+            lambda: _wkv_bwd_cuda(r, k, v, w, u, s0, dout, ds_fin))
+    return _wkv_bwd_cuda(r, k, v, w, u, s0, dout, ds_fin)
+
+
+def _wkv_bwd_outputs(r: torch.Tensor, s0: torch.Tensor | None) -> tuple:
+    """dr, dk, dv in r's dtype, dw and du float32, ds0 or None."""
+    H, dh = r.shape[2:]
+    return (*(torch.empty_like(r) for _ in range(3)),
+            torch.empty(r.shape, dtype=torch.float32, device=r.device),
+            torch.empty((H, dh), dtype=torch.float32, device=r.device),
+            None if s0 is None else torch.empty_like(s0))
+
+
+def _wkv_bwd_cuda(r, k, v, w, u, s0, dout, ds_fin) -> tuple:
     _check(r, k, v, w, u, s0)
     _check_bwd(r, s0, dout, ds_fin)
     B, S, H, dh = r.shape
-    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
-    dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    du = torch.empty((H, dh), dtype=torch.float32, device=r.device)
-    ds0 = None if s0 is None else torch.empty_like(s0)
+    dr, dk, dv, dw, du, ds0 = _wkv_bwd_outputs(r, s0)
     scratch = torch.empty(plan_bwd(B, S, H, dh, r.dtype).scratch_floats,
                           dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

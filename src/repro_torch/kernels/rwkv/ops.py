@@ -7,6 +7,10 @@ CPU tensor takes the plain version. Nothing falls back: without a card
 `device="cuda"` raises. w, u and s0 must be float32 on either device, as
 the kernel takes them.
 
+A meta tensor takes the plain version too, unless a cost counter is
+active (`kernels/_cost.py`): then it goes where a CUDA tensor goes, and
+the kernel's wrapper records the call and only makes its outputs.
+
 On the card `wkv` is differentiable through `_WKV`, a
 `torch.autograd.Function` whose forward is the wkv kernel and whose
 backward is the `wkv_bwd` kernel; on the CPU autograd differentiates
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .._cost import counts_meta
 from ..intersect.ops import resolve_device
 from .kernel import wkv_bwd_cuda, wkv_cuda
 from .ref import wkv_ref
@@ -59,7 +64,7 @@ def wkv(r, k, v, w, u, s0=None, *, impl: str = "cuda", device="cuda"
     for name, x in (("w", w), ("u", u), ("s0", s0)):
         if x is not None and x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, not {x.dtype}")
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         return wkv_ref(r, k, v, w, u, s0)
     args = (r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
             u.contiguous(), None if s0 is None else s0.contiguous())

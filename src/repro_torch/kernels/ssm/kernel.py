@@ -34,6 +34,10 @@ S, D, N, dtype of x, h0 given, D given) for "selective_scan_fused".
 `launch`, `launch_fused` and `launch_bwd`
 are the bare calls beneath, for timing: they check nothing and count
 nothing. The library is built by nvcc on first launch, never at import.
+
+Under a cost counter (`kernels/_cost.py`) the three wrappers record
+their call with `launch.roofline`'s `scan_cost`, `scan_fused_cost` or
+`scan_bwd_cost`, and on meta tensors only make their outputs.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ from pathlib import Path
 
 import torch
 
+from ...launch.roofline import scan_bwd_cost, scan_cost, scan_fused_cost
+from .. import _cost
 from .._build import Library
 
 MAX_N = 32                    # a state row is one group of lanes in a warp
@@ -183,10 +189,25 @@ def selective_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selective scan on the card. Raises on what the kernel does not
     take and when the launch fails; there is no other path."""
+    if _cost.ACTIVE:
+        return _cost.record(
+            "selective_scan", scan_cost(*a.shape, h0 is not None), a,
+            lambda: _scan_outputs(a),
+            lambda: _selective_scan_cuda(a, b, c, h0))
+    return _selective_scan_cuda(a, b, c, h0)
+
+
+def _scan_outputs(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """y (B, S, D) and h_fin (B, D, N), float32."""
+    B, S, D, N = a.shape
+    return (torch.empty((B, S, D), dtype=torch.float32, device=a.device),
+            torch.empty((B, D, N), dtype=torch.float32, device=a.device))
+
+
+def _selective_scan_cuda(a, b, c, h0) -> tuple[torch.Tensor, torch.Tensor]:
     _check(a, b, c, h0)
     B, S, D, N = a.shape
-    y = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
-    h_fin = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+    y, h_fin = _scan_outputs(a)
     with torch.cuda.device(a.device):
         launch(a, b, c, h0, y, h_fin)
     LAUNCHES["selective_scan"] += 1
@@ -209,20 +230,44 @@ def selective_scan_fused_cuda(dt: torch.Tensor, A: torch.Tensor,
     state before every `BWD_CHUNK`-th step as a third output. Raises on
     what the kernel does not take and when the launch fails; there is no
     other path."""
+    if _cost.ACTIVE:
+        return _cost.record(
+            "selective_scan_fused",
+            scan_fused_cost(*dt.shape, A.shape[1], x.element_size(),
+                            h0 is not None, D is not None),
+            dt, lambda: _fused_outputs(dt, A, states),
+            lambda: _selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0,
+                                               states))
+    return _selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0, states)
+
+
+def _fused_outputs(dt: torch.Tensor, A: torch.Tensor, states: bool
+                   ) -> tuple:
+    """y (B, S, D) and h_fin (B, D, N) float32, and with `states` the
+    saved states."""
+    Bsz, S, Di = dt.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    y = torch.empty((Bsz, S, Di), **f32)
+    h_fin = torch.empty((Bsz, Di, N), **f32)
+    if not states:
+        return y, h_fin
+    return y, h_fin, torch.empty(states_shape(Bsz, S, Di, N), **f32)
+
+
+def _selective_scan_fused_cuda(dt, A, B_, C_, x, D, h0, states) -> tuple:
     _check_fused(dt, A, B_, C_, x, D, h0)
     Bsz, S, Di = dt.shape
     N = A.shape[1]
-    y = torch.empty((Bsz, S, Di), dtype=torch.float32, device=dt.device)
-    h_fin = torch.empty((Bsz, Di, N), dtype=torch.float32, device=dt.device)
-    saved = (torch.empty(states_shape(Bsz, S, Di, N), dtype=torch.float32,
-                         device=dt.device) if states else None)
+    outs = _fused_outputs(dt, A, states)
     with torch.cuda.device(dt.device):
-        launch_fused(dt, A, B_, C_, x, D, h0, y, h_fin, saved)
+        launch_fused(dt, A, B_, C_, x, D, h0, *outs[:2],
+                     outs[2] if states else None)
     LAUNCHES["selective_scan_fused"] += 1
     LAUNCH_SHAPES["selective_scan_fused"][
         (Bsz, S, Di, N, str(x.dtype).removeprefix("torch."), h0 is not None,
          D is not None)] += 1
-    return (y, h_fin, saved) if states else (y, h_fin)
+    return outs
 
 
 def _ptr(t: torch.Tensor | None):
@@ -287,6 +332,32 @@ def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy, dh_fin,
     from the `states` that forward wrote with `states=True`. Raises on
     what the kernel does not take and when the launch fails; there is no
     other path."""
+    if _cost.ACTIVE:
+        return _cost.record(
+            "selective_scan_fused_bwd",
+            scan_bwd_cost(*dt.shape, A.shape[1], x.element_size()), dt,
+            lambda: _fused_bwd_outputs(dt, A, x, D, h0),
+            lambda: _selective_scan_fused_bwd_cuda(
+                dt, A, B_, C_, x, D, h0, dy, dh_fin, states))
+    return _selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy,
+                                          dh_fin, states)
+
+
+def _fused_bwd_outputs(dt, A, x, D, h0) -> tuple:
+    """d(dt), dA, dB_, dC_, dx, dD (or None), dh0 (or None)."""
+    Bsz, S, Di = dt.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    return (torch.empty((Bsz, S, Di), **f32), torch.empty((Di, N), **f32),
+            *(torch.empty((Bsz, S, N), dtype=x.dtype, device=dt.device)
+              for _ in range(2)),
+            torch.empty_like(x),
+            None if D is None else torch.empty((Di,), **f32),
+            None if h0 is None else torch.empty((Bsz, Di, N), **f32))
+
+
+def _selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy, dh_fin,
+                                   states) -> tuple:
     _check_fused(dt, A, B_, C_, x, D, h0)
     Bsz, S, Di = dt.shape
     N = A.shape[1]
@@ -308,13 +379,7 @@ def selective_scan_fused_bwd_cuda(dt, A, B_, C_, x, D, h0, dy, dh_fin,
         raise ValueError(f"shape {(Bsz, S, Di, N)} exceeds the backward's "
                          "grid")
     f32 = dict(dtype=torch.float32, device=dt.device)
-    ddt = torch.empty((Bsz, S, Di), **f32)
-    dA = torch.empty((Di, N), **f32)
-    dB, dC = (torch.empty((Bsz, S, N), dtype=x.dtype, device=dt.device)
-              for _ in range(2))
-    dx = torch.empty_like(x)
-    dD = None if D is None else torch.empty((Di,), **f32)
-    dh0 = None if h0 is None else torch.empty((Bsz, Di, N), **f32)
+    ddt, dA, dB, dC, dx, dD, dh0 = _fused_bwd_outputs(dt, A, x, D, h0)
     scratch = torch.empty(plan["scratch_floats"], **f32)
     with torch.cuda.device(dt.device):
         launch_bwd(dt, A, B_, C_, x, D, h0, dy, dh_fin, states, ddt, dA, dB,

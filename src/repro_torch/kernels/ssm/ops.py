@@ -9,6 +9,10 @@ comparison; a CPU tensor takes the plain version. Nothing falls back:
 without a card `device="cuda"` raises. An input of a dtype the kernel
 does not take raises on either device, as the kernel would.
 
+A meta tensor takes the plain version too, unless a cost counter is
+active (`kernels/_cost.py`): then it goes where a CUDA tensor goes, and
+the kernel's wrapper records the call and only makes its outputs.
+
 On the card `selective_scan_fused` is differentiable through
 `_ScanFused`, a `torch.autograd.Function` whose forward is the fused
 scan kernel and whose backward is the `selective_scan_fused_bwd` kernel;
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .._cost import counts_meta
 from ..intersect.ops import resolve_device
 from .kernel import (check_fused_inputs, check_inputs, row_stride,
                      selective_scan_cuda, selective_scan_fused_bwd_cuda,
@@ -64,7 +69,7 @@ def selective_scan(a, b, c, h0=None, *, impl: str = "cuda", device="cuda"
     dev = resolve_device(device)
     a, b, c = (torch.as_tensor(x).to(dev) for x in (a, b, c))
     h0 = None if h0 is None else torch.as_tensor(h0).to(dev)
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         check_inputs(a, b, c, h0)       # the kernel's wrapper checks its own
         return selective_scan_ref(a, b, c, h0)
     return selective_scan_cuda(a.contiguous(), b.contiguous(), c.contiguous(),
@@ -85,7 +90,7 @@ def selective_scan_fused(dt, A, B_, C_, x, D=None, h0=None, *,
                                                               x))
     D, h0 = (None if t is None else torch.as_tensor(t).to(dev)
              for t in (D, h0))
-    if impl == "ref" or dev.type != "cuda":
+    if impl == "ref" or dev.type != "cuda" and not counts_meta(dev):
         check_fused_inputs(dt, A, B_, C_, x, D, h0)
         return selective_scan_fused_ref(dt, A, B_, C_, x, D, h0)
     B_, C_ = (t if t.dim() == 3 and row_stride(t) is not None

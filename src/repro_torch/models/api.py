@@ -1,11 +1,13 @@
-"""Model factory and input descriptors for every (arch × shape) cell."""
+"""Model factory, input descriptors and input specs for every (arch ×
+shape) cell."""
 
 from __future__ import annotations
 
 import torch
 
-from ..configs import ModelConfig, ShapeCell
-from .common import Desc
+from ..configs import SHAPES, ModelConfig, ShapeCell
+from ..configs.seamless_m4t_medium import ENC_FRAMES
+from .common import NULL_RULES, AxisRules, Desc, abstract_params
 from .encdec import EncDecModel
 from .hybrid import HybridModel
 from .rwkv_model import RWKVModel
@@ -65,3 +67,21 @@ def batch_desc(cfg: ModelConfig, cell: ShapeCell) -> dict:
     if cell.step == "train":
         d["labels"] = Desc((B, S), ("dp", None), dtype=torch.int32)
     return d
+
+
+def input_specs(cfg: ModelConfig, cell_name: str,
+                rules: AxisRules | None = None) -> dict:
+    """Meta stand-ins for every model input of a cell, as the JAX
+    package's `input_specs` gives its `ShapeDtypeStruct`s: {"batch": ...}
+    and, at decode, {"cache": ...} (the encoder-decoder's with
+    `ENC_FRAMES` encoder frames). With `rules` over a mesh, meta DTensors
+    placed by `AxisRules.physical` of each leaf's axes. Nothing is
+    allocated."""
+    cell = SHAPES[cell_name]
+    model = build_model(cfg)
+    specs: dict = {"batch": batch_desc(cfg, cell)}
+    if cell.step == "decode":
+        extra = {"enc_len": ENC_FRAMES} if cfg.kind == "encdec" else {}
+        specs["cache"] = model.cache_desc(cell.global_batch, cell.seq_len,
+                                          **extra)
+    return abstract_params(specs, rules or NULL_RULES)

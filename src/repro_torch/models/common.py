@@ -388,6 +388,21 @@ def distribute_params(params, desc, rules: AxisRules):
     return tree_unflatten(params, flat)
 
 
+def abstract_params(tree, rules: AxisRules = NULL_RULES) -> Any:
+    """Meta tensors of a `Desc` tree's shapes and dtypes (the dry-run's
+    arguments: no memory is ever allocated); with a mesh in `rules`,
+    meta DTensors placed by the leaves' resolved axes."""
+    def leaf(d: Desc) -> torch.Tensor:
+        t = torch.empty(d.shape, dtype=d.dtype, device="meta")
+        if rules.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, rules.mesh,
+                                 rules.placements(d.axes, d.shape),
+                                 src_data_rank=None)
+    return tree_map(leaf, tree)
+
+
 def remat(cfg, fn, *args):
     """fn(*args), its activations recomputed in backward (JAX's
     `maybe_remat`) when `cfg.remat` is not "none" and a gradient can reach

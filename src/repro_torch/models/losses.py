@@ -10,7 +10,8 @@ are recomputed in backward instead of kept for every chunk (at V =
 `torch.matmul`, as the JAX package leaves them to XLA outside any Pallas
 kernel. The logits are the JAX package's `preferred_element_type=float32`
 product: on a card, bf16 operands go to the tensor cores with a float32
-output (`torch.mm(..., out_dtype=torch.float32)`); elsewhere both are
+output (`torch.mm(..., out_dtype=torch.float32)`), and so do meta
+tensors, so that the dry-run counts the card's ops; elsewhere both are
 cast to float32 first, which gives the same products. Their gradients
 are float32 products, as autograd of the float32 cast computes them.
 
@@ -39,7 +40,8 @@ from .common import NULL_RULES, AxisRules, replicating
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, c, D) · w (V, D)^T → float32 (B, c, V)."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+    if x.device.type in ("cuda", "meta") \
+            and x.dtype == w.dtype == torch.bfloat16:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w.T,
                        out_dtype=torch.float32)
         return out.view(*x.shape[:-1], w.shape[0])

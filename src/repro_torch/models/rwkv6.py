@@ -49,13 +49,19 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def group_norm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     n_heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm with one group per head over the flattened (H*dh) dim."""
+                     n_heads: int, eps: float = 1e-5,
+                     rules: AxisRules = NULL_RULES) -> torch.Tensor:
+    """GroupNorm with one group per head over the flattened (H*dh) dim.
+    Under a mesh the flattened result is pinned to ("dp", None, None), so
+    that its gradient, which the products after it may shard over "tp",
+    is gathered before the heads are split again in backward: DTensor
+    cannot unflatten an uneven split (40 heads over 16 ranks)."""
     shape = x.shape
     x32 = x.reshape(shape[:-1] + (n_heads, shape[-1] // n_heads)).float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, correction=0)
-    normed = ((x32 - mu) * torch.rsqrt(var + eps)).reshape(shape)
+    normed = rules.constrain(((x32 - mu) * torch.rsqrt(var + eps)).reshape(
+        shape), "dp", None, None)
     return normed.to(x.dtype) * w + b
 
 
@@ -177,7 +183,7 @@ def rwkv_time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
     out, s_fin = _wkv(r, k, v, torch.exp(logw), p["u"].float(), s0, rules,
                       wkv_impl, x.device)
     out = group_norm_heads(out.to(r.dtype).reshape(B, S, D), p["lnx_w"],
-                           p["lnx_b"], H)
+                           p["lnx_b"], H, rules=rules)
     out = (out * g) @ p["wo"]
     return rules.constrain(out, "dp", None, None), {"shift_t": x[:, -1],
                                                     "S": s_fin}

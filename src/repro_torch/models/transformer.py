@@ -248,7 +248,8 @@ class TransformerModel:
 
         kpos = torch.full((T,), -1, dtype=torch.int32, device=x.device)
         # a VLM's cache keeps batch row 0's temporal ids, as JAX's does
-        kpos[:S] = q_pos[0] if q_pos.dim() == 2 else q_pos
+        # (whole: under a mesh a batch's ids may be sharded over "dp")
+        kpos[:S] = whole(q_pos[0] if q_pos.dim() == 2 else q_pos)
         cache = {"k": ks, "v": vs, "kpos": kpos,
                  "pos": torch.tensor(S, dtype=torch.int32)}
         if cfg.kv_quant:
